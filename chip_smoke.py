@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — retrieval-conditioned RDM sampling at the
-ImageNet RDM width — through its public entry points, on random weights
-made from a seed. Phases (each prints one line; any failure raises and the
-script exits non-zero):
+Drives the port's two serving paths — retrieval-conditioned RDM sampling
+at the ImageNet RDM width, and KV-cached RARM token sampling at the
+ImageNet-dogs RARM width — through their public entry points, on random
+weights made from a seed. Phases (each prints one line or a few; any
+failure raises and the script exits non-zero):
 
   1. device    CUDA must be available; prints nvidia-smi's name and power
                limit of the card.
@@ -21,12 +22,29 @@ script exits non-zero):
   5. serve     an RDMPipeline over a 1,281,280 x 512 table made on the
                card answers a sample_with_query and a sample_unconditional
                request (batch 4, DDIM-50, guidance 2.0, k = 4, shared CFG).
+  6. rarm_kernels  each RARM decode kernel against its plain PyTorch version
+               at full width (C = 768, 12 heads of 64, T = 256, F = 3072,
+               bf16) at B = 16 and 32, pos 0/63/200/255, k = 4 context
+               rows: error and median CUDA-event times; then decode_attn's
+               attention output on 24 more seeds (144 cases).
+  7. rarm_forward  32 teacher-forced decode steps of the full-width RARM
+               (depth 18) through the kernel path, CUDA bf16, against the
+               CPU f32 teacher-forced forward over the same tokens.
+  8. rarm_serve    a RARMPipeline (VQ-f16 first stage) over phase 5's table
+               answers a sample_with_query (batch 16, k = 4, top_k 256,
+               guidance 1.0) and a sample_unconditional (batch 16,
+               guidance 2.0: a decode batch of 32) request, 256 tokens
+               each; then a greedy 32-step decode with the batched
+               commit_rows path must give the default path's tokens.
 
-The second-to-last line is one JSON object with the per-kernel numbers
-(`ms` / `plain_ms`: the sum over the three sites of the median kernel /
-plain-version times; `max_abs_err`: the largest over the sites; `launches`:
-the count over the two serve requests); the last line is
-{"ok": true, "device": {...}}.
+The second-to-last line is one JSON object with the per-kernel numbers. For
+the block kernels `ms` / `plain_ms` are the sum over the three sites of the
+median kernel / plain-version times, `max_abs_err` the largest over the
+sites and `launches` the count over the two RDM serve requests; for the
+decode kernels `ms` / `plain_ms` are the mean over the eight (B, pos) cases,
+`max_abs_err` the largest, and `launches` the count over the two RARM
+requests (`commit_rows`: over the batched-commit decode, the path that
+runs it). The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -63,6 +81,26 @@ KERNEL_INFO = {
     "geglu_ff": ("rdm_tpu_torch/csrc/geglu_ff.cu",
                  "rdm_tpu/ops/block_kernel.py:423"),
 }
+DECODE_INFO = {
+    "decode_attn": ("rdm_tpu_torch/csrc/decode_attn.cu",
+                    "rdm_tpu/ops/decode_kernel.py:135",
+                    ["rdm_tpu_torch/csrc/decode_qkv.cu",
+                     "rdm_tpu_torch/csrc/decode_attn.cu"]),
+    "decode_post_ff": ("rdm_tpu_torch/csrc/decode_post_ff.cu",
+                       "rdm_tpu/ops/decode_kernel.py:275",
+                       ["rdm_tpu_torch/csrc/decode_post_ff.cu",
+                        "rdm_tpu_torch/csrc/geglu_ff.cu"]),
+    "commit_rows": ("rdm_tpu_torch/csrc/commit_rows.cu",
+                    "rdm_tpu/ops/decode_kernel.py:352",
+                    ["rdm_tpu_torch/csrc/commit_rows.cu"]),
+}
+RARM_BATCHES = (16, 32)           # B = 16, and 32 under CFG
+RARM_POSITIONS = (0, 63, 200, 255)
+RARM_SWEEP_SEEDS = 24             # more inputs for decode_attn's attention
+RARM_FORWARD_STEPS = 32
+# CUDA bf16 decode path vs CPU f32 teacher-forced forward, relative L2 of
+# the logits: bf16 activations through 18 residual layers, as the U-Net's.
+RARM_FORWARD_TOL = 3e-2
 
 
 def say(phase: str, msg: str) -> None:
@@ -271,7 +309,15 @@ def phase_forward(rdm_sd: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_serve(rdm_sd: dict, vq_sd: dict) -> dict:
+def make_table(n_db: int = 1_281_280) -> torch.Tensor:
+    """The retrieval table, made on the card: n_db unit rows x 512."""
+    from rdm_tpu_torch.retrieval.engine import l2_normalize
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    return l2_normalize(torch.randn(n_db, 512, generator=g, device="cuda"))
+
+
+def phase_serve(rdm_sd: dict, vq_sd: dict, emb: torch.Tensor) -> dict:
     """Two requests through the pipeline; returns the launch counts."""
     from rdm_tpu_torch.config import AutoencoderConfig, RDMConfig
     from rdm_tpu_torch.ops import block_kernel as bk
@@ -279,10 +325,8 @@ def phase_serve(rdm_sd: dict, vq_sd: dict) -> dict:
     from rdm_tpu_torch.retrieval.database import DataPool
     from rdm_tpu_torch.retrieval.engine import knn_search, l2_normalize
 
-    n_db, batch, steps = 1_281_280, 4, 50
+    n_db, batch, steps = emb.shape[0], 4, 50
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    emb = torch.randn(n_db, 512, generator=g, device="cuda")
-    emb = l2_normalize(emb)
     queries = torch.randn(batch, 512, generator=g, device="cuda")
     qids = torch.randint(0, n_db, (batch,), generator=g,
                          device="cuda").cpu().numpy()
@@ -335,6 +379,333 @@ def phase_serve(rdm_sd: dict, vq_sd: dict) -> dict:
     return bk.launch_counts()
 
 
+def _decode_tensors(b: int, g: torch.Generator) -> dict:
+    """Full-width RARM layer inputs and kernel-layout weights, bf16 (f32
+    norms and biases): C = 768, 12 heads, T = 256, F = 3072, k = 4."""
+    from rdm_tpu_torch.config import RARMConfig
+
+    cfg = RARMConfig.imagenet_dogs()
+    c, t, f, s = cfg.inner_dim, cfg.seq_len, 4 * cfg.inner_dim, CONTEXT
+    dev, bf = "cuda", torch.bfloat16
+
+    def rn(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(shape, generator=g, device=dev)
+                * scale).to(dtype)
+
+    def w(k, n):
+        return rn(k, n, scale=k ** -0.5)
+
+    def vec(n, mean=0.0):
+        return mean + 0.1 * torch.randn(n, generator=g, device=dev)
+
+    return dict(
+        x=rn(b, c), kc=rn(t, b, c), vc=rn(t, b, c), ck=rn(s, b, c),
+        cv=rn(s, b, c), n1s=vec(c, 1.0), n1b=vec(c), wqkv=w(c, 3 * c),
+        wo=w(c, c), bo=vec(c), n2s=vec(c, 1.0), n2b=vec(c), wq2=w(c, c),
+        wo2=w(c, c), bo2=vec(c), n3s=vec(c, 1.0), n3b=vec(c), wa=w(c, f),
+        wg=w(c, f), ba=vec(f), bg=vec(f), w2=w(f, c), b2=vec(c),
+        rows=[rn(1, b, c) for _ in range(2 * cfg.depth)],
+        caches=[rn(t, b, c) for _ in range(2 * cfg.depth)])
+
+
+def _hold(what: str, outs, exact: bool = False) -> list:
+    """Holds each (label, kernel output, plain output) against the plain
+    output's own max|ref| (KERNEL_TOL), or bit for bit with `exact`;
+    returns [(label, max|err|, max|err| / max|ref|)]."""
+    errs = []
+    for label, got, want in outs:
+        got, want = got.float(), want.float()
+        if not torch.isfinite(got).all():
+            raise RuntimeError(f"{what}: non-finite {label}")
+        err = (got - want).abs().max().item()
+        rel = err / want.abs().max().item()
+        if exact and not torch.equal(got, want):
+            raise RuntimeError(f"{what}: {label} differs from the plain "
+                               f"version (max|err| {err})")
+        if not rel <= KERNEL_TOL:
+            raise RuntimeError(f"{what}: {label} relative error {rel} > "
+                               f"{KERNEL_TOL}")
+        errs.append((label, err, rel))
+    return errs
+
+
+def phase_rarm_kernels() -> dict:
+    """Per decode kernel: {'max_abs_err', 'ms', 'plain_ms', 'cases'}.
+
+    decode_attn's attention output, k_new and v_new are each held against
+    their own scale (the attention output, an average over pos + 1 rows,
+    is ~10x smaller than the caches), and its cache commit bit for bit:
+    row pos holds k_new / v_new, every other row is untouched. Its
+    `max_abs_err` is the attention output's. commit_rows must match its
+    plain version exactly."""
+    from rdm_tpu_torch.ops import decode_kernel as dk
+
+    heads, hd = 12, 64
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    results = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                      "cases": []} for name in DECODE_INFO}
+    for b in RARM_BATCHES:
+        t = _decode_tensors(b, g)
+        caches_k = [a.clone() for a in t["caches"]]
+        caches_p = [a.clone() for a in t["caches"]]
+        keep = torch.ones(t["kc"].shape[0], dtype=torch.bool, device="cuda")
+        for pos in RARM_POSITIONS:
+            what = f"B={b} pos={pos}"
+            kc_k, vc_k = t["kc"].clone(), t["vc"].clone()   # kernel's caches
+            kc_p, vc_p = t["kc"].clone(), t["vc"].clone()   # plain's caches
+            attn_args = (t["n1s"], t["n1b"], t["wqkv"])
+            ff = [t["x"], None, t["ck"], t["cv"], t["wo"], t["bo"],
+                  t["n2s"], t["n2b"], t["wq2"], t["wo2"], t["bo2"],
+                  t["n3s"], t["n3b"], t["wa"], t["wg"], t["ba"], t["bg"],
+                  t["w2"], t["b2"]]
+            calls = {
+                "decode_attn": (
+                    lambda: dk.decode_attn(t["x"], pos, kc_k, vc_k,
+                                           *attn_args, heads=heads,
+                                           head_dim=hd),
+                    lambda: dk.decode_attn_reference(
+                        t["x"], pos, kc_p, vc_p, *attn_args, heads=heads,
+                        head_dim=hd)),
+                "decode_post_ff": (
+                    lambda: dk.decode_post_ff(*ff, heads=heads, head_dim=hd),
+                    lambda: dk.decode_post_ff_reference(*ff, heads=heads,
+                                                        head_dim=hd)),
+                "commit_rows": (
+                    lambda: dk.commit_rows(pos, caches_k, t["rows"]),
+                    lambda: dk.commit_rows_reference(pos, caches_p,
+                                                     t["rows"])),
+            }
+            for name, (kern, plain) in calls.items():
+                got = kern()
+                torch.cuda.synchronize()
+                want = plain()
+                if name == "decode_attn":
+                    errs = _hold(f"decode_attn {what}", zip(
+                        ("attn", "k_new", "v_new"), got, want))
+                    keep[pos] = False
+                    for label, cache, new, old in (
+                            ("k", kc_k, got[1], t["kc"]),
+                            ("v", vc_k, got[2], t["vc"])):
+                        if not (torch.equal(cache[pos], new)
+                                and torch.equal(cache[keep], old[keep])):
+                            raise RuntimeError(
+                                f"decode_attn {what}: the {label} cache is "
+                                f"not its old rows with row {pos} = "
+                                f"{label}_new")
+                    keep[pos] = True
+                    ff[1] = want[0]   # decode_post_ff's input
+                    detail = "; ".join(f"{lab} {rel:.3e}"
+                                       for lab, _, rel in errs[1:])
+                    detail += "; cache rows exact"
+                elif name == "commit_rows":
+                    errs = _hold(f"commit_rows {what}", [
+                        (f"cache {i}", k, p)
+                        for i, (k, p) in enumerate(zip(got, want))],
+                        exact=True)
+                    errs = [max(errs, key=lambda e: e[1])]
+                    detail = f"all {len(got)} caches exact"
+                else:
+                    errs = _hold(f"decode_post_ff {what}",
+                                 [("x_out", got, want)])
+                    detail = ""
+                _, err, rel = errs[0]
+                ms, plain_ms = median_ms(kern), median_ms(plain)
+                say("rarm_kernels", f"{name:14s} {what:13s}: max|err| "
+                    f"{err:.4g}, /max|ref| {rel:.3e} (limit {KERNEL_TOL:g})"
+                    f"{'; ' + detail if detail else ''}; kernel {ms:.4f} "
+                    f"ms, plain {plain_ms:.4f} ms")
+                res = results[name]
+                res["max_abs_err"] = max(res["max_abs_err"], err)
+                res["cases"].append({
+                    "B": b, "pos": pos, "max_abs_err": err,
+                    "rel_err": {lab: r for lab, _, r in errs}, "ms": ms,
+                    "plain_ms": plain_ms})
+        del t, caches_k, caches_p, kc_k, vc_k, kc_p, vc_p
+        torch.cuda.empty_cache()
+    for res in results.values():
+        n = len(res["cases"])
+        res["ms"] = sum(c["ms"] for c in res["cases"]) / n
+        res["plain_ms"] = sum(c["plain_ms"] for c in res["cases"]) / n
+
+    # The attention output is the output most sensitive to rounding (the
+    # softmax amplifies any difference in q), so hold it on more inputs.
+    rels = []
+    for seed in range(RARM_SWEEP_SEEDS):
+        g = torch.Generator(device="cuda").manual_seed(SEED + 100 + seed)
+        for b in RARM_BATCHES:
+            t = _decode_tensors(b, g)
+            for pos in RARM_POSITIONS[1:]:
+                got, want = (fn(t["x"], pos, t["kc"].clone(), t["vc"].clone(),
+                                t["n1s"], t["n1b"], t["wqkv"], heads=heads,
+                                head_dim=hd)[0]
+                             for fn in (dk.decode_attn,
+                                        dk.decode_attn_reference))
+                rels.append(_hold(f"decode_attn seed {seed} B={b} pos={pos}",
+                                  [("attn", got, want)])[0][2])
+            del t
+    results["decode_attn"]["sweep_rel_err"] = {
+        "cases": len(rels), "max": max(rels), "median": float(np.median(rels))}
+    say("rarm_kernels", f"decode_attn over {RARM_SWEEP_SEEDS} more seeds x "
+        f"B {RARM_BATCHES} x pos {RARM_POSITIONS[1:]}: attention output "
+        f"/max|ref| max {max(rels):.3e}, median {np.median(rels):.3e} "
+        f"(limit {KERNEL_TOL:g})")
+    return results
+
+
+def phase_rarm_forward(rarm_sd: dict) -> None:
+    from rdm_tpu_torch.config import RARMConfig
+    from rdm_tpu_torch.models.rarm import (RARM, FusedDecoder,
+                                           extract_decode_weights)
+    from rdm_tpu_torch.ops import decode_kernel as dk
+    from rdm_tpu_torch.pipeline import cast_params_for_inference
+
+    cfg = RARMConfig.imagenet_dogs()
+    steps, batch = RARM_FORWARD_STEPS, 2
+    g = torch.Generator().manual_seed(SEED + 5)
+    tokens = torch.cat([
+        torch.full((batch, 1), cfg.sos_token, dtype=torch.long),
+        torch.randint(0, cfg.out_vocab, (batch, steps - 1), generator=g)],
+        dim=1)
+    ctx = torch.randn(batch, CONTEXT, cfg.context_dim, generator=g)
+    with torch.device("meta"):  # bound to the seeded weights below
+        cpu, gpu = RARM(cfg), RARM(cfg, dtype=torch.bfloat16)
+    cpu.load_state_dict(rarm_sd, assign=True)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        want = cpu.eval()(tokens, ctx)
+    cpu_s = time.perf_counter() - t0
+    del cpu
+
+    gpu.load_state_dict(rarm_sd, assign=True)
+    gpu = cast_params_for_inference(gpu.cuda().eval(), torch.bfloat16)
+    weights = extract_decode_weights(gpu, torch.bfloat16)
+    dk.reset_launch_counts()
+    with torch.inference_mode():
+        dec = FusedDecoder(gpu, ctx.cuda(), weights)
+        tok = tokens.cuda()
+        got = torch.stack([dec.step(tok[:, p], p) for p in range(steps)],
+                          dim=1).cpu()
+    counts = dk.launch_counts()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise RuntimeError(f"decode logits {tuple(got.shape)} not finite")
+    rel = ((got - want).norm() / want.norm()).item()
+    say("rarm_forward", f"ImageNet-dogs RARM, {steps} teacher-forced decode "
+        f"steps at batch {batch}, context [{batch},{CONTEXT},512]: rel L2 "
+        f"err of the logits, CUDA bf16 kernel path vs CPU f32 forward "
+        f"{rel:.3e} (limit {RARM_FORWARD_TOL:g}); CPU f32 {cpu_s:.1f} s; "
+        f"launches {counts}")
+    if not rel <= RARM_FORWARD_TOL:
+        raise RuntimeError(f"RARM decode relative error {rel} > "
+                           f"{RARM_FORWARD_TOL}")
+    want_n = cfg.depth * steps
+    if counts["decode_attn"] != want_n or counts["decode_post_ff"] != want_n:
+        raise RuntimeError(f"expected {want_n} launches per decode kernel, "
+                           f"got {counts}")
+    del gpu, dec, weights
+    torch.cuda.empty_cache()
+
+
+def phase_rarm_serve(rarm_sd: dict, vq_sd: dict, emb: torch.Tensor) -> dict:
+    """Two 256-token requests through the RARM pipeline, then the batched
+    commit path; returns the launch counts of each path."""
+    from rdm_tpu_torch.config import AutoencoderConfig, RARMConfig
+    from rdm_tpu_torch.models.rarm import sample_tokens_fused
+    from rdm_tpu_torch.ops import decode_kernel as dk
+    from rdm_tpu_torch.pipeline import RARMPipeline
+    from rdm_tpu_torch.retrieval.database import DataPool
+
+    cfg = RARMConfig.imagenet_dogs()
+    n_db, batch = emb.shape[0], 16
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    queries = torch.randn(batch, 512, generator=g, device="cuda")
+    qids = torch.randint(0, n_db, (batch,), generator=g,
+                         device="cuda").cpu().numpy()
+    t0 = time.perf_counter()
+    pipe = RARMPipeline(cfg, rarm_sd, AutoencoderConfig.vq_f16(), vq_sd,
+                        pool=DataPool(embeddings=emb), device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    neighbors = pipe.retrieval.search(queries, k=4)["embeddings"]
+
+    # warm-up at the request shapes: a few decode steps at both decode
+    # batches, and one VQ-f16 decode
+    with torch.inference_mode():
+        for guidance in (1.0, 2.0):
+            sample_tokens_fused(pipe.model, neighbors, torch.Generator(
+                device="cuda").manual_seed(0), steps=4,
+                guidance_scale=guidance, weights=pipe.decode_weights)
+        pipe.first_stage.decode_code(torch.zeros(
+            (batch, cfg.code_side, cfg.code_side), dtype=torch.long,
+            device="cuda"))
+    dk.reset_launch_counts()
+    per_request = cfg.depth * cfg.seq_len
+    for i, kind in enumerate(("sample_with_query", "sample_unconditional")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "sample_with_query":
+            guidance = 1.0
+            out = pipe.sample_with_query(queries, k_nn=4, top_k=256,
+                                         guidance_scale=guidance, seed=1,
+                                         return_tokens=True)
+            images = out["query_samples"]
+        else:
+            guidance = 2.0
+            out = pipe.sample_unconditional(batch, k_nn=4, top_k=256,
+                                            guidance_scale=guidance,
+                                            qids=qids, seed=2,
+                                            return_tokens=True)
+            images = out["samples_with_sampled_nns"]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dk.launch_counts()
+        want = {"decode_attn": per_request * (i + 1),
+                "decode_post_ff": per_request * (i + 1), "commit_rows": 0}
+        if counts != want:
+            raise RuntimeError(f"{kind}: expected launches {want} so far, "
+                               f"got {counts}")
+        toks = out["tokens"]
+        if toks.shape != (batch, cfg.seq_len) or toks.min() < 0 or \
+                toks.max() >= cfg.out_vocab:
+            raise RuntimeError(f"{kind}: tokens {toks.shape} in "
+                               f"[{toks.min()}, {toks.max()}]")
+        if images.shape != (batch, 256, 256, 3) or images.dtype != np.uint8:
+            raise RuntimeError(f"{kind}: images {images.shape} "
+                               f"{images.dtype}")
+        if images.std() == 0:
+            raise RuntimeError(f"{kind}: constant images")
+        n_tok = batch * cfg.seq_len
+        say("rarm_serve", f"{kind}: batch {batch}, {cfg.seq_len} tokens, "
+            f"top_k 256, guidance {guidance}, k=4 over {n_db}x512: "
+            f"{wall:.3f} s, {n_tok / wall:.1f} tokens/s, "
+            f"{batch / wall:.3f} img/s; launches so far {counts}")
+    launches = dk.launch_counts()
+
+    # the batched cross-layer commit (one commit_rows launch per step)
+    # must decode the default path's tokens
+    steps, toks = RARM_FORWARD_STEPS, {}
+    with torch.inference_mode():
+        for batched in (False, True):
+            dk.reset_launch_counts()
+            toks[batched] = sample_tokens_fused(
+                pipe.model, neighbors, torch.Generator(
+                    device="cuda").manual_seed(3), steps=steps, top_k=1,
+                batched_commit=batched, weights=pipe.decode_weights).cpu()
+            counts = dk.launch_counts()
+            if counts["commit_rows"] != (steps if batched else 0):
+                raise RuntimeError(f"batched_commit={batched}: launches "
+                                   f"{counts}")
+    launches["commit_rows"] = counts["commit_rows"]
+    if not torch.equal(toks[False], toks[True]):
+        raise RuntimeError("batched_commit tokens differ from the default "
+                           "commit's")
+    say("rarm_serve", f"greedy {steps}-step decode at batch {batch}: "
+        f"batched_commit tokens equal the in-place commit's; launches "
+        f"{counts}")
+    say("rarm_serve", f"pipeline set-up {setup_s:.1f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -342,8 +713,10 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 scores stay f32
     torch.backends.cudnn.allow_tf32 = False
-    from rdm_tpu_torch.config import AutoencoderConfig, RDMConfig
+    from rdm_tpu_torch.config import (AutoencoderConfig, RARMConfig,
+                                      RDMConfig)
     from rdm_tpu_torch.models.autoencoder import VQModel
+    from rdm_tpu_torch.models.rarm import RARM
     from rdm_tpu_torch.models.rdm import RDM
 
     phase_device()
@@ -351,16 +724,34 @@ def main() -> int:
     kernels = phase_kernels()
     with torch.device("meta"):  # shapes only
         rdm, vq = RDM(RDMConfig.imagenet()), VQModel(AutoencoderConfig.vq_f4())
+        rarm = RARM(RARMConfig.imagenet_dogs())
+        vq16 = VQModel(AutoencoderConfig.vq_f16())
     rdm_sd = seeded_state_dict(rdm, SEED + 10)
     vq_sd = seeded_state_dict(vq, SEED + 11)
     phase_forward(rdm_sd)
-    launches = phase_serve(rdm_sd, vq_sd)
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
-         "replaces": KERNEL_INFO[name][1], "launches": launches[name],
-         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-         "plain_ms": r["plain_ms"], "sites": r["sites"]}
-        for name, r in kernels.items()]}), flush=True)
+    emb = make_table()
+    launches = phase_serve(rdm_sd, vq_sd, emb)
+    del rdm_sd, vq_sd
+    decode = phase_rarm_kernels()
+    rarm_sd = seeded_state_dict(rarm, SEED + 12)
+    phase_rarm_forward(rarm_sd)
+    decode_launches = phase_rarm_serve(
+        rarm_sd, seeded_state_dict(vq16, SEED + 13), emb)
+    rows = [{"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
+             "replaces": KERNEL_INFO[name][1], "launches": launches[name],
+             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+             "plain_ms": r["plain_ms"], "sites": r["sites"]}
+            for name, r in kernels.items()]
+    rows += [{"name": name, "route": "cuda", "source": DECODE_INFO[name][0],
+              "sources": DECODE_INFO[name][2],
+              "replaces": DECODE_INFO[name][1],
+              "launches": decode_launches[name],
+              "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+              "plain_ms": r["plain_ms"], "cases": r["cases"],
+              **({"sweep_rel_err": r["sweep_rel_err"]}
+                 if "sweep_rel_err" in r else {})}
+             for name, r in decode.items()]
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -7,7 +7,7 @@ built at first use by `ops/_build.py`.
 """
 
 from rdm_tpu_torch.config import (AutoencoderConfig, DDIMSamplerConfig,
-                                  RDMConfig, UNetConfig)
+                                  RARMConfig, RDMConfig, UNetConfig)
 
-__all__ = ["AutoencoderConfig", "DDIMSamplerConfig", "RDMConfig",
-           "UNetConfig"]
+__all__ = ["AutoencoderConfig", "DDIMSamplerConfig", "RARMConfig",
+           "RDMConfig", "UNetConfig"]

@@ -2,7 +2,8 @@
 
 Field-for-field mirrors of the JAX package's `UNetConfig`
 (rdm_tpu/models/unet.py), `RDMConfig` (models/rdm.py), `AutoencoderConfig`
-(models/autoencoder.py) and `DDIMSamplerConfig` (sampling.py). Those live
+(models/autoencoder.py), `RARMConfig` (models/rarm.py) and
+`DDIMSamplerConfig` (sampling.py). Those live
 in modules that import flax, so they are mirrored here rather than
 imported; a test holds the fields and defaults equal.
 """
@@ -118,6 +119,29 @@ class AutoencoderConfig:
     @property
     def downsample_factor(self) -> int:
         return 2 ** (self.num_resolutions - 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class RARMConfig:
+    vocab_size: int = 16386  # input vocab incl. mask + sos
+    out_vocab: int = 16384
+    heads: int = 12
+    head_dim: int = 64
+    depth: int = 18
+    context_dim: int = 512
+    seq_len: int = 256  # image token count (16x16 VQ-f16 grid)
+    sos_token: int = 16385
+    mask_token: int = 16384
+    code_side: int = 16
+    p_mask_max: float = 0.0
+
+    @property
+    def inner_dim(self) -> int:
+        return self.heads * self.head_dim
+
+    @classmethod
+    def imagenet_dogs(cls) -> "RARMConfig":
+        return cls()
 
 
 @dataclasses.dataclass(frozen=True)

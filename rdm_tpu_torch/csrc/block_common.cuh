@@ -131,7 +131,12 @@ __device__ __forceinline__ void load_panel_async(bf16* panel, const bf16* A,
 
 // In-place-capable LayerNorm of a [BM, K] shared panel: f32 row statistics
 // (E[x^2] - E[x]^2, clamped at 0, eps 1e-5 as models.layers._RawLayerNorm),
-// dst = (src - mean) * rstd * scale + bias rounded to bf16. One warp per
+// then, as _RawLayerNorm and the TPU kernels do in bf16, dtype-native
+// arithmetic: mean, rstd, scale and bias rounded to bf16 and each of
+// (src - mean), * rstd, * scale, + bias rounded to bf16. (Rounded once
+// from f32 instead, ~2/3 of a RARM decode step's q values came out
+// different from the plain version's, and the decode attention turned
+// that into up to 2.2e-2 of its output's scale on an H100.) One warp per
 // row, four warps striding over the BM rows.
 __device__ __forceinline__ void layer_norm_panel(bf16* dst, const bf16* src,
                                                  int K, const float* scale,
@@ -151,12 +156,20 @@ __device__ __forceinline__ void layer_norm_panel(bf16* dst, const bf16* src,
     sq = warp_sum(sq);
     const float mean = sum * inv_k;
     const float var = fmaxf(sq * inv_k - mean * mean, 0.f);
-    const float rstd = rsqrtf(var + 1e-5f);
+    // native bf16x2 ops: each rounds its exact result once, as the f32
+    // op rounded to bf16 does. The _rn forms keep ptxas from contracting
+    // the last mul and add into one fma (one rounding instead of two).
+    const __nv_bfloat162 mean2 = __float2bfloat162_rn(mean);
+    const __nv_bfloat162 rstd2 = __float2bfloat162_rn(rsqrtf(var + 1e-5f));
     bf16* d = dst + r * ldp;
-    for (int c = lane; c < K; c += 32) {
-      const float v = __bfloat162float(s[c]);
-      d[c] = __float2bfloat16((v - mean) * rstd * __ldg(scale + c) +
-                              __ldg(bias + c));
+    for (int c = 2 * lane; c < K; c += 64) {
+      const float2 g = __ldg(reinterpret_cast<const float2*>(scale + c));
+      const float2 bb = __ldg(reinterpret_cast<const float2*>(bias + c));
+      __nv_bfloat162 y = __hsub2_rn(
+          *reinterpret_cast<const __nv_bfloat162*>(s + c), mean2);
+      y = __hmul2_rn(__hmul2_rn(y, rstd2), __float22bfloat162_rn(g));
+      *reinterpret_cast<__nv_bfloat162*>(d + c) =
+          __hadd2_rn(y, __float22bfloat162_rn(bb));
     }
   }
 }

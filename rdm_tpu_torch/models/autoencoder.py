@@ -2,7 +2,8 @@
 
 Counterpart of `rdm_tpu/models/autoencoder.py` `VQModel.decode` with
 `force_not_quantize=False`: nearest-codebook quantisation, the post-quant
-1x1 conv and the decoder. Modules keep the taming names (`decoder.mid`,
+1x1 conv and the decoder; and `VQModel.decode_code`, which decodes token
+ids (the RARM path). Modules keep the taming names (`decoder.mid`,
 `decoder.up.{level}.block/attn/upsample`, `post_quant_conv`,
 `quantize.embedding`), so a port state dict converts onto the JAX tree.
 Images are NCHW. The encoder is not ported yet.
@@ -154,6 +155,11 @@ class VectorQuantizer(nn.Module):
         z_q = cb[idx].reshape(b, h, w, d).permute(0, 3, 1, 2)
         return z_q, idx.reshape(b, h, w)
 
+    def lookup(self, idx):
+        """Code ids [...] -> codebook rows [..., D] (in the codebook's
+        dtype)."""
+        return self.embedding.weight[idx]
+
 
 class VQModel(nn.Module):
     """Decode side of a VQGAN: quantize -> post-quant 1x1 -> decoder."""
@@ -171,4 +177,10 @@ class VQModel(nn.Module):
         """z [B, embed_dim, h, w] -> images [B, out_ch, H, W] in the
         compute dtype (force_not_quantize=False)."""
         z_q, _ = self.quantize(z)
+        return self.decoder(self.post_quant_conv(z_q.to(self.dtype)))
+
+    def decode_code(self, idx: torch.Tensor) -> torch.Tensor:
+        """Token grid idx [B, h, w] -> images [B, out_ch, H, W] in the
+        compute dtype: codebook rows, no quantize step (the RARM path)."""
+        z_q = self.quantize.lookup(idx).permute(0, 3, 1, 2)
         return self.decoder(self.post_quant_conv(z_q.to(self.dtype)))

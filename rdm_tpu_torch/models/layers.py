@@ -147,13 +147,15 @@ class Downsample(nn.Module):
 
 class CrossAttention(nn.Module):
     """Multi-head attention, bias-free q/k/v, biased output projection;
-    self-attention when context is None."""
+    self-attention when context is None. `causal` masks keys after the
+    query (RARM's attn1); the RDM blocks keep it off."""
 
     def __init__(self, dim: int, context_dim: int, heads: int,
-                 head_dim: int, dropout: float = 0.0):
+                 head_dim: int, dropout: float = 0.0, causal: bool = False):
         super().__init__()
         inner = heads * head_dim
         self.heads, self.head_dim = heads, head_dim
+        self.causal = causal
         self.to_q = Linear(dim, inner, bias=False)
         self.to_k = Linear(context_dim, inner, bias=False)
         self.to_v = Linear(context_dim, inner, bias=False)
@@ -168,7 +170,8 @@ class CrossAttention(nn.Module):
         q = self.to_q(x).reshape(b, s, h, d)
         k = self.to_k(ctx).reshape(b, sk, h, d)
         v = self.to_v(ctx).reshape(b, sk, h, d)
-        out = dot_product_attention(q, k, v).reshape(b, s, h * d)
+        out = dot_product_attention(q, k, v, causal=self.causal)
+        out = out.reshape(b, s, h * d)
         return self.dropout(self.to_out[0](out))
 
 

@@ -2,10 +2,15 @@
 
 The kernels have a plain C interface (device pointers, ints, floats and the
 CUDA stream as `void*`), so they are compiled by `nvcc` alone — no PyTorch
-headers — into one shared library and bound with `ctypes`:
+headers — one object per source, all sources at once in parallel, then
+linked into one shared library and bound with `ctypes`:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o librdm_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c -o <name>.o csrc/<name>.cu   (each)
+    nvcc -shared -o librdm_kernels.so *.o
+
+The compiler's output (ptxas register, shared-memory and spill counts per
+kernel) is kept beside the library as `nvcc.log`.
 
 The library is built at first use into `rdm_tpu_torch/_build/<digest>/`,
 keyed by a hash of the sources and flags, so `python3 chip_smoke.py` on a
@@ -31,7 +36,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 CUDA_HOME_DEFAULT = Path("/usr/local/cuda")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,6 +48,10 @@ _SIGNATURES = {
     "rdm_packed_attn": [_P] * 4 + [_I, _I, _I, _F, _P],
     "rdm_post_cross": [_P] * 12 + [_I, _I, _I, _I, _F, _P],
     "rdm_geglu_ff": [_P] * 11 + [_I, _I, _I, _I, _P],
+    "rdm_decode_qkv": [_P] * 9 + [_I, _I, _I, _P],
+    "rdm_decode_attn": [_P] * 6 + [_I, _I, _I, _I, _F, _P],
+    "rdm_decode_post_ff": [_P] * 24 + [_I, _I, _I, _I, _F, _P],
+    "rdm_commit_rows": [_P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -89,24 +98,33 @@ def build() -> Path:
         return lib_path
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sources() if p.suffix == ".cu"]
+    cu = [p for p in sources() if p.suffix == ".cu"]
     t0 = time.perf_counter()
-    # build into a temp name in the same directory, then rename: a
-    # concurrent or interrupted build never leaves a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu],
-            capture_output=True, text=True)
+    # build in a temp directory beside the library, then rename into
+    # place: a concurrent or interrupted build never leaves a half-written
+    # library
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [os.path.join(tmp, p.stem + ".o") for p in cu]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", obj, str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(cu, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        (out_dir / "nvcc.log").write_text("".join(
+            f"== {src.name}\n{log}" for src, log in zip(cu, logs)))
+        failed = [(src.name, p.returncode, log)
+                  for src, p, log in zip(cu, procs, logs) if p.returncode]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{name} ({rc}):\n{log}" for name, rc, log in failed))
+        tmp_lib = os.path.join(tmp, lib_path.name)
+        proc = subprocess.run([nvcc, "-shared", "-o", tmp_lib, *objs],
+                              capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n"
+                f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n"
                 f"{proc.stderr}")
-        os.replace(tmp, lib_path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        os.replace(tmp_lib, lib_path)
     build_seconds = time.perf_counter() - t0
     return lib_path
 

@@ -1,7 +1,9 @@
-"""RDM serving pipeline: retrieval -> DDIM sampling -> VQ decode, in PyTorch.
+"""Serving pipelines, in PyTorch: RDM (retrieval -> DDIM sampling -> VQ
+decode) and RARM (retrieval -> KV-cached token sampling -> VQ decode_code).
 
-Counterpart of `rdm_tpu/pipeline.py` `RDMPipeline` on one device (no mesh,
-no int8 serving, no encoder reuse yet). Public inputs and outputs keep the
+Counterpart of `rdm_tpu/pipeline.py` `RDMPipeline` and `RARMPipeline` on
+one device (no mesh, no int8 serving, no encoder reuse, no captions and no
+`from_model_dir` yet). Public inputs and outputs keep the
 JAX layouts: query embeddings [B, D], neighbors [B, k, D], images NHWC
 uint8 numpy arrays. Inside, images and latents are NCHW.
 
@@ -21,9 +23,11 @@ import torch
 from torch import nn
 
 from rdm_tpu_torch.config import (AutoencoderConfig, DDIMSamplerConfig,
-                                  RDMConfig)
+                                  RARMConfig, RDMConfig)
 from rdm_tpu_torch.models.autoencoder import VQModel
 from rdm_tpu_torch.models.layers import TransformerBlock
+from rdm_tpu_torch.models.rarm import (RARM, extract_decode_weights,
+                                       sample_tokens_fused)
 from rdm_tpu_torch.models.rdm import RDM, sample_with_neighbors
 from rdm_tpu_torch.ops.schedules import DiffusionSchedule
 from rdm_tpu_torch.retrieval.database import DataPool, NNMemory
@@ -53,6 +57,33 @@ def cast_params_for_inference(module: nn.Module,
     return module
 
 
+def _bind(module: nn.Module, params: Mapping[str, Any], device: torch.device,
+          dtype: torch.dtype) -> nn.Module:
+    """A module built on the meta device, bound to `params`, moved to
+    `device` and cast for inference."""
+    module.load_state_dict(params, assign=True)
+    return cast_params_for_inference(module.to(device).eval(), dtype)
+
+
+def _query_embeddings(retrieval: Optional[RetrievalEngine],
+                      memory: Optional[NNMemory], n: int, memsize,
+                      use_weights: bool, qids: Optional[np.ndarray],
+                      seed: int) -> torch.Tensor:
+    """Unnormalised pool rows [n, D] of the unconditional queries: the
+    given ids, or ids drawn (numpy, from `seed`) from the top-`memsize` of
+    the nn-memory, or uniformly from the pool."""
+    if retrieval is None:
+        raise ValueError("unconditional sampling requires a database")
+    if qids is None:
+        rng = np.random.default_rng(seed)
+        qids = (memory.sample_qids(n, memsize=memsize,
+                                   use_weights=use_weights, rng=rng)
+                if memory is not None
+                else rng.integers(0, retrieval.size, size=n))
+    pool = retrieval.pool.embeddings
+    return pool[torch.as_tensor(np.asarray(qids), device=pool.device)]
+
+
 class RDMPipeline:
     """Retrieval-augmented diffusion sampling, end to end, on `device`.
 
@@ -71,12 +102,11 @@ class RDMPipeline:
         # built without initialising (meta), then bound to the given
         # weights: the random init of 400M parameters would be thrown away
         with torch.device("meta"):
-            self.model = RDM(config, dtype=dtype)
-            self.first_stage = VQModel(first_stage_config, dtype=dtype)
-        for module, sd in ((self.model, params),
-                           (self.first_stage, first_stage_params)):
-            module.load_state_dict(sd, assign=True)
-            cast_params_for_inference(module.to(self.device).eval(), dtype)
+            model = RDM(config, dtype=dtype)
+            first_stage = VQModel(first_stage_config, dtype=dtype)
+        self.model = _bind(model, params, self.device, dtype)
+        self.first_stage = _bind(first_stage, first_stage_params,
+                                 self.device, dtype)
         self.schedule = DiffusionSchedule.create(
             config.timesteps, config.beta_schedule, config.linear_start,
             config.linear_end, device=self.device)
@@ -94,19 +124,9 @@ class RDMPipeline:
                              seed: int = 0, return_nns: bool = False
                              ) -> Dict[str, Any]:
         """sample_from_rdata equivalent (ddpm.py:877-984)."""
-        if self.retrieval is None:
-            raise ValueError("unconditional sampling requires a database")
         k_nn = k_nn or self.config.k_nn
-        if qids is None:
-            rng = np.random.default_rng(seed)
-            qids = (self.memory.sample_qids(batch_size, memsize=memsize,
-                                            use_weights=use_weights,
-                                            rng=rng)
-                    if self.memory is not None
-                    else rng.integers(0, self.retrieval.size,
-                                      size=batch_size))
-        pool = self.retrieval.pool.embeddings
-        q_emb = pool[torch.as_tensor(np.asarray(qids), device=pool.device)]
+        q_emb = _query_embeddings(self.retrieval, self.memory, batch_size,
+                                  memsize, use_weights, qids, seed)
         found = self.retrieval.search(q_emb, k=k_nn)
         out = {"samples_with_sampled_nns": self._run_ddim(
             found["embeddings"], steps, guidance_scale, seed)}
@@ -151,3 +171,98 @@ class RDMPipeline:
                                       guidance_label=0.0)
             images = self.first_stage.decode(z.permute(0, 3, 1, 2))
             return to_uint8(images.permute(0, 2, 3, 1))
+
+
+class RARMPipeline:
+    """Retrieval-augmented autoregressive sampling (KV-cached), end to end,
+    on `device`.
+
+    params / first_stage_params are state dicts in the reference names
+    (`RARM.state_dict()`, `VQModel.state_dict()`; see `utils/from_jax.py`
+    for JAX trees). Every layer's kernel-layout decode weights are packed
+    once here. Sampling always runs `sample_tokens_fused`: the decode
+    kernels on CUDA, their plain versions on the CPU. Semantics kept from
+    the JAX pipeline (reference transformer.py:296-391): unconditional
+    sampling draws query ids from the top-`memsize` of the nn-memory (or
+    uniformly from the pool) and conditions on their k neighbors; query
+    sampling puts the query embedding in as neighbor #0 followed by k - 1
+    retrieved ones, or alone (`only_query`), or a zero context
+    (`unconditional`); the CFG null context is zeros_like(neighbors);
+    token grids go through `decode_code` to NHWC uint8."""
+
+    def __init__(self, config: RARMConfig, params: Mapping[str, Any],
+                 first_stage_config: AutoencoderConfig,
+                 first_stage_params: Mapping[str, Any],
+                 pool: Optional[DataPool] = None,
+                 memory: Optional[NNMemory] = None,
+                 dtype: torch.dtype = torch.bfloat16, device="cuda"):
+        self.config = config
+        self.device = torch.device(device)
+        with torch.device("meta"):  # bound to the given weights below
+            model = RARM(config, dtype=dtype)
+            first_stage = VQModel(first_stage_config, dtype=dtype)
+        self.model = _bind(model, params, self.device, dtype)
+        self.first_stage = _bind(first_stage, first_stage_params,
+                                 self.device, dtype)
+        self.decode_weights = extract_decode_weights(self.model, dtype)
+        self.memory = memory
+        self.retrieval = (RetrievalEngine(pool, device=self.device)
+                          if pool is not None else None)
+
+    def sample_unconditional(self, batch_size: int, *, k_nn: int = 4,
+                             top_k: int = 256, temperature: float = 1.0,
+                             guidance_scale: float = 1.0, memsize=100,
+                             use_weights: bool = False,
+                             qids: Optional[np.ndarray] = None,
+                             seed: int = 0, **options) -> Dict[str, Any]:
+        """sample_from_rdata equivalent. `options` go to `_generate`."""
+        q_emb = _query_embeddings(self.retrieval, self.memory, batch_size,
+                                  memsize, use_weights, qids, seed)
+        found = self.retrieval.search(q_emb, k=k_nn)
+        return self._generate(found["embeddings"], "samples_with_sampled_nns",
+                              top_k, temperature, guidance_scale, seed,
+                              **options)
+
+    def sample_with_query(self, query_embeddings, *, k_nn: int = 4,
+                          top_k: int = 256, temperature: float = 1.0,
+                          guidance_scale: float = 1.0,
+                          only_query: bool = False,
+                          unconditional: bool = False, seed: int = 0,
+                          **options) -> Dict[str, Any]:
+        """Query-conditioned sampling. `options` go to `_generate`."""
+        q = torch.as_tensor(query_embeddings, dtype=torch.float32,
+                            device=self.device)
+        if unconditional:
+            neighbors = torch.zeros_like(q)[:, None]
+        elif only_query:
+            neighbors = q[:, None]
+        else:
+            if self.retrieval is None:
+                raise ValueError("query sampling with retrieval requires a "
+                                 "database (use only_query/unconditional "
+                                 "otherwise)")
+            r_emb = self.retrieval.search(q, k=k_nn)["embeddings"]
+            neighbors = torch.cat([q[:, None], r_emb[:, :k_nn - 1]], dim=1)
+        return self._generate(neighbors, "query_samples", top_k, temperature,
+                              guidance_scale, seed, **options)
+
+    def _generate(self, neighbors: torch.Tensor, key: str, top_k: int,
+                  temperature: float, guidance_scale: float, seed: int, *,
+                  return_tokens: bool = False, **options) -> Dict[str, Any]:
+        """{key: images [B, H, W, 3] uint8} (+ 'tokens' [B, seq_len]).
+        `options` (batched_commit, approx_top_k, int8_weights, int8_kv) go
+        to `sample_tokens_fused`."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        side = self.config.code_side
+        with torch.inference_mode():
+            tokens = sample_tokens_fused(
+                self.model, neighbors.to(self.device, torch.float32), gen,
+                temperature=temperature, top_k=top_k,
+                guidance_scale=guidance_scale, weights=self.decode_weights,
+                **options)
+            images = self.first_stage.decode_code(
+                tokens.reshape(-1, side, side))
+            out = {key: to_uint8(images.permute(0, 2, 3, 1))}
+        if return_tokens:
+            out["tokens"] = tokens.cpu().numpy()
+        return out

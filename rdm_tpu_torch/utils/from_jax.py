@@ -3,7 +3,8 @@
 The inverses of `rdm_tpu/utils/torch_convert.py`: `unet_state_dict_from_jax`
 undoes `convert_unet`, `vq_state_dict_from_jax` undoes `convert_autoencoder`
 on the decode side (decoder, post_quant_conv, codebook), and
-`rdm_state_dict_from_jax` adds `unconditional_guidance_vex`. With them both
+`rdm_state_dict_from_jax` adds `unconditional_guidance_vex`,
+`rarm_state_dict_from_jax` undoes `convert_rarm_transformer`. With them both
 implementations run on the same weights. Inputs are nested dicts of array
 likes (numpy or jax arrays), with or without the top-level "params" key.
 
@@ -20,7 +21,8 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-from rdm_tpu_torch.config import AutoencoderConfig, RDMConfig, UNetConfig
+from rdm_tpu_torch.config import (AutoencoderConfig, RARMConfig, RDMConfig,
+                                  UNetConfig)
 
 
 def _tree(params: Mapping[str, Any]) -> Mapping[str, Any]:
@@ -170,6 +172,26 @@ def rdm_state_dict_from_jax(params: Mapping[str, Any], cfg: RDMConfig
     sd["unconditional_guidance_vex"] = torch.from_numpy(np.asarray(
         tree["unconditional_guidance_vex"], dtype=np.float32).copy())
     return sd
+
+
+# ------------------------------------------------------------------- RARM
+
+def rarm_state_dict_from_jax(params: Mapping[str, Any], cfg: RARMConfig,
+                             prefix: str = "") -> Dict[str, torch.Tensor]:
+    """rdm_tpu RARM params -> port `RARM` state dict (inverse of
+    convert_rarm_transformer(sd, cfg.depth, prefix=prefix)): the
+    positional table back to [inner, seq], the head back to a k=1 Conv1d
+    weight [out_vocab, inner, 1]."""
+    m = _Inverse(_tree(params), prefix)
+    m.copy("token_emb/embedding", "proj_in.weight")
+    m.put("positional_encoding",
+          np.transpose(m.get("positional_encoding")))
+    for d in range(cfg.depth):
+        _transformer_block(m, f"block_{d}", f"transformer_blocks.{d}")
+    m.put("proj_out.weight",
+          np.transpose(m.get("proj_out/kernel"))[:, :, None])
+    m.copy("proj_out/bias", "proj_out.bias")
+    return m.sd
 
 
 # ------------------------------------------------------------ first stage

@@ -15,6 +15,7 @@ import sys
 import pytest
 
 from rdm_tpu.models.autoencoder import AutoencoderConfig as JAutoencoder
+from rdm_tpu.models.rarm import RARMConfig as JRARM
 from rdm_tpu.models.rdm import RDMConfig as JRDM
 from rdm_tpu.models.unet import UNetConfig as JUNet
 from rdm_tpu.sampling import DDIMSamplerConfig as JDDIM
@@ -26,6 +27,7 @@ PAIRS = {
     "unet": (port.UNetConfig, JUNet),
     "rdm": (port.RDMConfig, JRDM),
     "autoencoder": (port.AutoencoderConfig, JAutoencoder),
+    "rarm": (port.RARMConfig, JRARM),
     "ddim": (port.DDIMSamplerConfig, JDDIM),
 }
 
@@ -35,7 +37,8 @@ PORT_MODULES = [
     "rdm_tpu_torch.ops.attention", "rdm_tpu_torch.ops.block_kernel",
     "rdm_tpu_torch.ops._build", "rdm_tpu_torch.models.layers",
     "rdm_tpu_torch.models.unet", "rdm_tpu_torch.models.rdm",
-    "rdm_tpu_torch.models.autoencoder", "rdm_tpu_torch.retrieval.engine",
+    "rdm_tpu_torch.models.autoencoder", "rdm_tpu_torch.models.rarm",
+    "rdm_tpu_torch.ops.decode_kernel", "rdm_tpu_torch.retrieval.engine",
     "rdm_tpu_torch.retrieval.database", "rdm_tpu_torch.utils.from_jax",
 ]
 
@@ -57,7 +60,7 @@ def test_fields_and_defaults_match(name):
 @pytest.mark.parametrize("name,ctor", [
     ("unet", "imagenet_rdm"), ("unet", "ffhq_rdm"), ("rdm", "imagenet"),
     ("rdm", "ffhq"), ("autoencoder", "vq_f4"), ("autoencoder", "vq_f16"),
-    ("autoencoder", "kl_f8")])
+    ("autoencoder", "kl_f8"), ("rarm", "imagenet_dogs")])
 def test_named_configs_match(name, ctor):
     mine, ref = PAIRS[name]
     assert (dataclasses.asdict(getattr(mine, ctor)())
@@ -74,6 +77,7 @@ def test_derived_values_match():
         ref = getattr(JAutoencoder, ctor)()
         assert mine.num_resolutions == ref.num_resolutions
         assert mine.downsample_factor == ref.downsample_factor
+    assert port.RARMConfig().inner_dim == JRARM().inner_dim
 
 
 def test_port_never_imports_jax():

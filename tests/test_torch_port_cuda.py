@@ -1,5 +1,5 @@
-"""rdm_tpu_torch's CUDA block kernels against their plain PyTorch versions,
-on the card.
+"""rdm_tpu_torch's CUDA kernels (the SpatialTransformer block kernels and
+the RARM decode kernels) against their plain PyTorch versions, on the card.
 
 This file imports no JAX, so it also runs on a GPU machine without JAX:
 
@@ -8,7 +8,9 @@ This file imports no JAX, so it also runs on a GPU machine without JAX:
 Every test is marked `cuda` and skips where torch.cuda is unavailable.
 Shapes include the ragged cases the main path never gives the kernels (S
 not a multiple of the 64-key tile, R not a multiple of the 32-row tile,
-C = 96 not a multiple of the 64-column tile, 16 context tokens).
+C = 96 not a multiple of the 64-column tile, 16 context tokens; for the
+decode kernels B = 3, C = 192 (3 heads of 64), pos 0 and T - 1, 1 and 16
+context rows).
 Tolerance: max|err| <= 2e-2 x max|ref| in bf16, as chip_smoke.py sets it
 (kernel and plain version round to bf16 at different points).
 """
@@ -16,8 +18,11 @@ Tolerance: max|err| <= 2e-2 x max|ref| in bf16, as chip_smoke.py sets it
 import pytest
 import torch
 
+from rdm_tpu_torch.config import RARMConfig
+from rdm_tpu_torch.models import rarm
 from rdm_tpu_torch.models.layers import TransformerBlock
 from rdm_tpu_torch.ops import block_kernel as bk
+from rdm_tpu_torch.ops import decode_kernel as dk
 
 TOL = 2e-2
 HD = 32
@@ -125,3 +130,130 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="expected shape"):
         bk.post_cross(xb, xb, ctx[:, :4], ctx[:, :4].contiguous(), wb,
                       n[:32], n, n, wb, wb, n, heads=2, head_dim=HD)
+
+
+# ------------------------------------------------------- RARM decode kernels
+
+DHD = 64  # the decode kernels' head width
+
+
+def _seed_params(module: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """Every parameter from a seed: fan-in scaled weights, norm scales near
+    1, other 1-D leaves small."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if p.ndim >= 2:
+                fan_in = p[0].numel()
+                p.copy_(torch.randn(p.shape, generator=g) / fan_in ** 0.5)
+            elif name.endswith("weight"):
+                p.copy_(1.0 + 0.1 * torch.randn(p.shape, generator=g))
+            else:
+                p.copy_(0.1 * torch.randn(p.shape, generator=g))
+    return module
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,heads,t,pos,s", [
+    (3, 3, 64, 0, 1), (3, 3, 64, 63, 16), (16, 12, 256, 63, 4),
+    (32, 12, 256, 200, 4), (40, 3, 32, 17, 4)])
+def test_decode_kernels_match_plain(cuda, b, heads, t, pos, s):
+    c = heads * DHD
+    blk = _seed_params(rarm._Block(c, 24, heads, DHD), seed=b + pos)
+    w = bk.pack_block_weights(blk.cuda(), torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(pos)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").bfloat16()
+
+    x, kc, vc, ck, cv = rn(b, c), rn(t, b, c), rn(t, b, c), rn(s, b, c), \
+        rn(s, b, c)
+    hd = dict(heads=heads, head_dim=DHD)
+    dk.reset_launch_counts()
+    caches = (kc.clone(), vc.clone())
+    got = dk.decode_attn(x, pos, *caches, w["n1s"], w["n1b"], w["wqkv"],
+                         **hd)
+    torch.cuda.synchronize()
+    want = dk.decode_attn_reference(x, pos, kc.clone(), vc.clone(),
+                                    w["n1s"], w["n1b"], w["wqkv"], **hd)
+    for a, r in zip(got, want):
+        assert torch.isfinite(a).all() and _rel_err(a, r) <= TOL
+    # row pos holds the new k/v exactly, every other row is untouched
+    for cache, old, new in zip(caches, (kc, vc), got[1:]):
+        assert torch.equal(cache[pos], new)
+        keep = torch.arange(t, device="cuda") != pos
+        assert torch.equal(cache[keep], old[keep])
+    ff = (x, got[0], ck, cv, w["wo"], w["bo"], w["n2s"], w["n2b"], w["wq2"],
+          w["wo2"], w["bo2"], w["n3s"], w["n3b"], w["wa"], w["wg"], w["ba"],
+          w["bg"], w["w2"], w["b2"])
+    out = dk.decode_post_ff(*ff, **hd)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert _rel_err(out, dk.decode_post_ff_reference(*ff, **hd)) <= TOL
+    rows = [rn(1, b, c) for _ in range(4)]
+    mine = [rn(t, b, c) for _ in range(4)]
+    plain = [m.clone() for m in mine]
+    dk.commit_rows(pos, mine, rows)
+    dk.commit_rows_reference(pos, plain, rows)
+    for m, p in zip(mine, plain):
+        assert torch.equal(m, p)
+    assert dk.launch_counts() == {"decode_attn": 1, "decode_post_ff": 1,
+                                  "commit_rows": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("guidance", [1.0, 2.0])
+def test_batched_commit_matches_inplace(cuda, guidance):
+    """Deferring every layer's k/v rows to one commit_rows launch per step
+    gives the tokens of the in-place commit, and the kernel path agrees
+    with the eager sampler on the card."""
+    cfg = RARMConfig(vocab_size=40, out_vocab=38, heads=3, head_dim=DHD,
+                     depth=2, context_dim=24, seq_len=16, sos_token=39,
+                     mask_token=38, code_side=4)
+    model = _seed_params(rarm.RARM(cfg), seed=3).cuda().eval()
+    ctx = torch.randn((3, 4, 24), generator=torch.Generator(
+        device="cuda").manual_seed(4), device="cuda")
+    weights = rarm.extract_decode_weights(model, torch.bfloat16)
+    toks = {}
+    for batched in (False, True):
+        dk.reset_launch_counts()
+        toks[batched] = rarm.sample_tokens_fused(
+            model, ctx, torch.Generator(device="cuda").manual_seed(5),
+            top_k=1, guidance_scale=guidance, batched_commit=batched,
+            weights=weights)
+        counts = dk.launch_counts()
+        assert counts["decode_attn"] == counts["decode_post_ff"] == \
+            cfg.depth * cfg.seq_len
+        assert counts["commit_rows"] == (cfg.seq_len if batched else 0)
+    assert torch.equal(toks[False], toks[True])
+    assert int(toks[True].min()) >= 0
+    assert int(toks[True].max()) < cfg.out_vocab
+
+
+@pytest.mark.cuda
+def test_decode_wrappers_raise_instead_of_falling_back(cuda):
+    b, heads = 2, 3
+    c = heads * DHD
+    n = torch.ones(c, device="cuda")
+    x = torch.randn((b, c), device="cuda")
+    cache = torch.zeros((8, b, c), device="cuda")
+    w = torch.randn((c, 3 * c), device="cuda")
+    with pytest.raises(TypeError, match="bf16"):
+        dk.decode_attn(x, 1, cache, cache, n, n, w, heads=heads,
+                       head_dim=DHD)  # f32 activations
+    xb, cb, wb = x.bfloat16(), cache.bfloat16(), w.bfloat16()
+    with pytest.raises(ValueError, match="head_dim"):
+        dk.decode_attn(xb, 1, cb, cb, n, n, wb, heads=6, head_dim=32)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        dk.decode_attn(xb, 1, cb.cpu(), cb, n, n, wb, heads=heads,
+                       head_dim=DHD)
+    with pytest.raises(TypeError, match="bf16"):
+        dk.commit_rows(1, [cache], [x])
+    with pytest.raises(ValueError, match="expected shape"):
+        ck = torch.zeros((4, b, c), device="cuda").bfloat16()
+        wc = torch.zeros((c, c), device="cuda").bfloat16()
+        wf = torch.zeros((c, 4 * c), device="cuda").bfloat16()
+        dk.decode_post_ff(xb, xb, ck, ck, wc, n, n, n, wc, wc, n, n, n, wf,
+                          wf, n, torch.zeros(4 * c, device="cuda"),
+                          wf.t().contiguous(), n[:8], heads=heads,
+                          head_dim=DHD)
