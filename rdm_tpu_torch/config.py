@@ -156,4 +156,6 @@ class DDIMSamplerConfig:
     # "shared": x/t at B with the stacked [cond; uncond] context at 2B
     # (the U-Net runs its context-free prefix once)
     cfg_mode: str = "double"
-    encoder_reuse: int = 1  # only 1 (exact sampling) is ported
+    # encoder reuse: the U-Net down path + middle rerun only every N-th
+    # step (1 = exact sampling; > 1 approximate)
+    encoder_reuse: int = 1

@@ -10,8 +10,13 @@ casts them to the activation dtype at use, and normalisations keep f32
 statistics with dtype-native arithmetic, as the JAX modules do.
 
 SpatialTransformer routes its blocks through the fused block kernels
-(`ops/block_kernel.fused_transformer_block`) whenever a context is given;
+(`ops/block_kernel.fused_transformer_block`) whenever a context is given,
+except while calibrating for int8 (`ops/quant.py`);
 `TransformerBlock.forward` is the unfused math they are held against.
+`Conv2d`, `CrossAttention` and `GEGLUFeedForward` record activation
+absmax for that calibration, and `Conv2d` and `TransformerBlock` carry the
+int8 serving state (`layers.QuantizableConv` and the "quant" collection of
+the JAX package).
 """
 
 from __future__ import annotations
@@ -23,15 +28,110 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from rdm_tpu_torch.ops import quant
 from rdm_tpu_torch.ops.attention import dot_product_attention
-from rdm_tpu_torch.ops.block_kernel import (fused_transformer_block,
-                                            layer_norm, pack_block_weights)
+from rdm_tpu_torch.ops.block_kernel import (QSCALE_NAMES,
+                                            fused_transformer_block,
+                                            layer_norm, pack_block_weights,
+                                            quantize_block_weights,
+                                            quantize_cols)
+
+
+def quantize_to_int8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Symmetric int8 by DIVISION with the f32 scale, round half to even,
+    clipped to +-127 (`layers.quantize_to_int8` in rdm_tpu)."""
+    return torch.clamp(torch.round(x.float() / scale), -127.0,
+                       127.0).to(torch.int8)
+
+
+def _conv_geometry(conv: nn.Conv2d, h: int, w: int):
+    (kh, kw), (sh, sw), (ph, pw) = conv.kernel_size, conv.stride, conv.padding
+    return (h + 2 * ph - kh) // sh + 1, (w + 2 * pw - kw) // sw + 1
+
+
+def int8_conv2d(x: torch.Tensor, conv: "Conv2d") -> torch.Tensor:
+    """conv's int8 convolution of x [B, C, H, W] (compute dtype): int32
+    [B*Ho*Wo, O], rows in (b, y, x) order. im2col of the input in its own
+    dtype (F.unfold does not take int8 on every device; quantization is
+    elementwise and the zero padding quantizes to 0, so quantizing after
+    the unfold is exact), then int8 x int8 -> int32 `torch._int_mm` (on
+    CUDA it needs more than 16 rows and K, O multiples of 8)."""
+    b, c, h, w = x.shape
+    o = conv.out_channels
+    if conv.kernel_size == (1, 1) and conv.stride == (1, 1) \
+            and conv.padding == (0, 0):
+        cols = x.permute(0, 2, 3, 1).reshape(-1, c)
+    else:
+        cols = F.unfold(x, conv.kernel_size, padding=conv.padding,
+                        stride=conv.stride)                # [B, K, L]
+        cols = cols.transpose(1, 2).reshape(-1, cols.shape[1])
+    m, k = cols.shape
+    if x.is_cuda and (m <= 16 or k % 8 or o % 8):
+        raise ValueError(f"int8 conv on CUDA needs > 16 rows and K, O "
+                         f"multiples of 8 (got {m} rows, K={k}, O={o})")
+    xq = quantize_to_int8(cols, conv.act_scale)
+    return torch._int_mm(xq, conv.qweight.reshape(o, k).t())
+
+
+def int8_conv2d_reference(x: torch.Tensor, conv: "Conv2d") -> torch.Tensor:
+    """Plain version of `int8_conv2d`: the quantized input convolved with
+    the int8 codes in float64 (exact: every partial sum is an integer
+    below 2^53), same [B*Ho*Wo, O] int32 result."""
+    xq = quantize_to_int8(x, conv.act_scale).double()
+    y = F.conv2d(xq, conv.qweight.double(), stride=conv.stride,
+                 padding=conv.padding)
+    return y.permute(0, 2, 3, 1).reshape(-1, conv.out_channels).to(
+        torch.int32)
 
 
 class Conv2d(nn.Conv2d):
-    """nn.Conv2d whose parameters are cast to the input dtype at use."""
+    """nn.Conv2d whose parameters are cast to the input dtype at use, with
+    the int8 serving state of `layers.QuantizableConv`.
+
+    While calibrating (`ops.quant.calibrate()`) a quantizable conv records
+    the max |x| of its input. `quantize(absmax)` gives it int8 weights
+    `qweight` [O, I, kh, kw] with per-output-channel scales `kernel_scale`
+    [O] f32 and the static input scale `act_scale` (f32 scalar); from then
+    on it runs `int8_conv2d` and dequantizes y = acc * (act_scale *
+    kernel_scale) + bias, cast to the input dtype. The three buffers ride
+    in the state dict once set. `quantizable = False` marks a conv the
+    JAX package builds as a plain nn.Conv (the U-Net's Downsample)."""
+
+    quantizable = True
+    _QKEYS = ("qweight", "kernel_scale", "act_scale")
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        for name in self._QKEYS:
+            self.register_buffer(name, None)
+
+    def quantize(self, absmax: torch.Tensor) -> None:
+        """Per-output-channel int8 weights and the static activation scale
+        from a calibrated input absmax (both floored at 1e-12)."""
+        w = self.weight.detach()
+        codes, self.kernel_scale = quantize_cols(w.reshape(len(w), -1).t())
+        self.qweight = codes.t().reshape(w.shape).contiguous()
+        self.act_scale = torch.as_tensor(
+            absmax, dtype=torch.float32,
+            device=w.device).clamp_min(1e-12) / 127.0
+
+    def _load_from_state_dict(self, state_dict, prefix, *args):
+        for name in self._QKEYS:
+            t = state_dict.get(prefix + name)
+            if t is not None:  # a slot for the base class to fill
+                setattr(self, name, torch.empty_like(t))
+        super()._load_from_state_dict(state_dict, prefix, *args)
 
     def forward(self, x):
+        if self.qweight is not None:
+            b, _, h, w = x.shape
+            ho, wo = _conv_geometry(self, h, w)
+            y = int8_conv2d(x, self).float() * (
+                self.act_scale * self.kernel_scale) + self.bias.float()
+            return y.to(x.dtype).reshape(b, ho, wo, -1).permute(
+                0, 3, 1, 2).contiguous()
+        if self.quantizable:
+            quant.record(self, "act_absmax", x)
         b = None if self.bias is None else self.bias.to(x.dtype)
         return self._conv_forward(x, self.weight.to(x.dtype), b)
 
@@ -140,6 +240,7 @@ class Downsample(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
         self.op = Conv2d(channels, channels, 3, stride=2, padding=1)
+        self.op.quantizable = False  # a plain nn.Conv in the JAX U-Net
 
     def forward(self, x):
         return self.op(x)
@@ -167,11 +268,13 @@ class CrossAttention(nn.Module):
         b, s = x.shape[:2]
         sk = ctx.shape[1]
         h, d = self.heads, self.head_dim
+        quant.record(self, "act_absmax", x)
         q = self.to_q(x).reshape(b, s, h, d)
         k = self.to_k(ctx).reshape(b, sk, h, d)
         v = self.to_v(ctx).reshape(b, sk, h, d)
         out = dot_product_attention(q, k, v, causal=self.causal)
         out = out.reshape(b, s, h * d)
+        quant.record(self, "out_absmax", out)
         return self.dropout(self.to_out[0](out))
 
 
@@ -195,13 +298,21 @@ class GEGLUFeedForward(nn.Module):
                                  Linear(dim * mult, dim))
 
     def forward(self, x):
-        return self.net(x)
+        quant.record(self, "act_absmax", x)
+        h = self.net[0](x)
+        quant.record(self, "hidden_absmax", h)
+        return self.net[2](self.net[1](h))
 
 
 class TransformerBlock(nn.Module):
     """Pre-LN: self-attn -> cross-attn -> GEGLU FF, each residual. With no
     context the middle attention is self-attention. This is the unfused
-    math; SpatialTransformer runs the fused kernels instead."""
+    math; SpatialTransformer runs the fused kernels instead.
+
+    `qabsmax` (a [6] f32 buffer, None until `set_qabsmax` or a state dict
+    that holds it) carries the calibrated activation absmax of the int8
+    serving mode, in `QSCALE_NAMES` order; with it the fused route runs the
+    int8 kernels."""
 
     def __init__(self, dim: int, context_dim: Optional[int], heads: int,
                  head_dim: int, dropout: float = 0.0):
@@ -215,6 +326,8 @@ class TransformerBlock(nn.Module):
         self.norm3 = LayerNormF32(dim)
         self.ff = GEGLUFeedForward(dim, dropout=dropout)
         self._packed = None  # kernel-layout weights, see pack()
+        self._qscales = None  # host copy of qabsmax, see qscales()
+        self.register_buffer("qabsmax", None)
         # a reload makes the snapshot stale
         self.register_load_state_dict_post_hook(
             lambda module, keys: module.unpack())
@@ -224,27 +337,56 @@ class TransformerBlock(nn.Module):
         x = x + self.attn2(self.norm2(x), context)
         return x + self.ff(self.norm3(x))
 
+    def set_qabsmax(self, absmax: torch.Tensor) -> None:
+        """Switch the fused route to the int8 kernels with these [6]
+        calibrated activation absmax."""
+        self.qabsmax = absmax.float().to(self.norm1.weight.device)
+        self.unpack()
+
+    def qscales(self):
+        """{QSCALE_NAMES: absmax} as host floats (read from the device
+        once), or None outside the int8 mode."""
+        if self.qabsmax is None:
+            return None
+        if self._qscales is None:
+            self._qscales = dict(zip(QSCALE_NAMES, self.qabsmax.tolist()))
+        return self._qscales
+
+    def _load_from_state_dict(self, state_dict, prefix, *args):
+        t = state_dict.get(prefix + "qabsmax")
+        if t is not None:  # a slot for the base class to fill
+            self.qabsmax = torch.empty_like(t)
+        super()._load_from_state_dict(state_dict, prefix, *args)
+
+    def _pack(self, dtype: torch.dtype):
+        w = pack_block_weights(self, dtype)
+        return w if self.qabsmax is None else quantize_block_weights(w)
+
     def pack(self, dtype: torch.dtype) -> None:
-        """Snapshot the kernel-layout weights once, for inference on the
-        parameters' device; a state-dict load drops the snapshot."""
-        self._packed = pack_block_weights(self, dtype)
+        """Snapshot the kernel-layout weights once (int8 ones too in the
+        int8 mode), for inference on the parameters' device; a state-dict
+        load drops the snapshot."""
+        self._packed = self._pack(dtype)
 
     def unpack(self) -> None:
         self._packed = None
+        self._qscales = None
 
     def fused_weights(self, x: torch.Tensor):
-        """The snapshot if it fits x's dtype and device, else a fresh
-        packing (per call: tests and CPU use)."""
+        """The snapshot if it fits x's dtype, device and mode, else a
+        fresh packing (per call: tests and CPU use)."""
         w = self._packed
         if (w is not None and w["wqkv"].dtype == x.dtype
-                and w["wqkv"].device == x.device):
+                and w["wqkv"].device == x.device
+                and ("wqkv_q" in w) == (self.qabsmax is not None)):
             return w
-        return pack_block_weights(self, x.dtype)
+        return self._pack(x.dtype)
 
     def forward_fused(self, x, context):
         return fused_transformer_block(
             x, context.to(x.dtype), self.fused_weights(x),
-            heads=self.heads, head_dim=self.head_dim)
+            heads=self.heads, head_dim=self.head_dim,
+            qscales=self.qscales())
 
 
 class SpatialTransformer(nn.Module):
@@ -269,8 +411,10 @@ class SpatialTransformer(nn.Module):
         x = self.proj_in(self.norm(x))
         inner = x.shape[1]
         x = x.permute(0, 2, 3, 1).reshape(b, h * w, inner)
+        # calibration runs the unfused blocks, which record the absmax the
+        # int8 kernels quantize with
         for blk in self.transformer_blocks:
-            x = (blk(x) if context is None
+            x = (blk(x, context) if context is None or quant.CALIBRATE
                  else blk.forward_fused(x, context))
         x = x.reshape(b, h, w, inner).permute(0, 3, 1, 2)
         return self.proj_out(x) + x_in

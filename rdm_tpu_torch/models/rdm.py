@@ -21,7 +21,8 @@ from rdm_tpu_torch.models.unet import UNet
 from rdm_tpu_torch.ops.schedules import DiffusionSchedule
 from rdm_tpu_torch.sampling import ddim_sample
 
-__all__ = ["RDM", "RDMConfig", "make_denoise_fn", "sample_with_neighbors"]
+__all__ = ["RDM", "RDMConfig", "make_denoise_feats_fn", "make_denoise_fn",
+           "sample_with_neighbors"]
 
 
 class _DiffusionWrapper(nn.Module):
@@ -54,12 +55,13 @@ class RDM(nn.Module):
     def unet(self) -> UNet:
         return self.model.diffusion_model
 
-    def forward(self, x, t, context):
+    def forward(self, x, t, context, **unet_kw):
         """eps prediction; x NCHW, context [B(, 2B), S, D] or neighbors
-        [B, n, k, D]."""
+        [B, n, k, D]. `unet_kw` (encoder_cache, return_cache) go to the
+        U-Net."""
         if context is not None and context.ndim != 3:
             context = self.encode_neighbors(context)
-        return self.unet(x, t, context)
+        return self.unet(x, t, context, **unet_kw)
 
     def encode_neighbors(self, neighbors: torch.Tensor) -> torch.Tensor:
         """[B, S, D] passes through; [B, n, k, D] flattens to
@@ -92,6 +94,18 @@ def make_denoise_fn(model: RDM):
     return fn
 
 
+def make_denoise_feats_fn(model: RDM):
+    """Encoder-reuse variant of make_denoise_fn: (x, t, context,
+    cache or None) -> (eps, cache). With cache None the full U-Net runs
+    and returns fresh down-path features; otherwise only the up path runs
+    against the cached ones (approximate, see UNet.forward)."""
+
+    def fn(x, t, context, cache):
+        return model(x, t, context, encoder_cache=cache, return_cache=True)
+
+    return fn
+
+
 def sample_with_neighbors(model: RDM, neighbors: torch.Tensor,
                           schedule: DiffusionSchedule,
                           sampler: DDIMSamplerConfig,
@@ -109,6 +123,9 @@ def sample_with_neighbors(model: RDM, neighbors: torch.Tensor,
         uncond = model.uncond_context(b, s, guidance_label).to(
             neighbors.device)
     shape = (b, cfg.channels, cfg.image_size, cfg.image_size)
+    feats_fn = (make_denoise_feats_fn(model) if sampler.encoder_reuse > 1
+                else None)
     x, _ = ddim_sample(make_denoise_fn(model), schedule, sampler, shape,
-                       neighbors, generator, uncond_context=uncond)
+                       neighbors, generator, uncond_context=uncond,
+                       denoise_feats_fn=feats_fn)
     return x.permute(0, 2, 3, 1) / cfg.scale_factor

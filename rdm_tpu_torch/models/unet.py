@@ -37,6 +37,14 @@ class UNet(nn.Module):
     enters; pre-divergence skip connections are tiled where they are
     consumed. `shared_cfg=None` detects the form from the batch sizes;
     True requires it; False forbids a context batch other than B.
+
+    Encoder reuse (rdm_tpu unet.py:89-101, 181-191; "Faster Diffusion",
+    arXiv 2312.09608): `return_cache=True` also returns the down path's
+    skips and the middle's output, `(skips, mid)`; passing that back as
+    `encoder_cache` on a later step skips the down path and middle and runs
+    only the up path against them, with the current timestep embedding
+    (tiled to the cache's batch under shared CFG). Approximate: the cached
+    features belong to a nearby x_t.
     """
 
     def __init__(self, config: UNetConfig, dtype: torch.dtype = torch.float32):
@@ -97,7 +105,8 @@ class UNet(nn.Module):
                                  Conv2d(ch, cfg.out_channels, 3, padding=1))
 
     def forward(self, x, t, context=None, y=None, *,
-                shared_cfg: Optional[bool] = None):
+                shared_cfg: Optional[bool] = None, encoder_cache=None,
+                return_cache: bool = False):
         cfg = self.config
         dt = self.dtype
         doubled = (context is not None and context.shape[0] > 0
@@ -127,26 +136,32 @@ class UNet(nn.Module):
             emb = emb + self.label_emb(y).to(dt)
         if context is not None:
             context = context.to(dt)
-        h = x.to(dt)
 
-        hs = []
-        for blocks in self.input_blocks:
-            for layer in blocks:
-                if isinstance(layer, ResBlock):
-                    h = layer(h, emb)
-                elif isinstance(layer, SpatialTransformer):
-                    if not tiled:
-                        h, emb, tiled = tile2(h), tile2(emb), True
-                    h = layer(h, context)
-                else:
-                    h = layer(h)
-            hs.append(h)
+        if encoder_cache is not None:
+            hs, h = list(encoder_cache[0]), encoder_cache[1]
+            if h.shape[0] == 2 * x.shape[0] and not tiled:
+                emb, tiled = tile2(emb), True
+        else:
+            h = x.to(dt)
+            hs = []
+            for blocks in self.input_blocks:
+                for layer in blocks:
+                    if isinstance(layer, ResBlock):
+                        h = layer(h, emb)
+                    elif isinstance(layer, SpatialTransformer):
+                        if not tiled:
+                            h, emb, tiled = tile2(h), tile2(emb), True
+                        h = layer(h, context)
+                    else:
+                        h = layer(h)
+                hs.append(h)
 
-        res1, mid_attn, res2 = self.middle_block
-        h = res1(h, emb)
-        if not tiled:  # no attention in the down path at all
-            h, emb, tiled = tile2(h), tile2(emb), True
-        h = res2(mid_attn(h, context), emb)
+            res1, mid_attn, res2 = self.middle_block
+            h = res1(h, emb)
+            if not tiled:  # no attention in the down path at all
+                h, emb, tiled = tile2(h), tile2(emb), True
+            h = res2(mid_attn(h, context), emb)
+        feats = (tuple(hs), h)
 
         for blocks in self.output_blocks:
             skip = hs.pop()
@@ -159,4 +174,5 @@ class UNet(nn.Module):
                     h = layer(h, context)
                 else:
                     h = layer(h)
-        return self.out(h).float()
+        out = self.out(h).float()
+        return (out, feats) if return_cache else out

@@ -48,6 +48,10 @@ _SIGNATURES = {
     "rdm_packed_attn": [_P] * 4 + [_I, _I, _I, _F, _P],
     "rdm_post_cross": [_P] * 12 + [_I, _I, _I, _I, _F, _P],
     "rdm_geglu_ff": [_P] * 11 + [_I, _I, _I, _I, _P],
+    "rdm_ln_qkv_q": [_P] * 8 + [_I, _I, _I, _F, _P],
+    "rdm_packed_attn_q8": [_P] * 5 + [_I, _I, _I, _I, _F, _P],
+    "rdm_post_cross_q": [_P] * 15 + [_I] * 4 + [_F] * 4 + [_P],
+    "rdm_geglu_ff_q": [_P] * 14 + [_I] * 4 + [_F, _F, _P],
     "rdm_decode_qkv": [_P] * 9 + [_I, _I, _I, _P],
     "rdm_decode_attn": [_P] * 6 + [_I, _I, _I, _I, _F, _P],
     "rdm_decode_post_ff": [_P] * 24 + [_I, _I, _I, _I, _F, _P],

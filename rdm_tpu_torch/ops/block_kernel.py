@@ -14,6 +14,19 @@ each residual; reference attention.py:77-96) runs as four kernels:
   4. `geglu_ff`    - LN3 + GEGLU FF + residual
                      (csrc/geglu_ff.cu; replaces `_geglu_ff_kernel`)
 
+The int8 serving mode (`fused_transformer_block(..., qscales=)`) runs
+their int8 variants: weight and activation int8 projections with int32
+accumulation, static calibrated activation scales, per-column weight
+scales (`quantize_cols`):
+
+  5. `ln_qkv_q`       (csrc/ln_qkv_q.cu; replaces `_ln_qkv_kernel_q`)
+  6. `packed_attn_q8` int8 q k^T and p v with per-cell absmax scales
+                      (csrc/packed_attn_q8.cu; replaces
+                      `_packed_attn_kernel_q8`; only with
+                      RDM_TPU_INT8_ATTN=1, else the bf16 core runs)
+  7. `post_cross_q`   (csrc/post_cross_q.cu; replaces `_post_cross_kernel_q`)
+  8. `geglu_ff_q`     (csrc/geglu_ff_q.cu; replaces `_geglu_ff_kernel_q`)
+
 Each wrapper has its plain PyTorch version beside it, `<name>_reference`.
 A wrapper runs the plain version only for tensors on the CPU; for a CUDA
 tensor it launches its kernel or raises (bf16 activations, head_dim 32,
@@ -22,13 +35,17 @@ contiguous tensors). Each wrapper counts its launches in `<name>.launches`.
 Layouts: activations [rows, C] or [B, S, C] with head h at channels
 [32h, 32h + 32); weights [in, out] (x @ W) in the activation dtype; norm
 scales and biases f32 [C] or [F]. `pack_block_weights` builds that dict
-once from a reference-layout TransformerBlock.
+once from a reference-layout TransformerBlock; `quantize_block_weights`
+adds the int8 weights once, [out, in] with f32 per-output scales. The
+int8 CUDA kernels take C (and F) as multiples of 64.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -39,6 +56,7 @@ HEAD_DIM = 32      # the only head width the kernels take
 MAX_CONTEXT = 16   # post_cross keeps the context scores in registers
 _BM, _BN = 32, 64  # output tile of the kernels (csrc/block_common.cuh)
 _TARGET_BLOCKS = 528  # ~4 resident thread blocks per SM on 132 SMs
+_LOG2E = 1.4426950408889634
 
 
 # ------------------------------------------------------------ plain math
@@ -122,19 +140,22 @@ def _on_cpu(*ts: torch.Tensor) -> bool:
 
 
 _KINDS = {torch.bfloat16: "bf16 activations and weights",
-          torch.float32: "f32 norms and biases"}
+          torch.float32: "f32 norms, biases and scales",
+          torch.int8: "int8 weights"}
 
 
-def _check(name: str, bf16, f32=(), *, head_dim: int = HEAD_DIM) -> None:
+def _check(name: str, bf16, f32=(), *, i8=(),
+           head_dim: int = HEAD_DIM) -> None:
     """Raise unless the CUDA kernel takes these (tensor, shape) pairs: bf16
-    activations and weights, f32 norms and biases, each of its shape, on
-    one device, contiguous and 16-byte aligned (the kernels move 16-byte
-    vectors)."""
+    activations and weights, f32 norms, biases and scales, int8 weights,
+    each of its shape, on one device, contiguous and 16-byte aligned (the
+    kernels move 16-byte vectors)."""
     if head_dim != HEAD_DIM:
         raise ValueError(f"{name}: the CUDA kernel takes head_dim "
                          f"{HEAD_DIM}, got {head_dim}")
     dev = bf16[0][0].device
-    for dtype, group in ((torch.bfloat16, bf16), (torch.float32, f32)):
+    for dtype, group in ((torch.bfloat16, bf16), (torch.float32, f32),
+                         (torch.int8, i8)):
         for t, shape in group:
             if t.dtype != dtype:
                 raise TypeError(f"{name}: the CUDA kernel takes "
@@ -195,7 +216,7 @@ def packed_attn(q, k, v, *, heads: int, head_dim: int):
     _check("packed_attn", [(a, (b, s, c)) for a in (q, k, v)],
            head_dim=head_dim)
     o = torch.empty_like(q)
-    scale_log2 = head_dim ** -0.5 * 1.4426950408889634
+    scale_log2 = head_dim ** -0.5 * _LOG2E
     lib = _build.load()
     with torch.cuda.device(q.device):
         rc = lib.rdm_packed_attn(_p(q), _p(k), _p(v), _p(o), b, s, heads,
@@ -277,16 +298,327 @@ def geglu_ff(xm2, n3s, n3b, wa, wg, ba, bg, w2, b2):
 
 geglu_ff.launches = 0
 
+
+# ------------------------------------------------------------ int8 math
+#
+# The int8 serving variants (`block_kernel.py:81-122, 140-150, 193-259,
+# 397-420, 456-497` in rdm_tpu). Weights: int8 per output column
+# (`quantize_cols`), stored [out, in] for the kernels' mma B operand.
+# Activations: the kernels quantize by MULTIPLYING with 1 / a, a the
+# calibrated static scale absmax / 127 (no floor); round half to even,
+# clip to +-127. Dequantization multiplies the int32 sum by (a * w_scale),
+# the product formed first.
+
+QSCALE_NAMES = ("a_qkv", "o_attn1", "a_attn2", "o_attn2", "a_ff", "h_ff")
+_INT8_WEIGHTS = ("wqkv", "wo", "wq2", "wo2", "wa", "wg", "w2")
+_Q8_BLOCK = 512  # q rows per scale cell of the int8 attention core
+
+
+def quantize_cols(w: torch.Tensor):
+    """[K, N] weights -> (int8 codes [K, N], f32 per-column scale [N]).
+    All-zero columns get scale 1e-12 / 127 and zero codes."""
+    wf = w.float()
+    s = wf.abs().amax(dim=0).clamp_min(1e-12) / 127.0
+    q = torch.clamp(torch.round(wf / s), -127.0, 127.0).to(torch.int8)
+    return q, s
+
+
+def act_scale(absmax) -> float:
+    """Static activation scale absmax / 127 in f32, no floor."""
+    return float(np.float32(float(absmax)) / np.float32(127.0))
+
+
+def quantize_act(h: torch.Tensor, a: float) -> torch.Tensor:
+    """Activations -> int8 with the static scale a: round(h * (1 / a))."""
+    inv = 1.0 / torch.tensor(a, dtype=torch.float32, device=h.device)
+    return torch.clamp(torch.round(h.float() * inv), -127.0,
+                       127.0).to(torch.int8)
+
+
+def _int_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """int8 a [M, K] x int8 w [N, K] (out, in) -> exact int32 [M, N]."""
+    return torch._int_mm(a, w.t())
+
+
+def _qdot(h, w, ws, a: float) -> torch.Tensor:
+    """Quantize h, int8 x int8 -> int32, dequantize: [M, N] f32."""
+    y = _int_matmul(quantize_act(h, a), w).float()
+    return y * (torch.tensor(a, dtype=torch.float32, device=h.device) * ws)
+
+
+def ln_qkv_q_reference(x2, n1s, n1b, wqkv, ws, a: float):
+    """x2 [R, C] -> (q, k, v) each [R, C]; wqkv int8 [3C, C], ws [3C]."""
+    c = x2.shape[1]
+    qkv = _qdot(layer_norm(x2, n1s, n1b), wqkv, ws, a).to(x2.dtype)
+    return qkv[:, :c], qkv[:, c:2 * c], qkv[:, 2 * c:]
+
+
+def _q8_block_rows(s: int) -> int:
+    """Query rows per scale cell: the TPU grid's q-block (whole S up to
+    512, else 512 halved until it divides S)."""
+    bq = min(_Q8_BLOCK, s)
+    while s % bq:
+        bq //= 2
+    return bq
+
+
+def _absmax_scale(t: torch.Tensor) -> torch.Tensor:
+    """Per-image max(absmax, 1e-12) / 127 over all but the batch dim."""
+    return t.abs().amax(dim=tuple(range(1, t.ndim))).clamp_min(1e-12) / 127.0
+
+
+def _codes(t: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """round(t / s) clipped to +-127, as f64 codes (exact in matmuls)."""
+    shp = (-1,) + (1,) * (t.ndim - 1)
+    return torch.clamp(torch.round(t / s.reshape(shp)), -127.0,
+                       127.0).double()
+
+
+def packed_attn_q8_reference(q, k, v, *, heads: int, head_dim: int):
+    """q/k/v [B, S, C] -> [B, S, C]: the int8 attention core. Dynamic
+    absmax scales per (image, 128-channel group, q-block of
+    `_q8_block_rows`) for q and per (image, group) for k and v, as the TPU
+    grid cells take them (a group is 4 heads of 32; the last one may hold
+    fewer); int8 q k^T, exp2 softmax over the whole row in f32, p
+    quantized as round(127 p), int8 p v, divided by the f32 denominator."""
+    b, s, c = q.shape
+    scale = head_dim ** -0.5
+    bq = _q8_block_rows(s)
+    out = torch.empty_like(q)
+    for g0 in range(0, c, 128):
+        g1 = min(g0 + 128, c)
+        kg, vg = k[..., g0:g1].float(), v[..., g0:g1].float()
+        ks, vs = _absmax_scale(kg), _absmax_scale(vg)
+        kq, vq = _codes(kg, ks), _codes(vg, vs)
+        for q0 in range(0, s, bq):
+            qg = q[:, q0:q0 + bq, g0:g1].float()
+            qs = _absmax_scale(qg)
+            qq = _codes(qg, qs)
+            c_s = (qs * ks * scale * _LOG2E)[:, None, None]
+            c_v = (vs / 127.0)[:, None, None]
+            for h0 in range(0, g1 - g0, head_dim):
+                hs = slice(h0, h0 + head_dim)
+                sc = (qq[..., hs] @ kq[..., hs].transpose(1, 2)).float()
+                sc = sc * c_s
+                p = torch.exp2(sc - sc.amax(dim=-1, keepdim=True))
+                den = p.sum(dim=-1, keepdim=True)
+                pq = torch.round(p * 127.0).double()
+                pv = (pq @ vq[..., hs]).float() * c_v
+                out[:, q0:q0 + bq, g0 + h0:g0 + h0 + head_dim] = (
+                    pv * (1.0 / den)).to(q.dtype)
+    return out
+
+
+def _cross_attention_f32(q2, ck, cv, heads: int, head_dim: int):
+    """Per-head softmax(q2 ck^T d^-1/2) cv over the T context tokens, as
+    `ops.attention` computes it (f32 scores and softmax, probabilities in
+    the activation dtype) but with the output kept in f32."""
+    b, s, c = q2.shape
+    t = ck.shape[1]
+    sc = torch.einsum("bshd,bthd->bhst",
+                      q2.reshape(b, s, heads, head_dim).float(),
+                      ck.reshape(b, t, heads, head_dim).float())
+    p = torch.softmax(sc * head_dim ** -0.5, dim=-1).to(q2.dtype).float()
+    o = torch.einsum("bhst,bthd->bshd", p,
+                     cv.reshape(b, t, heads, head_dim).float())
+    return o.reshape(b, s, c)
+
+
+def post_cross_q_reference(x, attn, ck, cv, wo, wso, bo, n2s, n2b, wq2, wsq2,
+                           wo2, wso2, bo2, a_o1: float, a_a2: float,
+                           a_o2: float, *, heads: int, head_dim: int):
+    """The int8 `post_cross`: wo / wq2 / wo2 int8 [C, C] (out, in) with
+    scales o_attn1 / a_attn2 / o_attn2; the cross-attention output is
+    quantized from f32 (the bf16 kernel rounds it to bf16 first)."""
+    b, s, c = x.shape
+    r = b * s
+    dt = x.dtype
+    x1 = x + (_qdot(attn.reshape(r, c), wo, wso, a_o1) + bo).to(dt).reshape(
+        b, s, c)
+    q2 = _qdot(layer_norm(x1, n2s, n2b).reshape(r, c), wq2, wsq2,
+               a_a2).to(dt)
+    o = _cross_attention_f32(q2.reshape(b, s, c), ck, cv, heads, head_dim)
+    return x1 + (_qdot(o.reshape(r, c), wo2, wso2, a_o2) + bo2).to(
+        dt).reshape(b, s, c)
+
+
+def geglu_ff_q_reference(xm2, n3s, n3b, wa, wsa, wg, wsg, ba, bg, w2, ws2,
+                         b2, a_ff: float, h_ff: float):
+    """The int8 `geglu_ff`: LN3 output quantized once (a_ff), wa / wg int8
+    [F, C], the gated hidden kept f32 and quantized with h_ff, w2 int8
+    [C, F]."""
+    h3 = quantize_act(layer_norm(xm2, n3s, n3b), a_ff)
+    a3 = torch.tensor(a_ff, dtype=torch.float32, device=xm2.device)
+    av = _int_matmul(h3, wa).float() * (a3 * wsa) + ba
+    gv = _int_matmul(h3, wg).float() * (a3 * wsg) + bg
+    f = av * (0.5 * gv * (1.0 + torch.erf(gv * 0.7071067811865476)))
+    return xm2 + (_qdot(f, w2, ws2, h_ff) + b2).to(xm2.dtype)
+
+
+# --------------------------------------------------------- int8 wrappers
+
+def _check_k64(name: str, **dims: int) -> None:
+    for k, v in dims.items():
+        if v % 64:
+            raise ValueError(f"{name}: the int8 kernel takes {k} as a "
+                             f"multiple of 64, got {v}")
+
+
+def ln_qkv_q(x2, n1s, n1b, wqkv, ws, a: float):
+    """int8 LN1 + q/k/v projection: x2 [R, C] -> (q, k, v) each [R, C]."""
+    r, c = x2.shape
+    if wqkv.shape != (3 * c, c) or ws.shape != (3 * c,):
+        raise ValueError(f"ln_qkv_q: wqkv {tuple(wqkv.shape)}, ws "
+                         f"{tuple(ws.shape)} for C={c}")
+    if _on_cpu(x2, wqkv):
+        return ln_qkv_q_reference(x2, n1s, n1b, wqkv, ws, a)
+    _check("ln_qkv_q", [(x2, (r, c))], [(n1s, (c,)), (n1b, (c,)),
+                                        (ws, (3 * c,))],
+           i8=[(wqkv, (3 * c, c))])
+    _check_k64("ln_qkv_q", C=c)
+    q, k, v = (torch.empty_like(x2) for _ in range(3))
+    lib = _build.load()
+    with torch.cuda.device(x2.device):
+        rc = lib.rdm_ln_qkv_q(_p(x2), _p(n1s), _p(n1b), _p(wqkv), _p(ws),
+                              _p(q), _p(k), _p(v), r, c,
+                              _tiles_per_block(3 * c, r), a, _stream(x2))
+    _build.check(rc, "ln_qkv_q")
+    ln_qkv_q.launches += 1
+    return q, k, v
+
+
+ln_qkv_q.launches = 0
+
+
+def packed_attn_q8(q, k, v, *, heads: int, head_dim: int):
+    """int8 self-attention core: q/k/v [B, S, C] -> [B, S, C]. On CUDA two
+    launches (the per-cell absmax scales, then the attention), counted as
+    one call."""
+    b, s, c = q.shape
+    if heads * head_dim != c or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"packed_attn_q8: q/k/v {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)} for "
+                         f"{heads}x{head_dim}")
+    if _on_cpu(q, k, v):
+        return packed_attn_q8_reference(q, k, v, heads=heads,
+                                        head_dim=head_dim)
+    _check("packed_attn_q8", [(a, (b, s, c)) for a in (q, k, v)],
+           head_dim=head_dim)
+    bq = _q8_block_rows(s)
+    groups = -(-c // 128)
+    # absmax per (image, group): q per q-block, then k, then v
+    amax = torch.zeros((b, groups, s // bq + 2), dtype=torch.float32,
+                       device=q.device)
+    o = torch.empty_like(q)
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        rc = lib.rdm_packed_attn_q8(_p(q), _p(k), _p(v), _p(amax), _p(o), b,
+                                    s, heads, bq, head_dim ** -0.5,
+                                    _stream(q))
+    _build.check(rc, "packed_attn_q8")
+    packed_attn_q8.launches += 1
+    return o
+
+
+packed_attn_q8.launches = 0
+
+
+def post_cross_q(x, attn, ck, cv, wo, wso, bo, n2s, n2b, wq2, wsq2, wo2,
+                 wso2, bo2, a_o1: float, a_a2: float, a_o2: float, *,
+                 heads: int, head_dim: int):
+    """int8 out-proj + LN2 + cross-attention + out-proj: x, attn [B, S, C],
+    ck, cv [B, T, C] -> xmid [B, S, C]."""
+    b, s, c = x.shape
+    t = ck.shape[1]
+    if (attn.shape != x.shape or ck.shape != (b, t, c)
+            or cv.shape != ck.shape or heads * head_dim != c):
+        raise ValueError(f"post_cross_q: x {tuple(x.shape)}, attn "
+                         f"{tuple(attn.shape)}, ck {tuple(ck.shape)}, cv "
+                         f"{tuple(cv.shape)} for {heads}x{head_dim}")
+    args = (x, attn, ck, cv, wo, wso, bo, n2s, n2b, wq2, wsq2, wo2, wso2,
+            bo2, a_o1, a_a2, a_o2)
+    if _on_cpu(x, attn, ck, cv, wo):
+        return post_cross_q_reference(*args, heads=heads, head_dim=head_dim)
+    _check("post_cross_q",
+           [(x, (b, s, c)), (attn, (b, s, c)), (ck, (b, t, c)),
+            (cv, (b, t, c))],
+           [(p, (c,)) for p in (wso, bo, n2s, n2b, wsq2, wso2, bo2)],
+           i8=[(wo, (c, c)), (wq2, (c, c)), (wo2, (c, c))],
+           head_dim=head_dim)
+    _check_k64("post_cross_q", C=c)
+    if not 1 <= t <= MAX_CONTEXT:
+        raise ValueError(f"post_cross_q: context length {t} not in "
+                         f"[1, {MAX_CONTEXT}]")
+    out = torch.empty_like(x)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        rc = lib.rdm_post_cross_q(
+            _p(x), _p(attn), _p(ck), _p(cv), _p(wo), _p(wso), _p(bo),
+            _p(n2s), _p(n2b), _p(wq2), _p(wsq2), _p(wo2), _p(wso2), _p(bo2),
+            _p(out), b * s, s, c, t, a_o1, a_a2, a_o2, head_dim ** -0.5,
+            _stream(x))
+    _build.check(rc, "post_cross_q")
+    post_cross_q.launches += 1
+    return out
+
+
+post_cross_q.launches = 0
+
+
+def geglu_ff_q(xm2, n3s, n3b, wa, wsa, wg, wsg, ba, bg, w2, ws2, b2,
+               a_ff: float, h_ff: float, hidden=None):
+    """int8 LN3 + GEGLU FF + residual: xm2 [R, C] -> [R, C]. On CUDA two
+    launches (gated up-projection into the int8 hidden codes [R, F], then
+    down-projection + residual), counted as one call; `hidden`, an int8
+    [R, F] buffer, keeps the codes for inspection."""
+    r, c = xm2.shape
+    f = wa.shape[0]
+    if wa.shape != (f, c) or wg.shape != (f, c) or w2.shape != (c, f):
+        raise ValueError(f"geglu_ff_q: wa {tuple(wa.shape)}, wg "
+                         f"{tuple(wg.shape)}, w2 {tuple(w2.shape)} for "
+                         f"C={c}")
+    args = (xm2, n3s, n3b, wa, wsa, wg, wsg, ba, bg, w2, ws2, b2, a_ff, h_ff)
+    if _on_cpu(xm2, wa):
+        return geglu_ff_q_reference(*args)
+    _check("geglu_ff_q", [(xm2, (r, c))],
+           [(n3s, (c,)), (n3b, (c,)), (wsa, (f,)), (wsg, (f,)), (ba, (f,)),
+            (bg, (f,)), (ws2, (c,)), (b2, (c,))],
+           i8=[(wa, (f, c)), (wg, (f, c)), (w2, (c, f))])
+    _check_k64("geglu_ff_q", C=c, F=f)
+    if hidden is None:
+        hidden = torch.empty((r, f), dtype=torch.int8, device=xm2.device)
+    _check("geglu_ff_q", [(xm2, (r, c))], i8=[(hidden, (r, f))])
+    y = torch.empty_like(xm2)
+    lib = _build.load()
+    with torch.cuda.device(xm2.device):
+        rc = lib.rdm_geglu_ff_q(
+            _p(xm2), _p(n3s), _p(n3b), _p(wa), _p(wsa), _p(wg), _p(wsg),
+            _p(ba), _p(bg), _p(w2), _p(ws2), _p(b2), _p(hidden), _p(y), r,
+            c, f, _tiles_per_block(f, r), a_ff, h_ff, _stream(xm2))
+    _build.check(rc, "geglu_ff_q")
+    geglu_ff_q.launches += 1
+    return y
+
+
+geglu_ff_q.launches = 0
+
 KERNELS = (ln_qkv, packed_attn, post_cross, geglu_ff)
+INT8_KERNELS = (ln_qkv_q, packed_attn_q8, post_cross_q, geglu_ff_q)
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS:
+    for fn in KERNELS + INT8_KERNELS:
         fn.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    return {fn.__name__: fn.launches for fn in KERNELS}
+    return {fn.__name__: fn.launches for fn in KERNELS + INT8_KERNELS}
+
+
+def use_int8_attn_core() -> bool:
+    """The int8 attention core inside the int8 serving mode, read from
+    RDM_TPU_INT8_ATTN as the JAX package reads it; default off."""
+    return os.environ.get("RDM_TPU_INT8_ATTN", "0") == "1"
 
 
 # ------------------------------------------------------------ the block
@@ -322,26 +654,63 @@ def pack_block_weights(block, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
     )
 
 
+def quantize_block_weights(w: Dict[str, torch.Tensor]
+                           ) -> Dict[str, torch.Tensor]:
+    """The int8 kernels' weights, added once to a `pack_block_weights`
+    dict (the JAX package quantizes inside the block and XLA hoists it out
+    of the sampling scan): `<name>_q` int8 [out, in] and `<name>_s` f32
+    [out] for each projection, from the packed compute-dtype weights."""
+    out = dict(w)
+    for name in _INT8_WEIGHTS:
+        codes, scale = quantize_cols(w[name])
+        out[name + "_q"] = codes.t().contiguous()
+        out[name + "_s"] = scale.contiguous()
+    return out
+
+
 def fused_transformer_block(x: torch.Tensor, context: torch.Tensor,
                             w: Dict[str, torch.Tensor], *, heads: int,
-                            head_dim: int) -> torch.Tensor:
+                            head_dim: int, qscales=None) -> torch.Tensor:
     """One pre-LN transformer block through the four kernels.
 
     x [B, S, C], context [B, T, Dc] (both in the compute dtype), w from
     `pack_block_weights`. The context k/v projections stay torch matmuls,
-    as XLA kept them in JAX (models/layers.py FusedTransformerBlock)."""
+    as XLA kept them in JAX (models/layers.py FusedTransformerBlock).
+
+    qscales (int8 serving): the calibrated activation absmax keyed by
+    `QSCALE_NAMES`; the block then runs the four int8 kernels on the
+    weights of `quantize_block_weights(w)` (the attention core stays the
+    bf16 one unless `use_int8_attn_core()`)."""
     b, s, c = x.shape
     ck = _linear(context.reshape(-1, context.shape[-1]), w["wk2"])
     cv = _linear(context.reshape(-1, context.shape[-1]), w["wv2"])
     ck = ck.reshape(b, -1, c)
     cv = cv.reshape(b, -1, c)
     x = x.contiguous()
-    q, k, v = ln_qkv(x.reshape(b * s, c), w["n1s"], w["n1b"], w["wqkv"])
-    attn = packed_attn(q.reshape(b, s, c), k.reshape(b, s, c),
-                       v.reshape(b, s, c), heads=heads, head_dim=head_dim)
-    xmid = post_cross(x, attn, ck, cv, w["wo"], w["bo"], w["n2s"],
-                      w["n2b"], w["wq2"], w["wo2"], w["bo2"], heads=heads,
-                      head_dim=head_dim)
-    y = geglu_ff(xmid.reshape(b * s, c), w["n3s"], w["n3b"], w["wa"],
-                 w["wg"], w["ba"], w["bg"], w["w2"], w["b2"])
+    x2 = x.reshape(b * s, c)
+    if qscales is None:
+        q, k, v = ln_qkv(x2, w["n1s"], w["n1b"], w["wqkv"])
+        attn = packed_attn(q.reshape(b, s, c), k.reshape(b, s, c),
+                           v.reshape(b, s, c), heads=heads,
+                           head_dim=head_dim)
+        xmid = post_cross(x, attn, ck, cv, w["wo"], w["bo"], w["n2s"],
+                          w["n2b"], w["wq2"], w["wo2"], w["bo2"],
+                          heads=heads, head_dim=head_dim)
+        y = geglu_ff(xmid.reshape(b * s, c), w["n3s"], w["n3b"], w["wa"],
+                     w["wg"], w["ba"], w["bg"], w["w2"], w["b2"])
+        return y.reshape(b, s, c)
+    a = {k: act_scale(qscales[k]) for k in QSCALE_NAMES}
+    q, k, v = ln_qkv_q(x2, w["n1s"], w["n1b"], w["wqkv_q"], w["wqkv_s"],
+                       a["a_qkv"])
+    core = packed_attn_q8 if use_int8_attn_core() else packed_attn
+    attn = core(q.reshape(b, s, c), k.reshape(b, s, c), v.reshape(b, s, c),
+                heads=heads, head_dim=head_dim)
+    xmid = post_cross_q(x, attn, ck, cv, w["wo_q"], w["wo_s"], w["bo"],
+                        w["n2s"], w["n2b"], w["wq2_q"], w["wq2_s"],
+                        w["wo2_q"], w["wo2_s"], w["bo2"], a["o_attn1"],
+                        a["a_attn2"], a["o_attn2"], heads=heads,
+                        head_dim=head_dim)
+    y = geglu_ff_q(xmid.reshape(b * s, c), w["n3s"], w["n3b"], w["wa_q"],
+                   w["wa_s"], w["wg_q"], w["wg_s"], w["ba"], w["bg"],
+                   w["w2_q"], w["w2_s"], w["b2"], a["a_ff"], a["h_ff"])
     return y.reshape(b, s, c)

@@ -97,6 +97,18 @@ class DiffusionSchedule:
         )
 
 
+def q_sample(schedule: DiffusionSchedule, x_start: torch.Tensor,
+             t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """x_t ~ q(x_t | x_0) in one shot, in float32, cast back to x_start's
+    dtype."""
+    shp = (-1,) + (1,) * (x_start.ndim - 1)
+    dev = x_start.device
+    a = schedule.sqrt_alphas_cumprod.to(dev)[t].reshape(shp)
+    s = schedule.sqrt_one_minus_alphas_cumprod.to(dev)[t].reshape(shp)
+    out = a * x_start.float() + s * noise.float()
+    return out.to(x_start.dtype)
+
+
 def make_ddim_timesteps(num_ddim_timesteps: int, num_ddpm_timesteps: int,
                         method: str = "uniform") -> np.ndarray:
     """DDPM steps used by DDIM, ascending, with the reference's +1 shift

@@ -2,8 +2,9 @@
 decode) and RARM (retrieval -> KV-cached token sampling -> VQ decode_code).
 
 Counterpart of `rdm_tpu/pipeline.py` `RDMPipeline` and `RARMPipeline` on
-one device (no mesh, no int8 serving, no encoder reuse, no captions and no
-`from_model_dir` yet). Public inputs and outputs keep the
+one device, with the RDM serving modes (`int8_weights`, `encoder_reuse`);
+no mesh, no RARM int8 or approximate top-k, no captions and no
+`from_model_dir` yet. Public inputs and outputs keep the
 JAX layouts: query embeddings [B, D], neighbors [B, k, D], images NHWC
 uint8 numpy arrays. Inside, images and latents are NCHW.
 
@@ -16,6 +17,7 @@ vector scaled to norm 0.0, as both reference CLIs pass.
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
@@ -29,6 +31,7 @@ from rdm_tpu_torch.models.layers import TransformerBlock
 from rdm_tpu_torch.models.rarm import (RARM, extract_decode_weights,
                                        sample_tokens_fused)
 from rdm_tpu_torch.models.rdm import RDM, sample_with_neighbors
+from rdm_tpu_torch.ops import quant
 from rdm_tpu_torch.ops.schedules import DiffusionSchedule
 from rdm_tpu_torch.retrieval.database import DataPool, NNMemory
 from rdm_tpu_torch.retrieval.engine import RetrievalEngine
@@ -89,15 +92,26 @@ class RDMPipeline:
 
     params / first_stage_params are state dicts in the reference names
     (`RDM.state_dict()`, `VQModel.state_dict()`; see
-    `utils/from_jax.py` for JAX trees)."""
+    `utils/from_jax.py` for JAX trees, int8 serving trees included).
+
+    int8 serving mode (`int8_weights=True`, ops/quant.py): the U-Net convs
+    but conv_in and the eps head, the VQ decoder's convs but conv_in,
+    conv_out and post_quant_conv, and the transformer blocks run weight +
+    activation int8. The first request calibrates (`_calibrate_int8`) and
+    quantizes the pipeline's modules in place; parameters that already
+    carry int8 state need no calibration. Approximate, opt-in."""
 
     def __init__(self, config: RDMConfig, params: Mapping[str, Any],
                  first_stage_config: AutoencoderConfig,
                  first_stage_params: Mapping[str, Any],
                  pool: Optional[DataPool] = None,
                  memory: Optional[NNMemory] = None,
-                 dtype: torch.dtype = torch.bfloat16, device="cuda"):
+                 dtype: torch.dtype = torch.bfloat16, device="cuda",
+                 int8_weights: bool = False):
         self.config = config
+        self.dtype = dtype
+        self.int8_weights = int8_weights
+        self.calibration_seconds: Optional[float] = None
         self.device = torch.device(device)
         # built without initialising (meta), then bound to the given
         # weights: the random init of 400M parameters would be thrown away
@@ -113,6 +127,7 @@ class RDMPipeline:
         self.memory = memory
         self.retrieval = (RetrievalEngine(pool, device=self.device)
                           if pool is not None else None)
+        self._int8_ready = quant.num_quantized(self.model) > 0
 
     # ---------- sampling ----------
 
@@ -121,15 +136,15 @@ class RDMPipeline:
                              guidance_scale: float = 2.0, memsize=0.01,
                              use_weights: bool = False,
                              qids: Optional[np.ndarray] = None,
-                             seed: int = 0, return_nns: bool = False
-                             ) -> Dict[str, Any]:
+                             seed: int = 0, return_nns: bool = False,
+                             encoder_reuse: int = 1) -> Dict[str, Any]:
         """sample_from_rdata equivalent (ddpm.py:877-984)."""
         k_nn = k_nn or self.config.k_nn
         q_emb = _query_embeddings(self.retrieval, self.memory, batch_size,
                                   memsize, use_weights, qids, seed)
         found = self.retrieval.search(q_emb, k=k_nn)
         out = {"samples_with_sampled_nns": self._run_ddim(
-            found["embeddings"], steps, guidance_scale, seed)}
+            found["embeddings"], steps, guidance_scale, seed, encoder_reuse)}
         if return_nns:
             out["nn_embeddings"] = found["embeddings"].cpu().numpy()
             out["nn_ids"] = found["nns"].cpu().numpy()
@@ -139,7 +154,8 @@ class RDMPipeline:
                           k_nn: Optional[int] = None, steps: int = 100,
                           guidance_scale: float = 2.0,
                           omit_query: bool = False, only_query: bool = False,
-                          seed: int = 0) -> Dict[str, Any]:
+                          seed: int = 0, encoder_reuse: int = 1
+                          ) -> Dict[str, Any]:
         """sample_with_query equivalent (ddpm.py:688-844): the query
         embedding becomes neighbor #0 unless omitted; only_query skips
         retrieval."""
@@ -157,19 +173,98 @@ class RDMPipeline:
                          else torch.cat([q[:, None], r_emb[:, :k_nn - 1]],
                                         dim=1))
         return {"query_samples": self._run_ddim(neighbors, steps,
-                                                guidance_scale, seed)}
+                                                guidance_scale, seed,
+                                                encoder_reuse)}
 
-    def _run_ddim(self, neighbors: torch.Tensor, steps: int,
-                  guidance_scale: float, seed: int) -> np.ndarray:
+    # ---------- int8 serving ----------
+
+    def serving_params(self, neighbors=None, *, steps: int = 50,
+                       guidance_scale: float = 2.0, seed: int = 0) -> RDM:
+        """The model sampling runs with: int8 (calibrated on `neighbors`
+        the first time) when int8_weights is on, else the compute-dtype
+        one."""
+        if not self.int8_weights:
+            return self.model
+        if neighbors is None and not self._int8_ready:
+            raise ValueError("int8 calibration needs a neighbor batch")
+        return self.quantized_params(neighbors, steps=steps,
+                                     guidance_scale=guidance_scale,
+                                     seed=seed)
+
+    def quantized_params(self, neighbors, *, steps: int = 50,
+                         guidance_scale: float = 2.0, seed: int = 0) -> RDM:
+        """The int8 model, calibrated once on a real sampling trajectory
+        for `neighbors`. The port quantizes the pipeline's own modules in
+        place, so this needs int8_weights=True."""
+        if not self.int8_weights:
+            raise ValueError("quantized_params quantizes the pipeline's "
+                             "modules in place; build the pipeline with "
+                             "int8_weights=True")
+        if not self._int8_ready:
+            t0 = time.perf_counter()
+            self._calibrate_int8(neighbors.to(self.device), steps,
+                                 guidance_scale, seed)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.calibration_seconds = time.perf_counter() - t0
+            self._int8_ready = True
+        return self.model
+
+    def _calibrate_int8(self, neighbors: torch.Tensor, steps: int,
+                        guidance_scale: float, seed: int) -> None:
+        """Quantize the U-Net and the VQ decoder in place (ops/quant.py):
+        one compute-dtype sampling run gives the final latents; the
+        decoder is calibrated on decoding them, the U-Net on n_points
+        forwards at q_sample(latents, t) over the DDIM ladder, in the exact
+        serving form (shared-prefix CFG context)."""
+        model, fs = self.model, self.first_stage
+        with torch.inference_mode():
+            z_raw = self._sample(model, neighbors, steps, guidance_scale,
+                                 seed, 1).permute(0, 3, 1, 2)
+            with quant.calibrate():
+                fs.decode(z_raw)
+            quant.quantize_conv_tree(fs, quant.collect_absmax(fs),
+                                     exclude=quant.decoder_exclude(fs))
+            ctx = model.encode_neighbors(neighbors)
+            if guidance_scale != 1.0:
+                ctx = torch.cat([ctx, model.uncond_context(
+                    ctx.shape[0], ctx.shape[1], 0.0).to(ctx.device)])
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            absmax = quant.ddim_trajectory_absmax(
+                model, z_raw * self.config.scale_factor, self.schedule,
+                steps, ctx, model, gen)
+            quant.quantize_conv_tree(model, absmax,
+                                     exclude=quant.unet_exclude(model.unet))
+        for m in model.modules():  # the int8 kernel-layout weights, once
+            if isinstance(m, TransformerBlock):
+                m.pack(self.dtype)
+
+    def serving_fs_params(self) -> VQModel:
+        """The first stage the decode runs with (int8 after the int8
+        calibration)."""
+        return self.first_stage
+
+    def _sample(self, model: RDM, neighbors: torch.Tensor, steps: int,
+                guidance_scale: float, seed: int,
+                encoder_reuse: int) -> torch.Tensor:
         sampler = DDIMSamplerConfig(num_steps=steps,
                                     guidance_scale=guidance_scale,
-                                    cfg_mode="shared")
+                                    cfg_mode="shared",
+                                    encoder_reuse=encoder_reuse)
         gen = torch.Generator(device=self.device).manual_seed(seed)
+        return sample_with_neighbors(model, neighbors, self.schedule,
+                                     sampler, gen, guidance_label=0.0)
+
+    def _run_ddim(self, neighbors: torch.Tensor, steps: int,
+                  guidance_scale: float, seed: int,
+                  encoder_reuse: int = 1) -> np.ndarray:
+        neighbors = neighbors.to(self.device)
+        model = self.serving_params(neighbors, steps=steps,
+                                    guidance_scale=guidance_scale, seed=seed)
         with torch.inference_mode():
-            z = sample_with_neighbors(self.model, neighbors.to(self.device),
-                                      self.schedule, sampler, gen,
-                                      guidance_label=0.0)
-            images = self.first_stage.decode(z.permute(0, 3, 1, 2))
+            z = self._sample(model, neighbors, steps, guidance_scale, seed,
+                             encoder_reuse)
+            images = self.serving_fs_params().decode(z.permute(0, 3, 1, 2))
             return to_uint8(images.permute(0, 2, 3, 1))
 
 

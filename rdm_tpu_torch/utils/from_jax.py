@@ -10,13 +10,19 @@ likes (numpy or jax arrays), with or without the top-level "params" key.
 
 Layout rules (inverse of the converter's):
   flax conv kernel [kh, kw, I, O]  ->  torch Conv2d weight [O, I, kh, kw]
+  int8 conv kernel (an int8 serving tree of rdm_tpu.ops.quant)
+                                   ->  qweight [O, I, kh, kw] int8 with
+                                       kernel_scale [O] and act_scale; the
+                                       weight is the dequantized kernel
+  "quant" collection (calibrated absmax at <block>/attn1, attn2, ff)
+                                   ->  TransformerBlock qabsmax [6]
   flax Dense kernel [I, O]         ->  torch Linear weight [O, I]
   <norm>/GroupNorm_0|LayerNorm_0/{scale, bias}  ->  <norm>.{weight, bias}
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,19 +38,28 @@ def _tree(params: Mapping[str, Any]) -> Mapping[str, Any]:
 class _Inverse:
     """Collects flax-path -> torch-key assignments."""
 
-    def __init__(self, tree: Mapping[str, Any], prefix: str = ""):
+    def __init__(self, tree: Mapping[str, Any], prefix: str = "",
+                 quant: Optional[Mapping[str, Any]] = None):
         self.tree = tree
         self.prefix = prefix
+        self.quant = quant or {}
         self.sd: Dict[str, torch.Tensor] = {}
+        # (flax module path, port module name) of every conv and every
+        # block attention / feed-forward: the keys of both calibration
+        # trees
+        self.names: List[Tuple[str, str]] = []
 
-    def get(self, path: str) -> np.ndarray:
-        node = self.tree
+    def raw(self, path: str, tree=None) -> np.ndarray:
+        node = self.tree if tree is None else tree
         for p in path.split("/"):
             node = node[p]
-        return np.asarray(node, dtype=np.float32)
+        return np.asarray(node)
 
-    def has(self, path: str) -> bool:
-        node = self.tree
+    def get(self, path: str) -> np.ndarray:
+        return self.raw(path).astype(np.float32)
+
+    def has(self, path: str, tree=None) -> bool:
+        node = self.tree if tree is None else tree
         for p in path.split("/"):
             if not isinstance(node, Mapping) or p not in node:
                 return False
@@ -59,8 +74,16 @@ class _Inverse:
         self.put(tkey, self.get(fpath))
 
     def conv(self, fmod: str, tmod: str) -> None:
+        self.names.append((fmod, tmod))
+        kern = self.raw(f"{fmod}/kernel")
+        if kern.dtype == np.int8:
+            ws = self.get(f"{fmod}/kernel_scale")
+            self.put(f"{tmod}.qweight", np.transpose(kern, (3, 2, 0, 1)))
+            self.put(f"{tmod}.kernel_scale", ws)
+            self.put(f"{tmod}.act_scale", self.get(f"{fmod}/act_scale"))
+            kern = kern.astype(np.float32) * ws
         self.put(f"{tmod}.weight",
-                 np.transpose(self.get(f"{fmod}/kernel"), (3, 2, 0, 1)))
+                 np.transpose(kern.astype(np.float32), (3, 2, 0, 1)))
         if self.has(f"{fmod}/bias"):
             self.copy(f"{fmod}/bias", f"{tmod}.bias")
 
@@ -99,6 +122,14 @@ def _transformer_block(m: _Inverse, fb: str, tb: str) -> None:
         m.linear(f"{pre}{a}/to_out", f"{dot}{a}.to_out.0")
     m.linear(f"{pre}ff/proj_in", f"{dot}ff.net.0.proj")
     m.linear(f"{pre}ff/proj_out", f"{dot}ff.net.2")
+    m.names += [(f"{pre}{a}", f"{dot}{a}") for a in ("attn1", "attn2", "ff")]
+    recs = [f"{pre}{mod}/{name}" for mod, name in (
+        ("attn1", "act_absmax"), ("attn1", "out_absmax"),
+        ("attn2", "act_absmax"), ("attn2", "out_absmax"),
+        ("ff", "act_absmax"), ("ff", "hidden_absmax"))]
+    if all(m.has(r, m.quant) for r in recs):
+        m.put(f"{dot}qabsmax", np.stack(
+            [m.raw(r, m.quant).astype(np.float32) for r in recs]))
 
 
 def _spatial_transformer(m: _Inverse, fmod: str, tmod: str,
@@ -154,10 +185,16 @@ def _unet(m: _Inverse, cfg: UNetConfig) -> None:
 
 
 def unet_state_dict_from_jax(params: Mapping[str, Any], cfg: UNetConfig,
-                             prefix: str = "") -> Dict[str, torch.Tensor]:
+                             prefix: str = "",
+                             quant: Optional[Mapping[str, Any]] = None
+                             ) -> Dict[str, torch.Tensor]:
     """rdm_tpu UNet params -> port `UNet` state dict (inverse of
-    convert_unet(sd, cfg, prefix=prefix))."""
-    m = _Inverse(_tree(params), prefix)
+    convert_unet(sd, cfg, prefix=prefix)). An int8 serving tree carries
+    over with its scales; `quant` (default: the variables' own "quant"
+    collection) gives the transformer blocks their absmax."""
+    if quant is None and "params" in params:
+        quant = params.get("quant")
+    m = _Inverse(_tree(params), prefix, quant)
     _unet(m, cfg)
     return m.sd
 
@@ -167,8 +204,11 @@ def rdm_state_dict_from_jax(params: Mapping[str, Any], cfg: RDMConfig
     """rdm_tpu RDM params -> port `RDM` state dict
     (`model.diffusion_model.*` + `unconditional_guidance_vex`)."""
     tree = _tree(params)
+    quant = params.get("quant", {}).get("unet") if "params" in params \
+        else None
     sd = unet_state_dict_from_jax(tree["unet"], cfg.unet,
-                                  prefix="model.diffusion_model.")
+                                  prefix="model.diffusion_model.",
+                                  quant=quant)
     sd["unconditional_guidance_vex"] = torch.from_numpy(np.asarray(
         tree["unconditional_guidance_vex"], dtype=np.float32).copy())
     return sd

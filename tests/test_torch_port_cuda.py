@@ -1,5 +1,6 @@
-"""rdm_tpu_torch's CUDA kernels (the SpatialTransformer block kernels and
-the RARM decode kernels) against their plain PyTorch versions, on the card.
+"""rdm_tpu_torch's CUDA kernels (the SpatialTransformer block kernels, their
+int8 variants and the RARM decode kernels) against their plain PyTorch
+versions, on the card.
 
 This file imports no JAX, so it also runs on a GPU machine without JAX:
 
@@ -10,7 +11,8 @@ Shapes include the ragged cases the main path never gives the kernels (S
 not a multiple of the 64-key tile, R not a multiple of the 32-row tile,
 C = 96 not a multiple of the 64-column tile, 16 context tokens; for the
 decode kernels B = 3, C = 192 (3 heads of 64), pos 0 and T - 1, 1 and 16
-context rows).
+context rows; for the int8 kernels R = 80 rows, a half-filled last
+128-channel scale group and two 512-row q scale cells).
 Tolerance: max|err| <= 2e-2 x max|ref| in bf16, as chip_smoke.py sets it
 (kernel and plain version round to bf16 at different points).
 """
@@ -68,8 +70,10 @@ def test_block_kernels_match_plain(cuda, heads, s, t):
     bk.reset_launch_counts()
     got = bk.fused_transformer_block(x, ctx, w, heads=heads, head_dim=HD)
     torch.cuda.synchronize()
-    assert bk.launch_counts() == {"ln_qkv": 1, "packed_attn": 1,
-                                  "post_cross": 1, "geglu_ff": 1}
+    assert bk.launch_counts() == {
+        "ln_qkv": 1, "packed_attn": 1, "post_cross": 1, "geglu_ff": 1,
+        "ln_qkv_q": 0, "packed_attn_q8": 0, "post_cross_q": 0,
+        "geglu_ff_q": 0}
     with torch.no_grad():
         want = blk(x, ctx)  # the unfused block, plain bf16 PyTorch
     assert torch.isfinite(got).all()
@@ -130,6 +134,106 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="expected shape"):
         bk.post_cross(xb, xb, ctx[:, :4], ctx[:, :4].contiguous(), wb,
                       n[:32], n, n, wb, wb, n, heads=2, head_dim=HD)
+
+
+# ---------------------------------------------------------- int8 kernels
+
+def _int8_block(heads: int, b: int, s: int, t: int, seed: int):
+    """A seeded block on the card with its int8 weights and the absmax of a
+    calibration forward of the unfused bf16 block on (x, ctx)."""
+    from rdm_tpu_torch.ops import quant
+
+    blk = _block(heads, 48, seed=seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((b, s, heads * HD), generator=g, device="cuda").bfloat16()
+    ctx = torch.randn((b, t, 48), generator=g, device="cuda").bfloat16()
+    blk = blk.bfloat16()
+    with quant.calibrate(), torch.no_grad():
+        blk(x, ctx)
+    rec = quant.collect_absmax(blk)
+    absmax = torch.stack([rec[m][k] for m, k in (
+        ("attn1", "act_absmax"), ("attn1", "out_absmax"),
+        ("attn2", "act_absmax"), ("attn2", "out_absmax"),
+        ("ff", "act_absmax"), ("ff", "hidden_absmax"))])
+    for p in blk.parameters():  # norms and biases f32, as the pipeline
+        if p.ndim == 1:
+            p.data = p.data.float()
+    w = bk.quantize_block_weights(bk.pack_block_weights(blk, torch.bfloat16))
+    a = {k: bk.act_scale(v) for k, v in zip(bk.QSCALE_NAMES, absmax.tolist())}
+    return blk, w, a, absmax, x, ctx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["ln_qkv_q", "packed_attn_q8",
+                                    "post_cross_q", "geglu_ff_q"])
+@pytest.mark.parametrize("heads,b,s,t", [(4, 2, 40, 4), (6, 3, 64, 16),
+                                         (12, 2, 1024, 4)])
+def test_int8_kernels_match_plain(cuda, kernel, heads, b, s, t):
+    """Each int8 kernel against its plain version on the same int8 weights
+    and scales: ragged rows (R = 80), a half-filled last 128-channel group
+    (6 heads), 16 context tokens, two 512-row q scale cells (S = 1024)."""
+    blk, w, a, _, x, ctx = _int8_block(heads, b, s, t, seed=heads + s)
+    c = heads * HD
+    g = torch.Generator(device="cuda").manual_seed(s)
+    rn = lambda *shape: torch.randn(shape, generator=g,  # noqa: E731
+                                    device="cuda").bfloat16()
+    attn, ck, cv = rn(b, s, c) * 0.5, rn(b, t, c), rn(b, t, c)
+    x2 = x.reshape(b * s, c)
+    if kernel == "ln_qkv_q":
+        args = (x2, w["n1s"], w["n1b"], w["wqkv_q"], w["wqkv_s"], a["a_qkv"])
+        kw = {}
+    elif kernel == "packed_attn_q8":
+        args, kw = (x, attn, rn(b, s, c)), dict(heads=heads, head_dim=HD)
+    elif kernel == "post_cross_q":
+        args = (x, attn, ck, cv, w["wo_q"], w["wo_s"], w["bo"], w["n2s"],
+                w["n2b"], w["wq2_q"], w["wq2_s"], w["wo2_q"], w["wo2_s"],
+                w["bo2"], a["o_attn1"], a["a_attn2"], a["o_attn2"])
+        kw = dict(heads=heads, head_dim=HD)
+    else:
+        args = (x2, w["n3s"], w["n3b"], w["wa_q"], w["wa_s"], w["wg_q"],
+                w["wg_s"], w["ba"], w["bg"], w["w2_q"], w["w2_s"], w["b2"],
+                a["a_ff"], a["h_ff"])
+        kw = {}
+    fn = getattr(bk, kernel)
+    bk.reset_launch_counts()
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert bk.launch_counts()[kernel] == 1
+    want = getattr(bk, kernel + "_reference")(*args, **kw)
+    got = torch.cat([o.reshape(-1) for o in got]) \
+        if isinstance(got, tuple) else got
+    want = torch.cat([o.reshape(-1) for o in want]) \
+        if isinstance(want, tuple) else want
+    assert torch.isfinite(got).all()
+    assert _rel_err(got, want) <= TOL
+
+
+@pytest.mark.cuda
+def test_int8_block_routes_through_int8_kernels(cuda, monkeypatch):
+    blk, _, _, absmax, x, ctx = _int8_block(6, 2, 64, 4, seed=3)
+    blk.set_qabsmax(absmax)
+    blk.pack(torch.bfloat16)
+    for attn8 in ("0", "1"):
+        monkeypatch.setenv("RDM_TPU_INT8_ATTN", attn8)
+        bk.reset_launch_counts()
+        with torch.no_grad():
+            got = blk.forward_fused(x, ctx)
+        torch.cuda.synchronize()
+        counts = bk.launch_counts()
+        assert counts == {"ln_qkv": 0, "packed_attn": int(attn8 == "0"),
+                          "post_cross": 0, "geglu_ff": 0, "ln_qkv_q": 1,
+                          "packed_attn_q8": int(attn8 == "1"),
+                          "post_cross_q": 1, "geglu_ff_q": 1}
+        w = blk.fused_weights(x)
+        with torch.no_grad():
+            want = bk.fused_transformer_block(  # plain versions, bf16
+                x.cpu(), ctx.cpu(),
+                {k: v.cpu() if torch.is_tensor(v) else v
+                 for k, v in w.items()}, heads=6, head_dim=HD,
+                qscales=blk.qscales())
+        assert torch.isfinite(got).all()
+        err = _rel_err(got.cpu(), want)
+        assert err <= TOL, (attn8, err)
 
 
 # ------------------------------------------------------- RARM decode kernels
