@@ -52,6 +52,27 @@ exits non-zero):
                RDM_TPU_INT8_ATTN=1 and one with encoder_reuse=3. Launch
                counts are checked against the steps that run the full
                U-Net and those that run only its up path.
+ 12. rarm_int8_kernels  the decode kernels' int8 variants against their
+               plain versions at phase 6's width, B = 16/32, pos
+               0/63/200/255: the attention with int8 weights, with an int8
+               KV cache and with both (its cache commit too: codes of row
+               pos within one step of the plain ones on at most 0.1%,
+               scales within 1e-5 relative, every other row untouched), and
+               decode_post_ff with int8 weights: error, median CUDA-event
+               times, bound.
+ 13. rarm_serve_modes  over phase 5's table, batch 16, 256 tokens, top_k
+               256, k = 4: RARMPipeline requests with int8_weights, int8_kv,
+               both (guidance 2.0: decode batch 32) and approx_top_k, launch
+               counts checked per request; then 32 teacher-forced decode
+               steps with int8_weights + int8_kv held against int8_weights
+               alone (relative L2 of the logits).
+ 14. post_ff   the single post-attention kernel (RDM_TPU_SPLIT_K3=0)
+               against its plain version at phase 3's sites, timed beside
+               the split pair (post_cross + geglu_ff kernels) on the same
+               inputs; a full-width U-Net forward through it against the
+               split forward; batch-4 DDIM-50 requests, split and single
+               kernel in turns, with 16 post_ff launches per forward and
+               none of the split pair's.
 
 The second-to-last line is one JSON object with the per-kernel numbers:
 name, route, source, replaces, launches, max_abs_err, ms, plain_ms,
@@ -64,8 +85,10 @@ sites, and `launches` the count over the two RDM serve requests (int8:
 over the int8 requests of phase 11); for the decode kernels the times are
 the mean over the eight (B, pos) cases, `max_abs_err` the largest, and
 `launches` the count over the two RARM requests (`commit_rows`: over the
-batched-commit decode, the path that runs it). The last line is
-{"ok": true, "device": {...}}.
+batched-commit decode, the path that runs it); their int8 variants the
+same over phase 12's cases, `launches` over phase 13's requests; post_ff
+the sum over the sites, `launches` over phase 14's single-kernel requests.
+The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -125,6 +148,29 @@ DECODE_INFO = {
                     "rdm_tpu/ops/decode_kernel.py:352",
                     ["rdm_tpu_torch/csrc/commit_rows.cu"]),
 }
+INT8_DECODE_INFO = {
+    "decode_attn_w8": ("rdm_tpu_torch/csrc/decode_qkv.cu",
+                       "rdm_tpu/ops/decode_kernel.py:135",
+                       ["rdm_tpu_torch/csrc/decode_qkv.cu",
+                        "rdm_tpu_torch/csrc/decode_attn.cu",
+                        "rdm_tpu_torch/csrc/block_common.cuh"]),
+    "decode_attn_kv8": ("rdm_tpu_torch/csrc/decode_attn.cu",
+                        "rdm_tpu/ops/decode_kernel.py:135",
+                        ["rdm_tpu_torch/csrc/decode_qkv.cu",
+                         "rdm_tpu_torch/csrc/decode_attn.cu"]),
+    "decode_attn_w8_kv8": ("rdm_tpu_torch/csrc/decode_attn.cu",
+                           "rdm_tpu/ops/decode_kernel.py:135",
+                           ["rdm_tpu_torch/csrc/decode_qkv.cu",
+                            "rdm_tpu_torch/csrc/decode_attn.cu",
+                            "rdm_tpu_torch/csrc/block_common.cuh"]),
+    "decode_post_ff_w8": ("rdm_tpu_torch/csrc/decode_post_ff.cu",
+                          "rdm_tpu/ops/decode_kernel.py:275",
+                          ["rdm_tpu_torch/csrc/decode_post_ff.cu",
+                           "rdm_tpu_torch/csrc/geglu_ff.cu",
+                           "rdm_tpu_torch/csrc/block_common.cuh"]),
+}
+POST_FF_INFO = ("rdm_tpu_torch/csrc/post_ff.cu",
+                "rdm_tpu/ops/block_kernel.py:264")
 RARM_BATCHES = (16, 32)           # B = 16, and 32 under CFG
 RARM_POSITIONS = (0, 63, 200, 255)
 RARM_SWEEP_SEEDS = 24             # more inputs for decode_attn's attention
@@ -142,6 +188,18 @@ RARM_FORWARD_TOL = 3e-2
 # so the limit is 8e-2, not phase 4's 3e-2. The kernels themselves are
 # held per call in phase 9.
 INT8_FORWARD_TOL = 8e-2
+# The int8 cache commit against the plain one: both quantize an f32
+# projection summed in another order, so a code on a rounding edge may
+# land one step apart (as the int8 block kernels' checks allow), and a
+# scale, its row's absmax / 127, carries the absmax's last-bit
+# differences.
+CODE_SHARE = 1e-3
+SCALE_RTOL = 1e-5
+# 32 teacher-forced steps, int8_weights + int8_kv against int8_weights
+# alone, relative L2 of the logits: the int8 cache's own error (a code is
+# within half a step, 1/254 of its row's absmax) through 18 residual
+# layers; bf16 activations add phase 7's ~2e-2.
+RARM_KV8_TOL = 5e-2
 SERVE_STEPS = 50
 # The card's published dense peaks and memory rate (H100 SXM data sheet),
 # for each kernel's bound: the larger of its operations over the peak of
@@ -179,6 +237,12 @@ def block_cost(name: str, c: int, s: int, t: int = CONTEXT,
                   + 4 * c * 4)
         return (cross, mm, nbytes + 3 * c * 4) if q8 else \
             (mm + cross, 0, nbytes)
+    if name == "post_ff":  # post_cross + geglu_ff, f kept on chip
+        ops = (block_cost("post_cross", c, s, t, b)[0]
+               + block_cost("geglu_ff", c, s, t, b)[0])
+        nbytes = (3 * r * c * 2 + 2 * b * t * c * 2
+                  + (3 * c * c + 3 * c * f) * 2 + (7 * c + 2 * f) * 4)
+        return ops, 0, nbytes
     mm = 6 * r * c * f  # geglu_ff
     nbytes = 2 * r * c * 2 + 3 * c * f * wb + (2 * f + 3 * c) * 4
     return (0, mm, nbytes + (2 * f + c) * 4) if q8 else (mm, 0, nbytes)
@@ -544,18 +608,24 @@ def decode_cost(name: str, b: int, pos: int, c: int = 768, t: int = CONTEXT,
     """(bf16 operations, 0, bytes) of one decode-kernel call at batch b and
     position pos (the RARM width: C = 768, F = 4C, k = t context rows):
     decode_attn reads the pos cache rows before pos and writes the current
-    row of both caches; commit_rows copies 2L rows."""
+    row of both caches; commit_rows copies 2L rows. The int8 variants
+    (`_w8`: int8 weights, one byte each plus a bf16 scale per output
+    column; `_kv8`: int8 cache rows plus an f32 scale per row and batch
+    row) run their products on the bf16 tensor cores."""
     f = 4 * c
-    if name == "decode_attn":
+    wb = 1 if "_w8" in name else 2
+    if name.startswith("decode_attn"):
+        kv8 = name.endswith("_kv8")
+        row = b * c * (1 if kv8 else 2) + (b * 4 if kv8 else 0)
         ops = 2 * b * c * 3 * c + 4 * b * (pos + 1) * c
-        nbytes = (b * c * 2 + 2 * c * 4 + 3 * c * c * 2 + 2 * pos * b * c * 2
-                  + 3 * b * c * 2 + 2 * b * c * 2)
-        return ops, 0, nbytes
-    if name == "decode_post_ff":
+        nbytes = (b * c * 2 + 2 * c * 4 + 3 * c * c * wb + 2 * pos * row
+                  + 3 * b * c * 2 + 2 * row)
+        return ops, 0, nbytes + (3 * c * 2 if wb == 1 else 0)
+    if name.startswith("decode_post_ff"):
         ops = 2 * b * (3 * c * c + 3 * c * f) + 4 * b * t * c
         nbytes = (2 * b * c * 2 + 2 * t * b * c * 2 + (3 * c * c + 3 * c * f)
-                  * 2 + (7 * c + 2 * f) * 4 + b * c * 2)
-        return ops, 0, nbytes
+                  * wb + (7 * c + 2 * f) * 4 + b * c * 2)
+        return ops, 0, nbytes + ((4 * c + 2 * f) * 2 if wb == 1 else 0)
     return 0, 0, 2 * 2 * layers * b * c * 2  # commit_rows
 
 
@@ -800,8 +870,9 @@ def phase_rarm_serve(rarm_sd: dict, vq_sd: dict, emb: torch.Tensor) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dk.launch_counts()
-        want = {"decode_attn": per_request * (i + 1),
-                "decode_post_ff": per_request * (i + 1), "commit_rows": 0}
+        want = dict.fromkeys(counts, 0)
+        want.update(decode_attn=per_request * (i + 1),
+                    decode_post_ff=per_request * (i + 1))
         if counts != want:
             raise RuntimeError(f"{kind}: expected launches {want} so far, "
                                f"got {counts}")
@@ -1156,6 +1227,394 @@ def phase_serve_modes(rdm_sd: dict, vq_sd: dict, emb: torch.Tensor) -> dict:
     return launches
 
 
+def _int8_layer(t: dict) -> dict:
+    """The int8_weights form of a layer's tensors (`_decode_tensors`), and
+    its caches as int8 codes with their per-(row, batch row) scales."""
+    from rdm_tpu_torch.ops import decode_kernel as dk
+
+    w = dict(t)
+    for name in dk.INT8_WEIGHTS:
+        w[name + "_q"], w[name + "_s"] = dk.quantize_weight(t[name])
+    for name in ("kc", "vc"):
+        codes, scale = dk.quantize_rows(t[name].float().reshape(
+            -1, t[name].shape[-1]))
+        w[name + "8"] = codes.reshape(t[name].shape)
+        w[name[0] + "s"] = scale.reshape(*t[name].shape[:2], 1)
+    return w
+
+
+def phase_rarm_int8_kernels() -> dict:
+    """Phase 12: the int8 variants of the decode kernels against their plain
+    versions at full width. Per variant: {'max_abs_err', 'ms', 'plain_ms',
+    'library_ms', 'bound_ms', 'bound_by', 'cases'}."""
+    from rdm_tpu_torch.ops import decode_kernel as dk
+
+    heads, hd = 12, 64
+    g = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    results = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                      "library_ms": None, "cases": []}
+               for name in INT8_DECODE_INFO}
+    for b in RARM_BATCHES:
+        t = _int8_layer(_decode_tensors(b, g))
+        keep = torch.ones(t["kc"].shape[0], dtype=torch.bool, device="cuda")
+        for pos in RARM_POSITIONS:
+            what = f"B={b} pos={pos}"
+            for name in INT8_DECODE_INFO:
+                if name == "decode_post_ff_w8":
+                    ff = [t["x"], t["attn_" + str(pos)], t["ck"], t["cv"]] + [
+                        t[n + "_q" if n + "_q" in t else n] for n in (
+                            "wo", "bo", "n2s", "n2b", "wq2", "wo2", "bo2",
+                            "n3s", "n3b", "wa", "wg", "ba", "bg", "w2",
+                            "b2")]
+                    sc = tuple(t[n + "_s"] for n in dk.POST_FF_WEIGHTS)
+                    kern = lambda: dk.decode_post_ff(  # noqa: E731
+                        *ff, heads=heads, head_dim=hd, scales=sc)
+                    plain = lambda: dk.decode_post_ff_reference(  # noqa: E731
+                        *ff, heads=heads, head_dim=hd, scales=sc)
+                    got = kern()
+                    torch.cuda.synchronize()
+                    errs = _hold(f"{name} {what}", [("x_out", got, plain())])
+                    detail = ""
+                else:
+                    w8, kv8 = "_w8" in name, name.endswith("_kv8")
+                    kw = dict(heads=heads, head_dim=hd,
+                              wqkv_s=t["wqkv_s"] if w8 else None)
+                    wq = t["wqkv_q"] if w8 else t["wqkv"]
+                    caches = ("kc8", "vc8", "ks", "vs") if kv8 else \
+                        ("kc", "vc")
+                    mine = [t[n].clone() for n in caches]
+                    ref = [t[n].clone() for n in caches]
+
+                    def call(fn, cs):
+                        extra = dict(ks_cache=cs[2], vs_cache=cs[3]) \
+                            if kv8 else {}
+                        return fn(t["x"], pos, cs[0], cs[1], t["n1s"],
+                                  t["n1b"], wq, **kw, **extra)
+
+                    kern = lambda: call(dk.decode_attn, mine)  # noqa: E731
+                    plain = lambda: call(  # noqa: E731
+                        dk.decode_attn_reference, ref)
+                    got = kern()
+                    torch.cuda.synchronize()
+                    want = plain()
+                    errs = _hold(f"{name} {what}", zip(
+                        ("attn", "k_new", "v_new"), got, want))
+                    keep[pos] = False
+                    for i, n in enumerate(caches):
+                        if not torch.equal(mine[i][keep], t[n][keep]):
+                            raise RuntimeError(f"{name} {what}: rows other "
+                                               f"than {pos} of {n} changed")
+                    keep[pos] = True
+                    if kv8:
+                        diff = (mine[0][pos].int() - ref[0][pos].int()).abs()
+                        diff = torch.cat([diff.flatten(), (
+                            mine[1][pos].int() - ref[1][pos].int()).abs()
+                            .flatten()])
+                        share = (diff > 0).float().mean().item()
+                        srel = max(((m[pos] - r[pos]).abs() / r[pos])
+                                   .max().item()
+                                   for m, r in zip(mine[2:], ref[2:]))
+                        if diff.max().item() > 1 or share > CODE_SHARE or \
+                                srel > SCALE_RTOL:
+                            raise RuntimeError(
+                                f"{name} {what}: committed codes differ by "
+                                f"up to {diff.max().item()} on {share:.3e} "
+                                f"of row {pos} (limits 1, {CODE_SHARE:g}); "
+                                f"scales {srel:.3e} (limit {SCALE_RTOL:g})")
+                        detail = (f"; commit codes off by one {share:.3e}, "
+                                  f"scales rel {srel:.3e}")
+                    else:
+                        if not (torch.equal(mine[0][pos], got[1])
+                                and torch.equal(mine[1][pos], got[2])):
+                            raise RuntimeError(f"{name} {what}: cache row "
+                                               f"{pos} is not k_new / v_new")
+                        detail = "; cache rows exact"
+                    if name == "decode_attn_w8":
+                        t["attn_" + str(pos)] = want[0]  # post_ff's input
+                    detail = "; ".join(f"{lab} {rel:.3e}"
+                                       for lab, _, rel in errs[1:]) + detail
+                _, err, rel = errs[0]
+                ms, plain_ms = median_ms(kern), median_ms(plain)
+                bound_ms, by = bound(*decode_cost(name, b, pos))
+                say("rarm_int8_kernels", f"{name:18s} {what:13s}: max|err| "
+                    f"{err:.4g}, /max|ref| {rel:.3e} (limit {KERNEL_TOL:g})"
+                    f"{'; ' + detail if detail else ''}; kernel {ms:.4f} "
+                    f"ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                    f"({by})")
+                res = results[name]
+                res["max_abs_err"] = max(res["max_abs_err"], err)
+                res["cases"].append({
+                    "B": b, "pos": pos, "max_abs_err": err,
+                    "rel_err": {lab: r for lab, _, r in errs}, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": by})
+        del t
+        torch.cuda.empty_cache()
+    for res in results.values():
+        n = len(res["cases"])
+        for key in ("ms", "plain_ms", "bound_ms"):
+            res[key] = sum(c[key] for c in res["cases"]) / n
+        res["bound_by"] = max(res["cases"], key=lambda c: c["bound_ms"])[
+            "bound_by"]
+    return results
+
+
+def phase_rarm_serve_modes(rarm_sd: dict, vq_sd: dict,
+                           emb: torch.Tensor) -> dict:
+    """Phase 13: the RARM serving modes through the pipeline, then the int8
+    cache held against int8 weights alone; returns the launches of the
+    int8 variants over the requests."""
+    from rdm_tpu_torch.config import AutoencoderConfig, RARMConfig
+    from rdm_tpu_torch.models.rarm import FusedDecoder, sample_tokens_fused
+    from rdm_tpu_torch.ops import decode_kernel as dk
+    from rdm_tpu_torch.pipeline import RARMPipeline
+    from rdm_tpu_torch.retrieval.database import DataPool
+
+    cfg = RARMConfig.imagenet_dogs()
+    n_db, batch = emb.shape[0], 16
+    g = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    queries = torch.randn(batch, 512, generator=g, device="cuda")
+    qids = torch.randint(0, n_db, (batch,), generator=g,
+                         device="cuda").cpu().numpy()
+    pipe = RARMPipeline(cfg, rarm_sd, AutoencoderConfig.vq_f16(), vq_sd,
+                        pool=DataPool(embeddings=emb), device="cuda")
+    neighbors = pipe.retrieval.search(queries, k=4)["embeddings"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w8 = pipe.serving_decode_weights(True)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    with torch.inference_mode():  # warm-up: every variant, both batches
+        for guidance in (1.0, 2.0):
+            for opts in (dict(int8_weights=True), dict(int8_kv=True),
+                         dict(int8_weights=True, int8_kv=True)):
+                sample_tokens_fused(
+                    pipe.model, neighbors, torch.Generator(
+                        device="cuda").manual_seed(0), steps=4,
+                    guidance_scale=guidance,
+                    weights=w8 if opts.get("int8_weights") else
+                    pipe.decode_weights, **opts)
+    n8 = sum(w[k].numel() for w in w8 for k in dk.INT8_WEIGHTS)
+    say("rarm_serve_modes", f"int8 decode weights packed in {pack_s:.3f} s "
+        f"({n8 / 2**20:.1f} MiB of int8 codes)")
+
+    per_request = cfg.depth * cfg.seq_len
+    launches = dict.fromkeys(dk.KERNEL_NAMES, 0)
+    both = dict(int8_weights=True, int8_kv=True)
+    for label, opts, guidance in (
+            ("int8_weights", dict(int8_weights=True), 1.0),
+            ("int8_kv", dict(int8_kv=True), 1.0),
+            ("int8_weights + int8_kv", both, 2.0),
+            ("approx_top_k", dict(approx_top_k=True), 1.0)):
+        dk.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if guidance == 1.0:
+            out = pipe.sample_with_query(queries, k_nn=4, top_k=256,
+                                         guidance_scale=guidance, seed=1,
+                                         return_tokens=True, **opts)
+            images = out["query_samples"]
+        else:
+            out = pipe.sample_unconditional(batch, k_nn=4, top_k=256,
+                                            guidance_scale=guidance,
+                                            qids=qids, seed=2,
+                                            return_tokens=True, **opts)
+            images = out["samples_with_sampled_nns"]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dk.launch_counts()
+        q8, kv8 = opts.get("int8_weights", False), opts.get("int8_kv", False)
+        want = dict.fromkeys(counts, 0)
+        want["decode_attn" + ("_w8" if q8 else "") + ("_kv8" if kv8 else "")] \
+            = per_request
+        want["decode_post_ff_w8" if q8 else "decode_post_ff"] = per_request
+        if counts != want:
+            raise RuntimeError(f"{label}: launches {counts} != {want}")
+        toks = out["tokens"]
+        if toks.shape != (batch, cfg.seq_len) or toks.min() < 0 or \
+                toks.max() >= cfg.out_vocab:
+            raise RuntimeError(f"{label}: tokens {toks.shape} in "
+                               f"[{toks.min()}, {toks.max()}]")
+        if images.shape != (batch, 256, 256, 3) or images.std() == 0:
+            raise RuntimeError(f"{label}: images {images.shape}, std "
+                               f"{images.std()}")
+        say("rarm_serve_modes", f"{label}: batch {batch}, {cfg.seq_len} "
+            f"tokens, top_k 256, guidance {guidance}, k=4 over {n_db}x512: "
+            f"{wall:.3f} s, {batch * cfg.seq_len / wall:.1f} tokens/s, "
+            f"{batch / wall:.3f} img/s; launches {counts}")
+        for k in launches:
+            launches[k] += counts[k]
+
+    # the int8 cache against int8 weights alone, teacher-forced
+    steps = RARM_FORWARD_STEPS
+    tokens = torch.cat([
+        torch.full((batch, 1), cfg.sos_token, device="cuda"),
+        torch.randint(0, cfg.out_vocab, (batch, steps - 1), generator=g,
+                      device="cuda")], dim=1)
+    logits = {}
+    with torch.inference_mode():
+        for label, weights, kv8 in (("bf16", pipe.decode_weights, False),
+                                    ("int8_weights", w8, False),
+                                    ("int8_weights + int8_kv", w8, True)):
+            dec = FusedDecoder(pipe.model, neighbors, weights, int8_kv=kv8)
+            logits[label] = torch.stack(
+                [dec.step(tokens[:, p], p) for p in range(steps)], dim=1)
+    for v in logits.values():
+        if not torch.isfinite(v).all():
+            raise RuntimeError("teacher-forced int8 logits not finite")
+
+    def rel_l2(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    rel = rel_l2(logits["int8_weights + int8_kv"], logits["int8_weights"])
+    say("rarm_serve_modes", f"{steps} teacher-forced steps at batch {batch}:"
+        f" rel L2 of the logits, int8_weights + int8_kv vs int8_weights "
+        f"{rel:.3e} (limit {RARM_KV8_TOL:g}); int8_weights vs bf16 "
+        f"{rel_l2(logits['int8_weights'], logits['bf16']):.3e}; "
+        f"int8_weights + int8_kv vs bf16 "
+        f"{rel_l2(logits['int8_weights + int8_kv'], logits['bf16']):.3e}")
+    if not rel <= RARM_KV8_TOL:
+        raise RuntimeError(f"int8_kv relative error {rel} > {RARM_KV8_TOL}")
+    say("rarm_serve_modes", f"peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del pipe, w8, dec
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_post_ff(rdm_sd: dict, vq_sd: dict, emb: torch.Tensor) -> dict:
+    """Phase 14: the single post-attention kernel; returns its results with
+    `launches`, the count over the single-kernel requests."""
+    import os
+
+    from rdm_tpu_torch.config import AutoencoderConfig, RDMConfig
+    from rdm_tpu_torch.ops import block_kernel as bk
+    from rdm_tpu_torch.pipeline import RDMPipeline
+    from rdm_tpu_torch.retrieval.database import DataPool
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    res = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "split_ms": 0.0,
+           "library_ms": None, "sites": []}
+    for c, s, heads in SITES:
+        t = _site_tensors(c, s, heads, g)
+        r, hd = CFG_BATCH * s, c // heads
+        q, k, v = (a.contiguous().reshape(CFG_BATCH, s, c) for a in
+                   bk.ln_qkv_reference(t["x"].reshape(r, c), t["n1s"],
+                                       t["n1b"], t["wqkv"]))
+        attn = bk.packed_attn_reference(q, k, v, heads=heads, head_dim=hd)
+        args = [t["x"], attn] + [t[n] for n in (
+            "ck", "cv", "wo", "bo", "n2s", "n2b", "wq2", "wo2", "bo2", "n3s",
+            "n3b", "wa", "wg", "ba", "bg", "w2", "b2")]
+        kw = dict(heads=heads, head_dim=hd)
+        kern = lambda: bk.post_ff(*args, **kw)  # noqa: E731
+        plain = lambda: bk.post_ff_reference(*args, **kw)  # noqa: E731
+        split = lambda: bk.geglu_ff(  # noqa: E731
+            bk.post_cross(*args[:11], **kw).reshape(r, c), *args[11:])
+        got = kern()
+        pair = split().reshape(got.shape)
+        torch.cuda.synchronize()
+        _, err, rel = _hold(f"post_ff at C={c}", [("y", got, plain())])[0]
+        pair_err = (got.float() - pair.float()).abs().max().item()
+        ms, split_ms, plain_ms = (median_ms(fn) for fn in (kern, split,
+                                                           plain))
+        bound_ms, by = bound(*block_cost("post_ff", c, s))
+        say("post_ff", f"C={c:4d} S={s:4d} heads={heads:2d}: max|err| "
+            f"{err:.4g}, /max|ref| {rel:.3e} (limit {KERNEL_TOL:g}); against "
+            f"the split pair's kernels max|err| {pair_err:.4g}"
+            f"{' (bit-equal)' if torch.equal(got, pair) else ''}; kernel "
+            f"{ms:.4f} ms, split pair {split_ms:.4f} ms, plain {plain_ms:.4f}"
+            f" ms, bound {bound_ms:.4f} ms ({by})")
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        res["ms"] += ms
+        res["plain_ms"] += plain_ms
+        res["split_ms"] += split_ms
+        res["sites"].append({"C": c, "S": s, "heads": heads,
+                             "max_abs_err": err, "rel_err": rel,
+                             "split_pair_max_abs_err": pair_err, "ms": ms,
+                             "split_ms": split_ms, "plain_ms": plain_ms,
+                             "bound_ms": bound_ms, "bound_by": by})
+        del t, q, k, v, attn, args, got, pair
+    _sum_bound(res, [block_cost("post_ff", c, s) for c, s, _ in SITES])
+    torch.cuda.empty_cache()
+
+    # the full-width U-Net and requests through it
+    batch, steps = 4, SERVE_STEPS
+    pipe = RDMPipeline(RDMConfig.imagenet(), rdm_sd,
+                       AutoencoderConfig.vq_f4(), vq_sd,
+                       pool=DataPool(embeddings=emb), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    x = torch.randn(1, 3, 64, 64, generator=gen, device="cuda")
+    tt = torch.tensor([501], device="cuda")
+    ctx = torch.randn(2, CONTEXT, 512, generator=gen,
+                      device="cuda").bfloat16()
+    queries = torch.randn(batch, 512, generator=gen, device="cuda")
+    outs, walls, images = {}, {"1": [], "0": []}, {}
+    for split in ("1", "0"):
+        os.environ["RDM_TPU_SPLIT_K3"] = split
+        bk.reset_launch_counts()
+        with torch.inference_mode():
+            outs[split] = pipe.model.unet(x, tt, ctx).float()
+        counts = bk.launch_counts()
+        single = split == "0"
+        if (counts["post_ff"], counts["post_cross"], counts["geglu_ff"]) != \
+                ((16, 0, 0) if single else (0, 16, 16)):
+            raise RuntimeError(f"U-Net forward, RDM_TPU_SPLIT_K3={split}: "
+                               f"launches {counts}")
+    if not torch.isfinite(outs["0"]).all():
+        raise RuntimeError("single-kernel forward not finite")
+    rel = ((outs["0"] - outs["1"]).norm() / outs["1"].norm()).item()
+    say("post_ff", f"ImageNet U-Net forward, x [1,3,64,64] + context "
+        f"[2,4,512], CUDA bf16: RDM_TPU_SPLIT_K3=0 vs the split forward rel "
+        f"L2 {rel:.3e} (limit {FORWARD_TOL:g})"
+        f"{'; bit-equal' if torch.equal(outs['0'], outs['1']) else ''}")
+    if not rel <= FORWARD_TOL:
+        raise RuntimeError(f"single-kernel forward rel error {rel}")
+    launches = 0
+    for split in ("0", "1", "0", "0", "1"):  # the first one warms up
+        os.environ["RDM_TPU_SPLIT_K3"] = split
+        bk.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pipe.sample_with_query(queries, k_nn=4, steps=steps,
+                                     guidance_scale=2.0, seed=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = bk.launch_counts()
+        n = 16 * steps
+        want = dict.fromkeys(counts, 0)
+        want.update(ln_qkv=n, packed_attn=n)
+        if split == "0":
+            want.update(post_ff=n)
+        else:
+            want.update(post_cross=n, geglu_ff=n)
+        if counts != want:
+            raise RuntimeError(f"RDM_TPU_SPLIT_K3={split} request: launches "
+                               f"{counts} != {want}")
+        img = out["query_samples"]
+        if img.shape != (batch, 256, 256, 3) or img.std() == 0:
+            raise RuntimeError(f"RDM_TPU_SPLIT_K3={split}: images "
+                               f"{img.shape}, std {img.std()}")
+        if split in images or split == "1":
+            walls[split].append(wall)
+            if split == "0":
+                launches += counts["post_ff"]
+        images[split] = img
+        say("post_ff", f"request, RDM_TPU_SPLIT_K3={split}: batch {batch}, "
+            f"DDIM-{steps}, guidance 2.0, k=4: {wall:.3f} s, "
+            f"{batch / wall:.3f} img/s; launches {counts}")
+    os.environ.pop("RDM_TPU_SPLIT_K3")
+    diff = np.abs(images["0"].astype(np.int32) - images["1"].astype(np.int32))
+    say("post_ff", f"single kernel vs split pair: request latency "
+        f"{walls['0']} vs {walls['1']} s; images differ in "
+        f"{(diff > 0).mean():.3e} of pixels, max {diff.max()} levels")
+    res.update(launches=launches, request_s={"single": walls["0"],
+                                             "split": walls["1"]},
+               forward_rel_l2=rel)
+    del pipe
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -1187,9 +1646,13 @@ def main() -> int:
     phase_rarm_forward(rarm_sd)
     decode_launches = phase_rarm_serve(
         rarm_sd, seeded_state_dict(vq16, SEED + 13), emb)
-    del rarm_sd
     phase_int8_forward(rdm_sd)
     int8_launches = phase_serve_modes(rdm_sd, vq_sd, emb)
+    int8_decode = phase_rarm_int8_kernels()
+    int8_decode_launches = phase_rarm_serve_modes(
+        rarm_sd, seeded_state_dict(vq16, SEED + 13), emb)
+    del rarm_sd
+    post_ff = phase_post_ff(rdm_sd, vq_sd, emb)
 
     def row(name, info, launches_, r, **extra):
         return {"name": name, "route": "cuda", "source": info[0],
@@ -1208,6 +1671,14 @@ def main() -> int:
                  **({"sweep_rel_err": r["sweep_rel_err"]}
                     if "sweep_rel_err" in r else {}))
              for n, r in decode.items()]
+    rows += [row(n, INT8_DECODE_INFO[n], int8_decode_launches, r,
+                 sources=INT8_DECODE_INFO[n][2], cases=r["cases"])
+             for n, r in int8_decode.items()]
+    rows.append(row("post_ff", POST_FF_INFO,
+                    {"post_ff": post_ff["launches"]}, post_ff,
+                    split_ms=post_ff["split_ms"], sites=post_ff["sites"],
+                    request_s=post_ff["request_s"],
+                    forward_rel_l2=post_ff["forward_rel_l2"]))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

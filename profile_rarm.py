@@ -6,20 +6,21 @@
 Builds the RARM serving pipeline of `chip_smoke.py` phase 8: the
 ImageNet-dogs RARM at full width (depth 18, C = 768, 12 heads of 64,
 T = 256) with a VQ-f16 first stage, random weights from a seed, over the
-1,281,280 x 512 table made on the card. Then measures, in this order:
+1,281,280 x 512 table made on the card. Then measures, in this order, for
+each serving mode (exact bf16, int8_weights, int8_kv, both, approx_top_k):
 
   requests  `sample_with_query` (batch 16, k = 4, top_k 256, guidance 1.0)
             and `sample_unconditional` (batch 16, guidance 2.0: a decode
-            batch of 32), alternating, `repeats` times each: host-clock
-            seconds around a synchronised call.
+            batch of 32), every (mode, request) in turn, `repeats` times:
+            host-clock seconds around a synchronised call.
   parts     the kNN search of 16 queries, the VQ-f16 `decode_code` of 16
             token grids (median CUDA-event ms of 10), and the 256-step
-            `sample_tokens_fused` at guidance 1.0 and 2.0, with the
-            in-place and with the batched commit, alternating, `repeats`
-            times each (host-clock ms per step).
+            `sample_tokens_fused` at guidance 1.0 and 2.0 in each mode,
+            in bf16 also with the batched commit, in turn, `repeats` times
+            each (host-clock ms per step).
   profile   `torch.profiler` over one whole 256-step decode per (guidance,
-            commit) pair: device time (the sum over kernels, memcpys and
-            memsets), the host-clock wall time of the same synchronised
+            mode or commit): device time (the sum over kernels, memcpys
+            and memsets), the host-clock wall time of the same synchronised
             decode, the device's idle share (1 - the union of the device
             intervals / wall), launches per step, and device time per
             kernel.
@@ -44,6 +45,10 @@ import torch
 
 BATCH, K_NN, TOP_K = 16, 4, 256
 GUIDANCES = (1.0, 2.0)        # decode batch 16, and 32 under CFG
+MODES = {"bf16": {}, "int8_weights": dict(int8_weights=True),
+         "int8_kv": dict(int8_kv=True),
+         "int8_weights+int8_kv": dict(int8_weights=True, int8_kv=True),
+         "approx_top_k": dict(approx_top_k=True)}
 
 
 def card() -> str:
@@ -157,23 +162,28 @@ def main() -> int:
                         dtype=torch.long, device="cuda")
     steps = cfg.seq_len
 
-    def decode(guidance: float, batched: bool, n: int = steps):
+    def decode(guidance: float, mode: str, n: int = steps):
+        opts = dict(MODES.get(mode, {}), batched_commit=mode == "batched")
         return lambda: sample_tokens_fused(
             pipe.model, neighbors, torch.Generator(
                 device="cuda").manual_seed(0), steps=n, top_k=TOP_K,
-            guidance_scale=guidance, batched_commit=batched,
-            weights=pipe.decode_weights)
+            guidance_scale=guidance, weights=pipe.serving_decode_weights(
+                opts.get("int8_weights", False)), **opts)
 
-    requests = {
-        "sample_with_query": lambda: pipe.sample_with_query(
-            queries, k_nn=K_NN, top_k=TOP_K, guidance_scale=1.0, seed=1),
-        "sample_unconditional": lambda: pipe.sample_unconditional(
-            BATCH, k_nn=K_NN, top_k=TOP_K, guidance_scale=2.0, qids=qids,
-            seed=2)}
+    requests = {}
+    for mode, opts in MODES.items():
+        requests[f"sample_with_query {mode}"] = \
+            lambda opts=opts: pipe.sample_with_query(
+                queries, k_nn=K_NN, top_k=TOP_K, guidance_scale=1.0, seed=1,
+                **opts)
+        requests[f"sample_unconditional {mode}"] = \
+            lambda opts=opts: pipe.sample_unconditional(
+                BATCH, k_nn=K_NN, top_k=TOP_K, guidance_scale=2.0,
+                qids=qids, seed=2, **opts)
     with torch.inference_mode():
         for guidance in GUIDANCES:      # warm-up at the request shapes
-            for batched in (False, True):
-                decode(guidance, batched, 4)()
+            for mode in (*MODES, "batched"):
+                decode(guidance, mode, 4)()
         pipe.first_stage.decode_code(grids)
 
         out["request_s"] = {k: [] for k in requests}
@@ -192,9 +202,9 @@ def main() -> int:
               f"{out['knn_ms']} ms; VQ-f16 decode_code of {BATCH} grids: "
               f"{out['decode_code_ms']} ms", flush=True)
 
-        pairs = [(gd, bc) for gd in GUIDANCES for bc in (False, True)]
-        label = {p: f"guidance {p[0]} "
-                    f"{'batched' if p[1] else 'in-place'}" for p in pairs}
+        pairs = [(gd, mode) for gd in GUIDANCES
+                 for mode in (*MODES, "batched")]
+        label = {p: f"guidance {p[0]} {p[1]}" for p in pairs}
         out["decode_ms_per_step"] = {label[p]: [] for p in pairs}
         for _ in range(args.repeats):
             for p in pairs:

@@ -11,19 +11,21 @@ with a VQ-f4 first stage, random weights from a seed, over the
 first request. Then measures, in this order:
 
   requests  `sample_with_query` (batch 4, DDIM-50, guidance 2.0, k = 4,
-            shared CFG) in six modes: bf16, bf16 with encoder_reuse 2 and
-            3, int8, int8 with RDM_TPU_INT8_ATTN=1, int8 with
+            shared CFG) in seven modes: bf16, bf16 with RDM_TPU_SPLIT_K3=0
+            (the single post_ff block kernel), bf16 with encoder_reuse 2
+            and 3, int8, int8 with RDM_TPU_INT8_ATTN=1, int8 with
             encoder_reuse 3; alternating, `repeats` times each:
             host-clock seconds around a synchronised call.
   parts     the VQ-f4 decode of 4 latents, bf16 and int8 (median
             CUDA-event ms of 10).
   profile   `torch.profiler` over one U-Net forward at the request's
             shapes (x batch 4, a (cond, uncond) context of 8 rows) per
-            mode: the full forward in bf16 and int8, and the up path alone
-            against cached down-path features (encoder reuse) in bf16 and
-            int8: device time, host-clock wall time of the same
-            synchronised forward, idle share (1 - the union of the device
-            intervals / wall), launches, and device time per kernel.
+            mode: the full forward in bf16 (also with RDM_TPU_SPLIT_K3=0)
+            and int8, and the up path alone against cached down-path
+            features (encoder reuse) in bf16 and int8: device time,
+            host-clock wall time of the same synchronised forward, idle
+            share (1 - the union of the device intervals / wall),
+            launches, and device time per kernel.
 
 Prints one line per measurement, the card's name, power limit, SM clock
 and power draw first and last, and writes everything to --out as JSON.
@@ -78,16 +80,26 @@ def main() -> int:
     g = torch.Generator(device="cuda").manual_seed(SEED + 22)
     queries = torch.randn(BATCH, 512, generator=g, device="cuda")
 
-    def request(mode: str, reuse: int = 1, attn8: bool = False):
+    def request(mode: str, reuse: int = 1, attn8: bool = False,
+                split: bool = True):
         def run():
             os.environ["RDM_TPU_INT8_ATTN"] = "1" if attn8 else "0"
+            os.environ["RDM_TPU_SPLIT_K3"] = "1" if split else "0"
             pipes[mode].sample_with_query(
                 queries, k_nn=K_NN, steps=STEPS, guidance_scale=GUIDANCE,
                 seed=1, encoder_reuse=reuse)
         return run
 
+    def single_kernel(fn):  # fn under RDM_TPU_SPLIT_K3=0
+        def run():
+            os.environ["RDM_TPU_SPLIT_K3"] = "0"
+            fn()
+            os.environ["RDM_TPU_SPLIT_K3"] = "1"
+        return run
+
     requests = {
         "bf16": request("bf16"),
+        "bf16 RDM_TPU_SPLIT_K3=0": request("bf16", split=False),
         "bf16 encoder_reuse=2": request("bf16", 2),
         "bf16 encoder_reuse=3": request("bf16", 3),
         "int8": request("int8"),
@@ -110,6 +122,7 @@ def main() -> int:
             print(f"request {kind}: s {s}; img/s {[BATCH / x for x in s]}",
                   flush=True)
         os.environ["RDM_TPU_INT8_ATTN"] = "0"
+        os.environ["RDM_TPU_SPLIT_K3"] = "1"
 
         neighbors = pipes["bf16"].retrieval.search(
             queries, k=K_NN)["embeddings"]
@@ -131,6 +144,9 @@ def main() -> int:
             runs = {"full forward": lambda: model(z, t, ctx2),
                     "up path (reuse)": lambda: model(
                         z, t, ctx2, encoder_cache=cache)}
+            if mode == "bf16":
+                runs["full forward RDM_TPU_SPLIT_K3=0"] = single_kernel(
+                    runs["full forward"])
             for kind, fn in runs.items():
                 fn()
                 r = profile_decode(fn, 1)
@@ -144,6 +160,7 @@ def main() -> int:
                     print(f"    {k['ms_per_step']:.4f} ms {k['share']:7.2%} "
                           f"x{k['per_step']:g}  {k['name']}", flush=True)
     os.environ.pop("RDM_TPU_INT8_ATTN")
+    os.environ.pop("RDM_TPU_SPLIT_K3")
     out["card_after"] = card()
     print(out["card_after"], flush=True)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -32,6 +32,12 @@
 // The SEG/SEG^T head-segment matmuls and the bf16 rounding they forced on
 // the softmax denominator are not carried over.
 //
+// The int8_weights option (`_post_ff_kernel(quantized=True)`): wo, wq2,
+// wo2, wa, wg and w2 are int8 codes [in, out] with a bf16 scale per output
+// column; every launch of the chain streams them through block_common.cuh's
+// int8 operand (half the weight bytes: 8.85 MB at C = 768) and scales the
+// f32 product before the bias, as `_wdot` does.
+//
 // What bounds it on the H100: streaming the weights, 3C^2 + 3CF bf16 =
 // 17.7 MB at C = 768, F = 3072, against 2*B*(3C^2 + 3CF) = 283/566 MFLOP
 // at B = 16/32: 16-32 FLOP per byte, so the floor is ~5.3 us at 3.35 TB/s.
@@ -45,6 +51,12 @@ extern "C" int rdm_geglu_ff(const void* xm, const void* n3s, const void* n3b,
                             const void* bg, const void* w2, const void* b2,
                             void* f, void* y, int R, int C, int F,
                             int tiles_per_block, void* stream);
+extern "C" int rdm_geglu_ff_w8(const void* xm, const void* n3s,
+                               const void* n3b, const void* wa, const void* wg,
+                               const void* sa, const void* sg, const void* ba,
+                               const void* bg, const void* w2, const void* s2,
+                               const void* b2, void* f, void* y, int R, int C,
+                               int F, int tiles_per_block, void* stream);
 
 namespace rdmk {
 
@@ -56,9 +68,10 @@ __host__ __device__ constexpr size_t skinny_smem(int C) {
 }
 
 // out = res + bf16(a @ w + bias), a [B, C], w [C, C]; grid (C / BN, B / BM).
+template <typename WT>
 __global__ void __launch_bounds__(kThreads)
-    proj_res_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
-                    const float* __restrict__ bias,
+    proj_res_kernel(const bf16* __restrict__ a, const WT* __restrict__ w,
+                    const bf16* __restrict__ ws, const float* __restrict__ bias,
                     const bf16* __restrict__ res, bf16* __restrict__ out,
                     int B, int C) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -70,9 +83,9 @@ __global__ void __launch_bounds__(kThreads)
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  const bf16* ws[1] = {w};
+  const WT* wp[1] = {w};
   FragC acc[1][2];
-  panel_gemm<1>(acc, panel, C, ws, C, n0, bs);
+  panel_gemm<1>(acc, panel, C, wp, C, n0, bs);
   store_acc(cs, acc[0]);
   __syncthreads();
   for (int i = threadIdx.x; i < BM * BN / 8; i += kThreads) {
@@ -83,16 +96,19 @@ __global__ void __launch_bounds__(kThreads)
     load8(rv, res + (size_t)gr * C + gc);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
-      o[j] = rv[j] + round_bf16(cs[r * kLdC + c8 + j] + __ldg(bias + gc + j));
+      o[j] = rv[j] + round_bf16(wscale<WT>(cs[r * kLdC + c8 + j], ws, gc + j) +
+                                __ldg(bias + gc + j));
     store8(out + (size_t)gr * C + gc, o);
   }
 }
 
 // o = cross-attention of q2 = LN2(x1) @ wq2 over ck, cv [S, B, C]; grid
 // (heads, B / BM): block (h, .) computes head h's q2 columns and attends.
+template <typename WT>
 __global__ void __launch_bounds__(kThreads)
     q_cross_kernel(const bf16* __restrict__ x1, const float* __restrict__ g,
-                   const float* __restrict__ b, const bf16* __restrict__ wq2,
+                   const float* __restrict__ b, const WT* __restrict__ wq2,
+                   const bf16* __restrict__ ws,
                    const bf16* __restrict__ ck, const bf16* __restrict__ cv,
                    bf16* __restrict__ o, int B, int C, int S,
                    float scale_log2) {
@@ -107,9 +123,9 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   layer_norm_panel(panel, panel, C, g, b);
   __syncthreads();
-  const bf16* ws[1] = {wq2};
+  const WT* wp[1] = {wq2};
   FragC acc[1][2];
-  panel_gemm<1>(acc, panel, C, ws, C, n0, bs);
+  panel_gemm<1>(acc, panel, C, wp, C, n0, bs);
   store_acc(cs, acc[0]);
   __syncthreads();
 
@@ -119,8 +135,12 @@ __global__ void __launch_bounds__(kThreads)
   for (int r = warp; r < BM; r += kThreads / 32) {
     const int gr = r0 + r;
     if (gr >= B) break;
-    const float q0 = round_bf16(cs[r * kLdC + 2 * lane]) * scale_log2;
-    const float q1 = round_bf16(cs[r * kLdC + 2 * lane + 1]) * scale_log2;
+    const float q0 =
+        round_bf16(wscale<WT>(cs[r * kLdC + 2 * lane], ws, n0 + 2 * lane)) *
+        scale_log2;
+    const float q1 = round_bf16(wscale<WT>(cs[r * kLdC + 2 * lane + 1], ws,
+                                           n0 + 2 * lane + 1)) *
+                     scale_log2;
     const size_t col = (size_t)gr * C + n0 + 2 * lane;
     float m = -INFINITY, l = 0.f, a0 = 0.f, a1 = 0.f;
     for (int s = 0; s < S; ++s) {
@@ -142,38 +162,68 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The chain of five launches; WT = int8_t with the six bf16 column scales
+// (the int8_weights mode), bf16 with null scales.
+template <typename WT>
+static int launch_post_ff(const void* x, const void* attn, const void* ck,
+                          const void* cv, const void* wo, const void* bo,
+                          const void* n2s, const void* n2b, const void* wq2,
+                          const void* wo2, const void* bo2, const void* n3s,
+                          const void* n3b, const void* wa, const void* wg,
+                          const void* ba, const void* bg, const void* w2,
+                          const void* b2, const void* const* sc, void* x1,
+                          void* o2, void* xm, void* f, void* out, int B,
+                          int C, int S, int F, float scale, void* stream) {
+  const size_t smem = skinny_smem(C);
+  cudaError_t e = allow_smem(proj_res_kernel<WT>, smem);
+  if (e == cudaSuccess) e = allow_smem(q_cross_kernel<WT>, smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t st = (cudaStream_t)stream;
+  const dim3 grid(C / BN, (B + BM - 1) / BM);
+  proj_res_kernel<WT><<<grid, kThreads, smem, st>>>(
+      (const bf16*)attn, (const WT*)wo, (const bf16*)sc[0], (const float*)bo,
+      (const bf16*)x, (bf16*)x1, B, C);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  q_cross_kernel<WT><<<grid, kThreads, smem, st>>>(
+      (const bf16*)x1, (const float*)n2s, (const float*)n2b,
+      (const WT*)wq2, (const bf16*)sc[1], (const bf16*)ck, (const bf16*)cv,
+      (bf16*)o2, B, C, S, scale * 1.4426950408889634f);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  proj_res_kernel<WT><<<grid, kThreads, smem, st>>>(
+      (const bf16*)o2, (const WT*)wo2, (const bf16*)sc[2], (const float*)bo2,
+      (const bf16*)x1, (bf16*)xm, B, C);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  if (sc[0] == nullptr)
+    return rdm_geglu_ff(xm, n3s, n3b, wa, wg, ba, bg, w2, b2, f, out, B, C, F,
+                        1, stream);
+  return rdm_geglu_ff_w8(xm, n3s, n3b, wa, wg, sc[3], sc[4], ba, bg, w2,
+                         sc[5], b2, f, out, B, C, F, 1, stream);
+}
+
 }  // namespace rdmk
 
+// swo, swq2, swo2, swa, swg, sw2: all null (bf16 weights) or all given
+// (int8 weights with bf16 column scales).
 extern "C" int rdm_decode_post_ff(
     const void* x, const void* attn, const void* ck, const void* cv,
     const void* wo, const void* bo, const void* n2s, const void* n2b,
     const void* wq2, const void* wo2, const void* bo2, const void* n3s,
     const void* n3b, const void* wa, const void* wg, const void* ba,
-    const void* bg, const void* w2, const void* b2, void* x1, void* o2,
-    void* xm, void* f, void* out, int B, int C, int S, int F, float scale,
-    void* stream) {
+    const void* bg, const void* w2, const void* b2, const void* swo,
+    const void* swq2, const void* swo2, const void* swa, const void* swg,
+    const void* sw2, void* x1, void* o2, void* xm, void* f, void* out, int B,
+    int C, int S, int F, float scale, void* stream) {
   using namespace rdmk;
-  if (C % kHeadDim || F % BN || B < 1 || S < 1)
+  const void* sc[6] = {swo, swq2, swo2, swa, swg, sw2};
+  int given = 0;
+  for (const void* p : sc) given += p != nullptr;
+  if (C % kHeadDim || F % BN || B < 1 || S < 1 || (given != 0 && given != 6))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = skinny_smem(C);
-  cudaError_t e = allow_smem(proj_res_kernel, smem);
-  if (e == cudaSuccess) e = allow_smem(q_cross_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid(C / BN, (B + BM - 1) / BM);
-  proj_res_kernel<<<grid, kThreads, smem, st>>>(
-      (const bf16*)attn, (const bf16*)wo, (const float*)bo, (const bf16*)x,
-      (bf16*)x1, B, C);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  q_cross_kernel<<<grid, kThreads, smem, st>>>(
-      (const bf16*)x1, (const float*)n2s, (const float*)n2b,
-      (const bf16*)wq2, (const bf16*)ck, (const bf16*)cv, (bf16*)o2, B, C, S,
-      scale * 1.4426950408889634f);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  proj_res_kernel<<<grid, kThreads, smem, st>>>(
-      (const bf16*)o2, (const bf16*)wo2, (const float*)bo2, (const bf16*)x1,
-      (bf16*)xm, B, C);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  return rdm_geglu_ff(xm, n3s, n3b, wa, wg, ba, bg, w2, b2, f, out, B, C, F,
-                      1, stream);
+  if (given == 0)
+    return launch_post_ff<bf16>(x, attn, ck, cv, wo, bo, n2s, n2b, wq2, wo2,
+                                bo2, n3s, n3b, wa, wg, ba, bg, w2, b2, sc, x1,
+                                o2, xm, f, out, B, C, S, F, scale, stream);
+  return launch_post_ff<int8_t>(x, attn, ck, cv, wo, bo, n2s, n2b, wq2, wo2,
+                                bo2, n3s, n3b, wa, wg, ba, bg, w2, b2, sc, x1,
+                                o2, xm, f, out, B, C, S, F, scale, stream);
 }

@@ -25,16 +25,24 @@
 // device memory (4*R*F bytes = 50/19/7.9 MB) plus 6*C*F weight bytes;
 // about 400 FLOP per byte at the largest site, so tensor-core issue rate
 // bounds it. The f round trip (15 us at 3.35 TB/s for 50 MB, less where f
-// stays in the 50 MB L2) is the price of the split; the fused form would
-// need a [32, C] f32 accumulator per block in shared memory.
+// stays in the 50 MB L2) is the price of the split; the fused form,
+// csrc/post_ff.cu, keeps a [32, C] f32 accumulator per block in shared
+// memory instead.
+//
+// The RARM decode (csrc/decode_post_ff.cu) runs these two kernels at R = B
+// rows, in its int8_weights mode with int8 wa, wg, w2 and bf16 column
+// scales (rdm_geglu_ff_w8; block_common.cuh's int8 operand, half the
+// weight bytes).
 #include "block_common.cuh"
 
 namespace rdmk {
 
+template <typename WT>
 __global__ void __launch_bounds__(kThreads)
     geglu_up_kernel(const bf16* __restrict__ xm, const float* __restrict__ g3,
-                    const float* __restrict__ b3, const bf16* __restrict__ wa,
-                    const bf16* __restrict__ wg, const float* __restrict__ ba,
+                    const float* __restrict__ b3, const WT* __restrict__ wa,
+                    const WT* __restrict__ wg, const bf16* __restrict__ sa,
+                    const bf16* __restrict__ sg, const float* __restrict__ ba,
                     const float* __restrict__ bg, bf16* __restrict__ f, int R,
                     int C, int F, int tiles_per_block) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -53,7 +61,7 @@ __global__ void __launch_bounds__(kThreads)
 
   const int ntiles = (F + BN - 1) / BN;
   const int t_end = min(ntiles, (int)(blockIdx.x + 1) * tiles_per_block);
-  const bf16* ws[2] = {wa, wg};
+  const WT* ws[2] = {wa, wg};
   for (int t = blockIdx.x * tiles_per_block; t < t_end; ++t) {
     const int n0 = t * BN;
     FragC acc[2][2];
@@ -68,8 +76,10 @@ __global__ void __launch_bounds__(kThreads)
       float res[8];
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const float a = cs[r * kLdC + c8 + j] + __ldg(ba + gc + j);
-        const float gt = cg[r * kLdC + c8 + j] + __ldg(bg + gc + j);
+        const float a =
+            wscale<WT>(cs[r * kLdC + c8 + j], sa, gc + j) + __ldg(ba + gc + j);
+        const float gt =
+            wscale<WT>(cg[r * kLdC + c8 + j], sg, gc + j) + __ldg(bg + gc + j);
         res[j] = a * (0.5f * gt * (1.0f + erff(gt * 0.7071067811865476f)));
       }
       store8(f + (size_t)gr * F + gc, res);
@@ -78,10 +88,12 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <typename WT>
 __global__ void __launch_bounds__(kThreads)
-    ff_down_kernel(const bf16* __restrict__ f, const bf16* __restrict__ w2,
-                   const float* __restrict__ b2, const bf16* __restrict__ xm,
-                   bf16* __restrict__ y, int R, int C, int F) {
+    ff_down_kernel(const bf16* __restrict__ f, const WT* __restrict__ w2,
+                   const bf16* __restrict__ s2, const float* __restrict__ b2,
+                   const bf16* __restrict__ xm, bf16* __restrict__ y, int R,
+                   int C, int F) {
   constexpr size_t kABytes = align128(2 * BM * kLdA * sizeof(bf16));
   __shared__ __align__(128) unsigned char smem[kABytes + bchunk_bytes(1) +
                                                 staging_bytes(1)];
@@ -101,9 +113,36 @@ __global__ void __launch_bounds__(kThreads)
     load8(xv, xm + (size_t)gr * C + gc);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
-      res[j] = xv[j] + round_bf16(cs[r * kLdC + c8 + j] + __ldg(b2 + gc + j));
+      res[j] = xv[j] + round_bf16(wscale<WT>(cs[r * kLdC + c8 + j], s2,
+                                             gc + j) + __ldg(b2 + gc + j));
     store8(y + (size_t)gr * C + gc, res);
   }
+}
+
+template <typename WT>
+static int launch_geglu(const void* xm, const void* n3s, const void* n3b,
+                        const void* wa, const void* wg, const void* sa,
+                        const void* sg, const void* ba, const void* bg,
+                        const void* w2, const void* s2, const void* b2,
+                        void* f, void* y, int R, int C, int F,
+                        int tiles_per_block, void* stream) {
+  const size_t smem = panel_bytes(C) + bchunk_bytes(2) + staging_bytes(2);
+  cudaError_t e = allow_smem(geglu_up_kernel<WT>, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int ntiles = (F + BN - 1) / BN;
+  dim3 up((ntiles + tiles_per_block - 1) / tiles_per_block,
+          (R + BM - 1) / BM);
+  geglu_up_kernel<WT><<<up, kThreads, smem, (cudaStream_t)stream>>>(
+      (const bf16*)xm, (const float*)n3s, (const float*)n3b, (const WT*)wa,
+      (const WT*)wg, (const bf16*)sa, (const bf16*)sg, (const float*)ba,
+      (const float*)bg, (bf16*)f, R, C, F, tiles_per_block);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  dim3 down((C + BN - 1) / BN, (R + BM - 1) / BM);
+  ff_down_kernel<WT><<<down, kThreads, 0, (cudaStream_t)stream>>>(
+      (const bf16*)f, (const WT*)w2, (const bf16*)s2, (const float*)b2,
+      (const bf16*)xm, (bf16*)y, R, C, F);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace rdmk
@@ -113,22 +152,20 @@ extern "C" int rdm_geglu_ff(const void* xm, const void* n3s, const void* n3b,
                             const void* bg, const void* w2, const void* b2,
                             void* f, void* y, int R, int C, int F,
                             int tiles_per_block, void* stream) {
-  using namespace rdmk;
-  const size_t smem = panel_bytes(C) + bchunk_bytes(2) + staging_bytes(2);
-  cudaError_t e = allow_smem(geglu_up_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  const int ntiles = (F + BN - 1) / BN;
-  dim3 up((ntiles + tiles_per_block - 1) / tiles_per_block,
-          (R + BM - 1) / BM);
-  geglu_up_kernel<<<up, kThreads, smem, (cudaStream_t)stream>>>(
-      (const bf16*)xm, (const float*)n3s, (const float*)n3b,
-      (const bf16*)wa, (const bf16*)wg, (const float*)ba, (const float*)bg,
-      (bf16*)f, R, C, F, tiles_per_block);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  dim3 down((C + BN - 1) / BN, (R + BM - 1) / BM);
-  ff_down_kernel<<<down, kThreads, 0, (cudaStream_t)stream>>>(
-      (const bf16*)f, (const bf16*)w2, (const float*)b2, (const bf16*)xm,
-      (bf16*)y, R, C, F);
-  return (int)cudaGetLastError();
+  return rdmk::launch_geglu<rdmk::bf16>(xm, n3s, n3b, wa, wg, nullptr,
+                                        nullptr, ba, bg, w2, nullptr, b2, f,
+                                        y, R, C, F, tiles_per_block, stream);
+}
+
+// The RARM int8_weights mode: wa, wg int8 [C, F] and w2 int8 [F, C] with
+// bf16 scales sa, sg [F] and s2 [C] (F and C multiples of 16).
+extern "C" int rdm_geglu_ff_w8(const void* xm, const void* n3s,
+                               const void* n3b, const void* wa, const void* wg,
+                               const void* sa, const void* sg, const void* ba,
+                               const void* bg, const void* w2, const void* s2,
+                               const void* b2, void* f, void* y, int R, int C,
+                               int F, int tiles_per_block, void* stream) {
+  return rdmk::launch_geglu<int8_t>(xm, n3s, n3b, wa, wg, sa, sg, ba, bg, w2,
+                                    s2, b2, f, y, R, C, F, tiles_per_block,
+                                    stream);
 }

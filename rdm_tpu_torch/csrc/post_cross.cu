@@ -26,12 +26,9 @@
 // That caps the grid at R / 32 blocks (256/64/16 at the three sites), so
 // the small-S sites leave most SMs idle; splitting the row block is a
 // later revision's work.
-#include "block_common.cuh"
+#include "post_cross_common.cuh"
 
 namespace rdmk {
-
-constexpr int kHeadDim = 32;
-constexpr int kMaxCtx = 16;
 
 __global__ void __launch_bounds__(kThreads)
     post_cross_kernel(const bf16* __restrict__ x, const bf16* __restrict__ attn,
@@ -50,134 +47,11 @@ __global__ void __launch_bounds__(kThreads)
   bf16* po = reinterpret_cast<bf16*>(smem + 2 * pb);  // cross-attention out
   bf16* bs = reinterpret_cast<bf16*>(smem + 3 * pb);
   float* cs = reinterpret_cast<float*>(smem + 3 * pb + bchunk_bytes(1));
-  const int ldp = panel_ld(C);
-  const int r0 = blockIdx.x * BM;
-  const int ntiles = (C + BN - 1) / BN;
-
-  load_panel_async(pa, attn, C, r0, R, C);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // 1. x1 = x + (attn @ wo + bo)
-  const bf16* w_o[1] = {wo};
-  for (int t = 0; t < ntiles; ++t) {
-    const int n0 = t * BN;
-    FragC acc[1][2];
-    panel_gemm<1>(acc, pa, C, w_o, C, n0, bs);
-    store_acc(cs, acc[0]);
-    __syncthreads();
-    for (int i = threadIdx.x; i < BM * BN / 8; i += kThreads) {
-      const int r = i / (BN / 8), c8 = (i - r * (BN / 8)) * 8;
-      const int gr = r0 + r, gc = n0 + c8;
-      if (gc >= C) continue;
-      float res[8];
-      if (gr < R) {
-        float xv[8];
-        load8(xv, x + (size_t)gr * C + gc);
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          res[j] = xv[j] + round_bf16(cs[r * kLdC + c8 + j] + __ldg(bo + gc + j));
-      } else {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) res[j] = 0.f;
-      }
-      store8(px1 + r * ldp + gc, res);
-    }
-    __syncthreads();
-  }
-
-  // 2. h2 = LN2(x1), over the attn panel (no longer needed)
-  layer_norm_panel(pa, px1, C, n2s, n2b);
-  __syncthreads();
-
-  // 3. q2 = h2 @ wq2 tile by tile; each 64-column tile holds two whole
-  //    heads, whose cross-attention runs in the epilogue: one thread per
-  //    (row, head) pair, T context tokens, exact per-head max.
-  const bf16* w_q[1] = {wq2};
-  for (int t = 0; t < ntiles; ++t) {
-    const int n0 = t * BN;
-    FragC acc[1][2];
-    panel_gemm<1>(acc, pa, C, w_q, C, n0, bs);
-    store_acc(cs, acc[0]);
-    __syncthreads();
-    constexpr int kHeadsPerTile = BN / kHeadDim;
-    for (int p = threadIdx.x; p < BM * kHeadsPerTile; p += kThreads) {
-      const int r = p / kHeadsPerTile, hh = p - r * kHeadsPerTile;
-      const int col = n0 + hh * kHeadDim;
-      if (col >= C) continue;
-      const int gr = r0 + r;
-      bf16* dst = po + r * ldp + col;
-      float o[kHeadDim];
-#pragma unroll
-      for (int d = 0; d < kHeadDim; ++d) o[d] = 0.f;
-      if (gr < R) {
-        const int img = gr / S;
-        const bf16* kb = ck + (size_t)img * T * C + col;
-        const bf16* vb = cv + (size_t)img * T * C + col;
-        const float* qrow = cs + r * kLdC + hh * kHeadDim;
-        float qv[kHeadDim];
-#pragma unroll
-        for (int d = 0; d < kHeadDim; ++d) qv[d] = round_bf16(qrow[d]);
-        float sc[kMaxCtx];
-        float mx = -INFINITY;
-        for (int tc = 0; tc < T; ++tc) {
-          float s = 0.f;
-#pragma unroll
-          for (int d8 = 0; d8 < kHeadDim; d8 += 8) {
-            float kv[8];
-            load8(kv, kb + (size_t)tc * C + d8);
-#pragma unroll
-            for (int j = 0; j < 8; ++j) s += qv[d8 + j] * kv[j];
-          }
-          s *= scale;
-          sc[tc] = s;
-          mx = fmaxf(mx, s);
-        }
-        float den = 0.f;
-        for (int tc = 0; tc < T; ++tc) {
-          sc[tc] = __expf(sc[tc] - mx);
-          den += sc[tc];
-        }
-        const float inv = 1.0f / den;
-        for (int tc = 0; tc < T; ++tc) {
-          const float pt = round_bf16(sc[tc] * inv);
-#pragma unroll
-          for (int d8 = 0; d8 < kHeadDim; d8 += 8) {
-            float vv[8];
-            load8(vv, vb + (size_t)tc * C + d8);
-#pragma unroll
-            for (int j = 0; j < 8; ++j) o[d8 + j] += pt * vv[j];
-          }
-        }
-      }
-#pragma unroll
-      for (int d8 = 0; d8 < kHeadDim; d8 += 8) store8(dst + d8, o + d8);
-    }
-    __syncthreads();
-  }
-
-  // 4. xmid = x1 + (o @ wo2 + bo2)
-  const bf16* w_o2[1] = {wo2};
-  for (int t = 0; t < ntiles; ++t) {
-    const int n0 = t * BN;
-    FragC acc[1][2];
-    panel_gemm<1>(acc, po, C, w_o2, C, n0, bs);
-    store_acc(cs, acc[0]);
-    __syncthreads();
-    for (int i = threadIdx.x; i < BM * BN / 8; i += kThreads) {
-      const int r = i / (BN / 8), c8 = (i - r * (BN / 8)) * 8;
-      const int gr = r0 + r, gc = n0 + c8;
-      if (gc >= C || gr >= R) continue;
-      float x1v[8], res[8];
-      load8(x1v, px1 + r * ldp + gc);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        res[j] = x1v[j] + round_bf16(cs[r * kLdC + c8 + j] + __ldg(bo2 + gc + j));
-      store8(out + (size_t)gr * C + gc, res);
-    }
-    __syncthreads();
-  }
+  post_cross_rows(x, attn, ck, cv, wo, bo, n2s, n2b, wq2, wo2, bo2, R, S, C,
+                  T, scale, blockIdx.x * BM, pa, px1, po, bs, cs,
+                  [&](int, int gr, int gc, const float* res) {
+                    store8(out + (size_t)gr * C + gc, res);
+                  });
 }
 
 }  // namespace rdmk
@@ -189,7 +63,8 @@ extern "C" int rdm_post_cross(const void* x, const void* attn, const void* ck,
                               const void* bo2, void* out, int R, int S, int C,
                               int T, float scale, void* stream) {
   using namespace rdmk;
-  if (T < 1 || T > kMaxCtx || C % kHeadDim) return (int)cudaErrorInvalidValue;
+  if (T < 1 || T > kMaxCtx || C % kCrossHeadDim)
+    return (int)cudaErrorInvalidValue;
   const size_t smem = 3 * panel_bytes(C) + bchunk_bytes(1) + staging_bytes(1);
   cudaError_t e = allow_smem(post_cross_kernel, smem);
   if (e != cudaSuccess) return (int)e;

@@ -18,12 +18,16 @@ Two decoding paths, as in JAX:
   weights packed once (`extract_decode_weights`). On CPU tensors the
   kernels' plain versions run.
 
+The serving modes of the kernel path, as in JAX: `int8_weights` (every
+projection of the decode kernels int8 with bf16 column scales, quantized
+once by `extract_decode_weights`), `int8_kv` (int8 KV caches with f32
+per-(row, batch row) scales) and `approx_top_k` (see `top_k_filter`).
+
 The JAX package's growing-window stages (`window_chunk`) are a TPU
 static-shape device: a scan over a fixed cache window per stage. Here each
 step attends to exactly the rows it needs (the eager loop slices the cache
 to pos + 1, the attention kernel bounds its read by pos), so they are not
-carried over. Not ported yet: `approx_top_k` and the int8_weights/int8_kv
-modes (serving slice), `training_loss` (training slice).
+carried over. Not ported yet: `training_loss` (training slice).
 """
 
 from __future__ import annotations
@@ -39,15 +43,12 @@ from rdm_tpu_torch.models.layers import (CrossAttention, GEGLUFeedForward,
                                          LayerNormF32)
 from rdm_tpu_torch.ops.attention import dot_product_attention
 from rdm_tpu_torch.ops.block_kernel import pack_block_weights
-from rdm_tpu_torch.ops.decode_kernel import commit_rows, decode_layer
+from rdm_tpu_torch.ops.decode_kernel import (INT8_WEIGHTS, commit_rows,
+                                             decode_layer, quantize_weight)
 
 __all__ = ["RARM", "RARMConfig", "DecodeCache", "FusedDecoder",
            "extract_decode_weights", "sample_tokens", "sample_tokens_fused",
            "top_k_filter"]
-
-_SERVING_SLICE = ("is a serving mode of the JAX package that the port has "
-                  "not ported yet (serving slice)")
-
 
 class _Block(nn.Module):
     """Pre-LN: causal self-attn -> cross-attn to the neighbours -> GEGLU
@@ -172,9 +173,14 @@ class RARM(nn.Module):
 def top_k_filter(logits: torch.Tensor, k: int,
                  approx: bool = False) -> torch.Tensor:
     """Keep the top-k logits, set the rest to -inf (reference top_k_logits
-    semantics; ties with the k-th value are kept)."""
-    if approx:
-        raise NotImplementedError(f"approx_top_k {_SERVING_SLICE}")
+    semantics; ties with the k-th value are kept).
+
+    approx=True is the JAX package's `jax.lax.approx_max_k` threshold. XLA
+    gives that op its approximate form only on a TPU; on other backends it
+    is the exact top-k (on the CPU with jax 0.9.0, approx_max_k(x, 256)
+    equals top_k on a seeded [32, 16384] f32 draw). So the port, which runs
+    on no TPU, computes the exact top-k either way."""
+    del approx  # the exact answer, as XLA gives it off the TPU
     kth = torch.topk(logits, k, dim=-1).values[..., -1:]
     return logits.masked_fill(logits < kth, float("-inf"))
 
@@ -202,19 +208,11 @@ def _guided_context(neighbors: torch.Tensor, guidance_scale: float):
     return torch.cat([neighbors, torch.zeros_like(neighbors)], dim=0)
 
 
-def _check_options(approx_top_k: bool, int8_weights: bool = False,
-                   int8_kv: bool = False) -> None:
-    for name, on in (("approx_top_k", approx_top_k),
-                     ("int8_weights", int8_weights), ("int8_kv", int8_kv)):
-        if on:
-            raise NotImplementedError(f"{name} {_SERVING_SLICE}")
-
-
 def _sample_loop(step: Callable[[torch.Tensor, int], torch.Tensor],
                  cfg: RARMConfig, batch: int, device: torch.device,
                  generator: torch.Generator, steps: Optional[int],
-                 temperature: float, top_k: int,
-                 guidance_scale: float) -> torch.Tensor:
+                 temperature: float, top_k: int, guidance_scale: float,
+                 approx_top_k: bool) -> torch.Tensor:
     """The decode loop both samplers share: `step(tokens, pos)` gives the
     logits of one position ([B or 2B] under CFG); returns [B, steps]."""
     steps = steps or cfg.seq_len
@@ -227,7 +225,8 @@ def _sample_loop(step: Callable[[torch.Tensor, int], torch.Tensor],
         tok_in = torch.cat([token, token]) if use_cfg else token
         token = _sample_next(step(tok_in, pos), generator, use_cfg=use_cfg,
                              guidance_scale=guidance_scale,
-                             temperature=temperature, top_k=top_k)
+                             temperature=temperature, top_k=top_k,
+                             approx_top_k=approx_top_k)
         out.append(token)
     return torch.stack(out, dim=1)
 
@@ -240,13 +239,12 @@ def sample_tokens(model: RARM, neighbors: torch.Tensor,
                   approx_top_k: bool = False) -> torch.Tensor:
     """KV-cached autoregressive sampling through the eager `decode_step`.
     neighbors [B, S_ctx, D] -> tokens [B, steps] int64."""
-    _check_options(approx_top_k)
     ctx = _guided_context(neighbors, guidance_scale)
     cache = model.init_cache(ctx.shape[0], ctx)
     return _sample_loop(
         lambda tok, pos: model.decode_step(tok, pos, cache)[0],
         model.config, neighbors.shape[0], neighbors.device, generator, steps,
-        temperature, top_k, guidance_scale)
+        temperature, top_k, guidance_scale, approx_top_k)
 
 
 def extract_decode_weights(model: RARM, dtype: torch.dtype = torch.bfloat16,
@@ -256,9 +254,24 @@ def extract_decode_weights(model: RARM, dtype: torch.dtype = torch.bfloat16,
     projections [in, out] in `dtype` (q/k/v fused into [C, 3C], the GEGLU
     projection split into value and gate halves, the cross-attention k/v
     projections kept for the once-per-request context K/V), norms and
-    biases f32 (`ops.block_kernel.pack_block_weights`)."""
-    _check_options(False, int8_weights)
-    return [pack_block_weights(blk, dtype) for blk in model.transformer_blocks]
+    biases f32 (`ops.block_kernel.pack_block_weights`).
+
+    int8_weights=True stores the seven decode projections (`INT8_WEIGHTS`)
+    as int8 codes [in, out] with bf16 column scales `<name>_s`
+    (`decode_kernel.quantize_weight`), quantized from the model's own
+    parameters before any cast, as the JAX package does; the cross-attention
+    k/v projections stay in `dtype`."""
+    if not int8_weights:
+        return [pack_block_weights(blk, dtype)
+                for blk in model.transformer_blocks]
+    layers = []
+    for blk in model.transformer_blocks:
+        w = pack_block_weights(blk, blk.attn1.to_q.weight.dtype)
+        for name in INT8_WEIGHTS:
+            w[name], w[name + "_s"] = quantize_weight(w[name])
+        w["wk2"], w["wv2"] = w["wk2"].to(dtype), w["wv2"].to(dtype)
+        layers.append(w)
+    return layers
 
 
 class FusedDecoder:
@@ -270,16 +283,23 @@ class FusedDecoder:
 
     batched_commit defers each step's k/v rows and writes them for all
     layers in one `commit_rows` launch (the JAX RARM_BATCHED_COMMIT=1
-    path), instead of each layer's attention launch writing its own."""
+    path), instead of each layer's attention launch writing its own.
+    int8_kv keeps int8 caches with f32 scale caches [T, B, 1] (ones until
+    a row is written, as in JAX); it commits per layer, so it refuses
+    batched_commit as the JAX package does. The weights' `wqkv_s` selects
+    the int8_weights mode."""
 
     def __init__(self, model: RARM, context: torch.Tensor,
                  weights: Optional[List[Dict[str, torch.Tensor]]] = None, *,
-                 batched_commit: bool = False):
+                 batched_commit: bool = False, int8_kv: bool = False):
         cfg = model.config
+        if int8_kv and batched_commit:
+            raise ValueError("int8_kv commits each layer's rows itself; it "
+                             "does not take batched_commit")
         self.cfg = cfg
         self.layers = (weights if weights is not None
                        else extract_decode_weights(model, model.dtype))
-        dtype = self.layers[0]["wqkv"].dtype
+        dtype = self.layers[0]["wk2"].dtype  # the compute dtype
         self.batched_commit = batched_commit
         ctx = context.to(dtype)
         bb, c = ctx.shape[0], cfg.inner_dim
@@ -290,10 +310,17 @@ class FusedDecoder:
         self.cross = [((ctx @ w["wk2"]).transpose(0, 1).contiguous(),
                        (ctx @ w["wv2"]).transpose(0, 1).contiguous())
                       for w in self.layers]
-        self.k_caches = [torch.zeros((cfg.seq_len, bb, c), dtype=dtype,
+        cache_dtype = torch.int8 if int8_kv else dtype
+        self.k_caches = [torch.zeros((cfg.seq_len, bb, c), dtype=cache_dtype,
                                      device=ctx.device)
                          for _ in range(cfg.depth)]
         self.v_caches = [torch.zeros_like(k) for k in self.k_caches]
+        self.ks_caches = self.vs_caches = [None] * cfg.depth
+        if int8_kv:
+            self.ks_caches = [torch.ones((cfg.seq_len, bb, 1),
+                                         device=ctx.device)
+                              for _ in range(cfg.depth)]
+            self.vs_caches = [torch.ones_like(k) for k in self.ks_caches]
 
     def step(self, tokens: torch.Tensor, pos: int) -> torch.Tensor:
         """tokens [B] at position pos -> logits [B, out_vocab] f32."""
@@ -304,7 +331,8 @@ class FusedDecoder:
             x, ko, vo = decode_layer(
                 x, pos, self.k_caches[d], self.v_caches[d], *self.cross[d],
                 w, heads=cfg.heads, head_dim=cfg.head_dim,
-                defer_commit=self.batched_commit)
+                defer_commit=self.batched_commit,
+                ks_cache=self.ks_caches[d], vs_cache=self.vs_caches[d])[:3]
             if self.batched_commit:
                 rows_k.append(ko)
                 rows_v.append(vo)
@@ -324,15 +352,25 @@ def sample_tokens_fused(model: RARM, neighbors: torch.Tensor,
                         batched_commit: bool = False,
                         weights: Optional[List[Dict[str, torch.Tensor]]]
                         = None) -> torch.Tensor:
-    """`sample_tokens` through the decode kernels: three kernel calls per
-    layer per step (two with batched_commit, plus one commit per step).
+    """`sample_tokens` through the decode kernels: two kernel calls per
+    layer per step (`decode_attn`, `decode_post_ff`), plus one
+    `commit_rows` per step with batched_commit.
     The embedding gather, the head projection, top-k and the draw stay
     plain torch, as XLA did them in JAX. `weights` (from
-    `extract_decode_weights`) skips the per-call packing. Same sampling
-    semantics as `sample_tokens`; numerics differ by rounding order."""
-    _check_options(approx_top_k, int8_weights, int8_kv)
+    `extract_decode_weights`, int8 ones with int8_weights) skips the
+    per-call packing. Same sampling semantics as `sample_tokens`; numerics
+    differ by rounding order, and by the quantization in the int8 modes.
+    int8_kv refuses batched_commit (see `FusedDecoder`)."""
+    if weights is None:
+        weights = extract_decode_weights(model, model.dtype,
+                                         int8_weights=int8_weights)
+    elif ("wqkv_s" in weights[0]) != int8_weights:
+        raise ValueError(f"int8_weights={int8_weights} with weights packed "
+                         f"{'with' if 'wqkv_s' in weights[0] else 'without'}"
+                         " int8 projections")
     dec = FusedDecoder(model, _guided_context(neighbors, guidance_scale),
-                       weights, batched_commit=batched_commit)
+                       weights, batched_commit=batched_commit,
+                       int8_kv=int8_kv)
     return _sample_loop(dec.step, model.config, neighbors.shape[0],
                         neighbors.device, generator, steps, temperature,
-                        top_k, guidance_scale)
+                        top_k, guidance_scale, approx_top_k)

@@ -14,6 +14,13 @@ each residual; reference attention.py:77-96) runs as four kernels:
   4. `geglu_ff`    - LN3 + GEGLU FF + residual
                      (csrc/geglu_ff.cu; replaces `_geglu_ff_kernel`)
 
+With RDM_TPU_SPLIT_K3=0 (or `split_k3=False`) kernels 3 and 4 run as one,
+as the JAX package's single kernel 3 does:
+
+  9. `post_ff`     - post_cross + geglu_ff in one launch, the GEGLU hidden
+                     kept in shared memory (csrc/post_ff.cu; replaces
+                     `_post_ff_kernel`)
+
 The int8 serving mode (`fused_transformer_block(..., qscales=)`) runs
 their int8 variants: weight and activation int8 projections with int32
 accumulation, static calibrated activation scales, per-column weight
@@ -43,7 +50,7 @@ int8 CUDA kernels take C (and F) as multiples of 64.
 from __future__ import annotations
 
 import os
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -116,6 +123,18 @@ def geglu_ff_reference(xm2, n3s, n3b, wa, wg, ba, bg, w2, b2):
     h = layer_norm(xm2, n3s, n3b)
     f = _linear(h, wa, ba) * F.gelu(_linear(h, wg, bg))
     return xm2 + _linear(f, w2, b2)
+
+
+def post_ff_reference(x, attn, ck, cv, wo, bo, n2s, n2b, wq2, wo2, bo2, n3s,
+                      n3b, wa, wg, ba, bg, w2, b2, *, heads: int,
+                      head_dim: int):
+    """x, attn [B, S, C]; ck, cv [B, T, C] -> y [B, S, C]: post_cross then
+    geglu_ff."""
+    b, s, c = x.shape
+    xm = post_cross_reference(x, attn, ck, cv, wo, bo, n2s, n2b, wq2, wo2,
+                              bo2, heads=heads, head_dim=head_dim)
+    return geglu_ff_reference(xm.reshape(b * s, c), n3s, n3b, wa, wg, ba, bg,
+                              w2, b2).reshape(b, s, c)
 
 
 # -------------------------------------------------------------- wrappers
@@ -297,6 +316,49 @@ def geglu_ff(xm2, n3s, n3b, wa, wg, ba, bg, w2, b2):
 
 
 geglu_ff.launches = 0
+
+
+def post_ff(x, attn, ck, cv, wo, bo, n2s, n2b, wq2, wo2, bo2, n3s, n3b, wa,
+            wg, ba, bg, w2, b2, *, heads: int, head_dim: int):
+    """post_cross + geglu_ff in one kernel: x, attn [B, S, C], ck, cv
+    [B, T, C] -> y [B, S, C]."""
+    b, s, c = x.shape
+    t = ck.shape[1]
+    f = wa.shape[1]
+    if (attn.shape != x.shape or ck.shape != (b, t, c)
+            or cv.shape != ck.shape or heads * head_dim != c
+            or wa.shape != (c, f) or wg.shape != (c, f)
+            or w2.shape != (f, c)):
+        raise ValueError(f"post_ff: x {tuple(x.shape)}, attn "
+                         f"{tuple(attn.shape)}, ck {tuple(ck.shape)}, cv "
+                         f"{tuple(cv.shape)}, wa {tuple(wa.shape)}, w2 "
+                         f"{tuple(w2.shape)} for {heads}x{head_dim}")
+    args = (x, attn, ck, cv, wo, bo, n2s, n2b, wq2, wo2, bo2, n3s, n3b, wa,
+            wg, ba, bg, w2, b2)
+    if _on_cpu(x, attn, ck, cv, wo, wa):
+        return post_ff_reference(*args, heads=heads, head_dim=head_dim)
+    _check("post_ff",
+           [(x, (b, s, c)), (attn, (b, s, c)), (ck, (b, t, c)),
+            (cv, (b, t, c)), (wo, (c, c)), (wq2, (c, c)), (wo2, (c, c)),
+            (wa, (c, f)), (wg, (c, f)), (w2, (f, c))],
+           [(v, (c,)) for v in (bo, n2s, n2b, bo2, n3s, n3b, b2)]
+           + [(ba, (f,)), (bg, (f,))], head_dim=head_dim)
+    if not 1 <= t <= MAX_CONTEXT:
+        raise ValueError(f"post_ff: context length {t} not in "
+                         f"[1, {MAX_CONTEXT}]")
+    if c % _BN or f % _BN:
+        raise ValueError(f"post_ff: C={c}, F={f} must be multiples of {_BN}")
+    out = torch.empty_like(x)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        rc = lib.rdm_post_ff(*(_p(a) for a in args), _p(out), b * s, s, c, t,
+                             f, head_dim ** -0.5, _stream(x))
+    _build.check(rc, "post_ff")
+    post_ff.launches += 1
+    return out
+
+
+post_ff.launches = 0
 
 
 # ------------------------------------------------------------ int8 math
@@ -602,7 +664,7 @@ def geglu_ff_q(xm2, n3s, n3b, wa, wsa, wg, wsg, ba, bg, w2, ws2, b2,
 
 geglu_ff_q.launches = 0
 
-KERNELS = (ln_qkv, packed_attn, post_cross, geglu_ff)
+KERNELS = (ln_qkv, packed_attn, post_cross, geglu_ff, post_ff)
 INT8_KERNELS = (ln_qkv_q, packed_attn_q8, post_cross_q, geglu_ff_q)
 
 
@@ -613,6 +675,13 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return {fn.__name__: fn.launches for fn in KERNELS + INT8_KERNELS}
+
+
+def use_split_k3() -> bool:
+    """Kernels 3 and 4 as two launches (post_cross, geglu_ff), read from
+    RDM_TPU_SPLIT_K3 as the JAX package reads it; default on, 0 runs the
+    single post_ff kernel."""
+    return os.environ.get("RDM_TPU_SPLIT_K3", "1") != "0"
 
 
 def use_int8_attn_core() -> bool:
@@ -670,8 +739,11 @@ def quantize_block_weights(w: Dict[str, torch.Tensor]
 
 def fused_transformer_block(x: torch.Tensor, context: torch.Tensor,
                             w: Dict[str, torch.Tensor], *, heads: int,
-                            head_dim: int, qscales=None) -> torch.Tensor:
-    """One pre-LN transformer block through the four kernels.
+                            head_dim: int, qscales=None,
+                            split_k3: Optional[bool] = None) -> torch.Tensor:
+    """One pre-LN transformer block through the four kernels (three with
+    split_k3 off: `post_ff` for `post_cross` + `geglu_ff`; None reads
+    `use_split_k3()`).
 
     x [B, S, C], context [B, T, Dc] (both in the compute dtype), w from
     `pack_block_weights`. The context k/v projections stay torch matmuls,
@@ -680,7 +752,8 @@ def fused_transformer_block(x: torch.Tensor, context: torch.Tensor,
     qscales (int8 serving): the calibrated activation absmax keyed by
     `QSCALE_NAMES`; the block then runs the four int8 kernels on the
     weights of `quantize_block_weights(w)` (the attention core stays the
-    bf16 one unless `use_int8_attn_core()`)."""
+    bf16 one unless `use_int8_attn_core()`; the split pair always runs, as
+    in JAX)."""
     b, s, c = x.shape
     ck = _linear(context.reshape(-1, context.shape[-1]), w["wk2"])
     cv = _linear(context.reshape(-1, context.shape[-1]), w["wv2"])
@@ -693,6 +766,13 @@ def fused_transformer_block(x: torch.Tensor, context: torch.Tensor,
         attn = packed_attn(q.reshape(b, s, c), k.reshape(b, s, c),
                            v.reshape(b, s, c), heads=heads,
                            head_dim=head_dim)
+        if split_k3 is None:
+            split_k3 = use_split_k3()
+        if not split_k3:
+            return post_ff(x, attn, ck, cv, w["wo"], w["bo"], w["n2s"],
+                           w["n2b"], w["wq2"], w["wo2"], w["bo2"], w["n3s"],
+                           w["n3b"], w["wa"], w["wg"], w["ba"], w["bg"],
+                           w["w2"], w["b2"], heads=heads, head_dim=head_dim)
         xmid = post_cross(x, attn, ck, cv, w["wo"], w["bo"], w["n2s"],
                           w["n2b"], w["wq2"], w["wo2"], w["bo2"],
                           heads=heads, head_dim=head_dim)

@@ -2,9 +2,9 @@
 decode) and RARM (retrieval -> KV-cached token sampling -> VQ decode_code).
 
 Counterpart of `rdm_tpu/pipeline.py` `RDMPipeline` and `RARMPipeline` on
-one device, with the RDM serving modes (`int8_weights`, `encoder_reuse`);
-no mesh, no RARM int8 or approximate top-k, no captions and no
-`from_model_dir` yet. Public inputs and outputs keep the
+one device, with the RDM serving modes (`int8_weights`, `encoder_reuse`)
+and the RARM ones (`int8_weights`, `int8_kv`, `approx_top_k`); no mesh,
+no captions and no `from_model_dir` yet. Public inputs and outputs keep the
 JAX layouts: query embeddings [B, D], neighbors [B, k, D], images NHWC
 uint8 numpy arrays. Inside, images and latents are NCHW.
 
@@ -275,8 +275,11 @@ class RARMPipeline:
     params / first_stage_params are state dicts in the reference names
     (`RARM.state_dict()`, `VQModel.state_dict()`; see `utils/from_jax.py`
     for JAX trees). Every layer's kernel-layout decode weights are packed
-    once here. Sampling always runs `sample_tokens_fused`: the decode
-    kernels on CUDA, their plain versions on the CPU. Semantics kept from
+    once here, and their int8 form once, at the first request with
+    `int8_weights` (quantized from the bf16 parameters, as the JAX pipeline
+    quantizes its bf16-cast tree). Sampling always runs
+    `sample_tokens_fused`: the decode kernels on CUDA, their plain versions
+    on the CPU. Semantics kept from
     the JAX pipeline (reference transformer.py:296-391): unconditional
     sampling draws query ids from the top-`memsize` of the nn-memory (or
     uniformly from the pool) and conditions on their k neighbors; query
@@ -300,6 +303,7 @@ class RARMPipeline:
         self.first_stage = _bind(first_stage, first_stage_params,
                                  self.device, dtype)
         self.decode_weights = extract_decode_weights(self.model, dtype)
+        self._decode_weights_int8 = None
         self.memory = memory
         self.retrieval = (RetrievalEngine(pool, device=self.device)
                           if pool is not None else None)
@@ -353,7 +357,9 @@ class RARMPipeline:
             tokens = sample_tokens_fused(
                 self.model, neighbors.to(self.device, torch.float32), gen,
                 temperature=temperature, top_k=top_k,
-                guidance_scale=guidance_scale, weights=self.decode_weights,
+                guidance_scale=guidance_scale,
+                weights=self.serving_decode_weights(
+                    options.get("int8_weights", False)),
                 **options)
             images = self.first_stage.decode_code(
                 tokens.reshape(-1, side, side))
@@ -361,3 +367,14 @@ class RARMPipeline:
         if return_tokens:
             out["tokens"] = tokens.cpu().numpy()
         return out
+
+    def serving_decode_weights(self, int8_weights: bool = False):
+        """The decode weights a request runs with: the bf16 ones, or their
+        int8 form, packed at first use and kept."""
+        if not int8_weights:
+            return self.decode_weights
+        if self._decode_weights_int8 is None:
+            with torch.inference_mode():
+                self._decode_weights_int8 = extract_decode_weights(
+                    self.model, self.model.dtype, int8_weights=True)
+        return self._decode_weights_int8

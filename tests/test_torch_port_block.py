@@ -148,8 +148,8 @@ def test_cpu_wrappers_count_no_launches():
                                w, heads=SHAPES[0][0], head_dim=HD)
     assert bk.launch_counts() == {
         "ln_qkv": 0, "packed_attn": 0, "post_cross": 0, "geglu_ff": 0,
-        "ln_qkv_q": 0, "packed_attn_q8": 0, "post_cross_q": 0,
-        "geglu_ff_q": 0}
+        "post_ff": 0, "ln_qkv_q": 0, "packed_attn_q8": 0,
+        "post_cross_q": 0, "geglu_ff_q": 0}
 
 
 def test_wrappers_reject_other_devices():

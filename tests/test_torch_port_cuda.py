@@ -11,10 +11,12 @@ Shapes include the ragged cases the main path never gives the kernels (S
 not a multiple of the 64-key tile, R not a multiple of the 32-row tile,
 C = 96 not a multiple of the 64-column tile, 16 context tokens; for the
 decode kernels B = 3, C = 192 (3 heads of 64), pos 0 and T - 1, 1 and 16
-context rows; for the int8 kernels R = 80 rows, a half-filled last
-128-channel scale group and two 512-row q scale cells).
+context rows, also in the int8_weights / int8_kv variants; for the int8
+kernels R = 80 rows, a half-filled last 128-channel scale group and two
+512-row q scale cells; for post_ff R = 80 rows and 16 context tokens).
 Tolerance: max|err| <= 2e-2 x max|ref| in bf16, as chip_smoke.py sets it
-(kernel and plain version round to bf16 at different points).
+(kernel and plain version round to bf16 at different points); the int8
+cache commit as chip_smoke.py phase 12 holds it.
 """
 
 import pytest
@@ -72,7 +74,7 @@ def test_block_kernels_match_plain(cuda, heads, s, t):
     torch.cuda.synchronize()
     assert bk.launch_counts() == {
         "ln_qkv": 1, "packed_attn": 1, "post_cross": 1, "geglu_ff": 1,
-        "ln_qkv_q": 0, "packed_attn_q8": 0, "post_cross_q": 0,
+        "post_ff": 0, "ln_qkv_q": 0, "packed_attn_q8": 0, "post_cross_q": 0,
         "geglu_ff_q": 0}
     with torch.no_grad():
         want = blk(x, ctx)  # the unfused block, plain bf16 PyTorch
@@ -134,6 +136,42 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="expected shape"):
         bk.post_cross(xb, xb, ctx[:, :4], ctx[:, :4].contiguous(), wb,
                       n[:32], n, n, wb, wb, n, heads=2, head_dim=HD)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,b,s,t", [(12, 2, 64, 4), (4, 2, 40, 16),
+                                         (30, 1, 64, 4)])
+def test_post_ff_matches_plain(cuda, heads, b, s, t, monkeypatch):
+    """The single post-attention kernel against its plain version, and the
+    block's route with RDM_TPU_SPLIT_K3=0 against the split pair's."""
+    c = heads * HD
+    blk = _block(heads, c, seed=heads + 1)
+    w = bk.pack_block_weights(blk, torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    rn = lambda *shape: torch.randn(shape, generator=g,  # noqa: E731
+                                    device="cuda").bfloat16()
+    x, attn, ck, cv = rn(b, s, c), rn(b, s, c) * 0.5, rn(b, t, c), \
+        rn(b, t, c)
+    args = (x, attn, ck, cv) + tuple(w[n] for n in (
+        "wo", "bo", "n2s", "n2b", "wq2", "wo2", "bo2", "n3s", "n3b", "wa",
+        "wg", "ba", "bg", "w2", "b2"))
+    bk.reset_launch_counts()
+    got = bk.post_ff(*args, heads=heads, head_dim=HD)
+    torch.cuda.synchronize()
+    assert bk.launch_counts()["post_ff"] == 1
+    want = bk.post_ff_reference(*args, heads=heads, head_dim=HD)
+    assert torch.isfinite(got).all()
+    assert _rel_err(got, want) <= TOL
+    ctx = rn(b, t, c)
+    monkeypatch.setenv("RDM_TPU_SPLIT_K3", "0")
+    bk.reset_launch_counts()
+    single = bk.fused_transformer_block(x, ctx, w, heads=heads, head_dim=HD)
+    counts = bk.launch_counts()
+    assert (counts["post_ff"], counts["post_cross"], counts["geglu_ff"]) == \
+        (1, 0, 0)
+    split = bk.fused_transformer_block(x, ctx, w, heads=heads, head_dim=HD,
+                                       split_k3=True)
+    assert _rel_err(single, split) <= TOL
 
 
 # ---------------------------------------------------------- int8 kernels
@@ -221,7 +259,8 @@ def test_int8_block_routes_through_int8_kernels(cuda, monkeypatch):
         torch.cuda.synchronize()
         counts = bk.launch_counts()
         assert counts == {"ln_qkv": 0, "packed_attn": int(attn8 == "0"),
-                          "post_cross": 0, "geglu_ff": 0, "ln_qkv_q": 1,
+                          "post_cross": 0, "geglu_ff": 0, "post_ff": 0,
+                          "ln_qkv_q": 1,
                           "packed_attn_q8": int(attn8 == "1"),
                           "post_cross_q": 1, "geglu_ff_q": 1}
         w = blk.fused_weights(x)
@@ -301,8 +340,9 @@ def test_decode_kernels_match_plain(cuda, b, heads, t, pos, s):
     dk.commit_rows_reference(pos, plain, rows)
     for m, p in zip(mine, plain):
         assert torch.equal(m, p)
-    assert dk.launch_counts() == {"decode_attn": 1, "decode_post_ff": 1,
-                                  "commit_rows": 1}
+    assert dk.launch_counts() == dict(
+        dict.fromkeys(dk.KERNEL_NAMES, 0), decode_attn=1, decode_post_ff=1,
+        commit_rows=1)
 
 
 @pytest.mark.cuda
@@ -361,3 +401,108 @@ def test_decode_wrappers_raise_instead_of_falling_back(cuda):
                           wf, n, torch.zeros(4 * c, device="cuda"),
                           wf.t().contiguous(), n[:8], heads=heads,
                           head_dim=DHD)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["w8", "kv8", "w8_kv8"])
+@pytest.mark.parametrize("b,heads,t,pos,s", [
+    (3, 3, 64, 0, 1), (3, 3, 64, 63, 16), (16, 12, 256, 200, 4)])
+def test_decode_int8_variants_match_plain(cuda, mode, b, heads, t, pos, s):
+    """decode_attn with int8 weights / an int8 cache / both, and
+    decode_post_ff with int8 weights, against their plain versions; the
+    int8 commit's codes within one step on at most 0.1%, its scales within
+    1e-5 relative, the other rows untouched."""
+    c = heads * DHD
+    blk = _seed_params(rarm._Block(c, 24, heads, DHD), seed=b + pos + 7)
+    w = bk.pack_block_weights(blk.cuda(), torch.bfloat16)
+    if "w8" in mode:
+        for name in dk.INT8_WEIGHTS:
+            w[name], w[name + "_s"] = dk.quantize_weight(w[name])
+    g = torch.Generator(device="cuda").manual_seed(pos + 1)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").bfloat16()
+
+    x, ck, cv = rn(b, c), rn(s, b, c), rn(s, b, c)
+    kv = {}
+    if "kv8" in mode:
+        caches = []
+        for _ in range(2):
+            codes, sc = dk.quantize_rows(rn(t * b, c).float())
+            caches += [codes.reshape(t, b, c), sc.reshape(t, b, 1)]
+        kc, ks, vc, vs = caches
+        kv = dict(ks_cache=ks, vs_cache=vs)
+    else:
+        kc, vc = rn(t, b, c), rn(t, b, c)
+    mine = {k: v.clone() for k, v in dict(kc=kc, vc=vc, **kv).items()}
+    ref = {k: v.clone() for k, v in mine.items()}
+    hd = dict(heads=heads, head_dim=DHD, wqkv_s=w.get("wqkv_s"))
+    dk.reset_launch_counts()
+
+    def attn(fn, cs):
+        return fn(x, pos, cs["kc"], cs["vc"], w["n1s"], w["n1b"], w["wqkv"],
+                  ks_cache=cs.get("ks_cache"), vs_cache=cs.get("vs_cache"),
+                  **hd)
+
+    got = attn(dk.decode_attn, mine)
+    torch.cuda.synchronize()
+    want = attn(dk.decode_attn_reference, ref)
+    for a, r in zip(got, want):
+        assert torch.isfinite(a).all() and _rel_err(a, r) <= TOL
+    keep = torch.arange(t, device="cuda") != pos
+    for k in mine:
+        old = dict(kc=kc, vc=vc, **kv)[k]
+        assert torch.equal(mine[k][keep], old[keep])
+    if "kv8" in mode:
+        diff = torch.cat([(mine[k][pos].int() - ref[k][pos].int()).abs()
+                          .flatten() for k in ("kc", "vc")])
+        assert diff.max() <= 1 and (diff > 0).float().mean() <= 1e-3
+        for k in ("ks_cache", "vs_cache"):
+            assert ((mine[k][pos] - ref[k][pos]).abs()
+                    / ref[k][pos]).max() <= 1e-5
+    else:
+        assert torch.equal(mine["kc"][pos], got[1])
+    scales = tuple(w[n + "_s"] for n in dk.POST_FF_WEIGHTS) \
+        if "w8" in mode else None
+    ff = (x, got[0], ck, cv, w["wo"], w["bo"], w["n2s"], w["n2b"], w["wq2"],
+          w["wo2"], w["bo2"], w["n3s"], w["n3b"], w["wa"], w["wg"], w["ba"],
+          w["bg"], w["w2"], w["b2"])
+    out = dk.decode_post_ff(*ff, heads=heads, head_dim=DHD, scales=scales)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert _rel_err(out, dk.decode_post_ff_reference(
+        *ff, heads=heads, head_dim=DHD, scales=scales)) <= TOL
+    want_counts = dict.fromkeys(dk.KERNEL_NAMES, 0)
+    want_counts["decode_attn_" + mode] = 1
+    want_counts["decode_post_ff_w8" if "w8" in mode else "decode_post_ff"] = 1
+    assert dk.launch_counts() == want_counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opts", [dict(int8_weights=True),
+                                  dict(int8_kv=True),
+                                  dict(int8_weights=True, int8_kv=True),
+                                  dict(approx_top_k=True)])
+def test_serving_modes_sample_on_card(cuda, opts):
+    """A tiny RARM samples through each mode's kernels: every step's launch
+    in the mode's variants, tokens in range."""
+    cfg = RARMConfig(vocab_size=40, out_vocab=38, heads=3, head_dim=DHD,
+                     depth=2, context_dim=24, seq_len=16, sos_token=39,
+                     mask_token=38, code_side=4)
+    model = _seed_params(rarm.RARM(cfg), seed=5).cuda().eval()
+    ctx = torch.randn((3, 4, 24), generator=torch.Generator(
+        device="cuda").manual_seed(6), device="cuda")
+    q8, kv8 = opts.get("int8_weights", False), opts.get("int8_kv", False)
+    weights = rarm.extract_decode_weights(model, torch.bfloat16,
+                                          int8_weights=q8)
+    dk.reset_launch_counts()
+    toks = rarm.sample_tokens_fused(
+        model, ctx, torch.Generator(device="cuda").manual_seed(7), top_k=5,
+        guidance_scale=2.0, weights=weights, **opts)
+    n = cfg.depth * cfg.seq_len
+    want = dict.fromkeys(dk.KERNEL_NAMES, 0)
+    want["decode_attn" + ("_w8" if q8 else "") + ("_kv8" if kv8 else "")] = n
+    want["decode_post_ff_w8" if q8 else "decode_post_ff"] = n
+    assert dk.launch_counts() == want
+    assert toks.shape == (3, cfg.seq_len)
+    assert 0 <= int(toks.min()) and int(toks.max()) < cfg.out_vocab

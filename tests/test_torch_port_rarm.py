@@ -234,12 +234,38 @@ def test_port_samplers_agree(guidance):
 
 
 def test_unported_modes_raise():
-    _, _, cfg, model = _models(seed=17)
+    """Every serving mode is ported; the one combination the JAX package
+    refuses, an int8 KV cache with a deferred (batched) commit, raises in
+    both (JAX decode_layer asserts; the port raises ValueError)."""
+    _, params, cfg, model = _models(seed=17)
     ctx = torch.zeros((1, 3, cfg.context_dim))
     gen = torch.Generator()
-    for opt in ("approx_top_k", "int8_weights", "int8_kv"):
-        with pytest.raises(NotImplementedError, match="serving slice"):
-            rarm.sample_tokens_fused(model, ctx, gen, **{opt: True})
+    with pytest.raises(ValueError, match="batched_commit"):
+        rarm.sample_tokens_fused(model, ctx, gen, int8_kv=True,
+                                 batched_commit=True)
+    t, c = cfg.seq_len, cfg.inner_dim
+    codes, scales, x = np.zeros((t, 1, c), np.int8), np.ones((t, 1, 1),
+                                                             np.float32), \
+        np.zeros((1, c), np.float32)
+    seg, segt = jdk.head_segment_matrices(cfg.heads, cfg.head_dim,
+                                          jnp.float32)
+    jw = jrarm.extract_decode_weights(params, cfg, jnp.float32)[0]
+    with pytest.raises(AssertionError, match="int8_kv"):
+        jdk.decode_layer(jnp.asarray(x), jnp.int32(0), jnp.asarray(codes),
+                         jnp.asarray(codes), jnp.asarray(x[None]),
+                         jnp.asarray(x[None]), seg, segt, jw,
+                         heads=cfg.heads, head_dim=cfg.head_dim, window=t,
+                         ks_cache=jnp.asarray(scales),
+                         vs_cache=jnp.asarray(scales), defer_commit=True,
+                         interpret=True)
+    w = rarm.extract_decode_weights(model, torch.float32)[0]
+    with pytest.raises(ValueError, match="int8_kv"):
+        dk.decode_layer(torch.from_numpy(x), 0, torch.from_numpy(codes),
+                        torch.from_numpy(codes.copy()),
+                        torch.from_numpy(x[None]), torch.from_numpy(x[None]),
+                        w, heads=cfg.heads, head_dim=cfg.head_dim,
+                        defer_commit=True, ks_cache=torch.from_numpy(scales),
+                        vs_cache=torch.from_numpy(scales.copy()))
 
 
 def test_wrappers_check_shapes():
