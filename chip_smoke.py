@@ -6,7 +6,8 @@
 Drives the port's serving paths — retrieval-conditioned RDM sampling at
 the ImageNet RDM width (exact bf16, and the int8 and encoder-reuse serving
 modes), and KV-cached RARM token sampling at the ImageNet-dogs RARM width
-— through their public entry points, on random weights made from a seed.
+— and RDM training at the ImageNet RDM width, through their public entry
+points, on random weights made from a seed.
 Phases (each prints one line or a few; any failure raises and the script
 exits non-zero):
 
@@ -73,6 +74,24 @@ exits non-zero):
                split forward; batch-4 DDIM-50 requests, split and single
                kernel in turns, with 16 post_ff launches per forward and
                none of the split pair's.
+ 15. flash_kernels  the flash-attention forward and backward kernels
+               against their plain versions in bf16 at the U-Net's training
+               shapes [40, 1024, 12, 32] and [40, 256, 18, 32] and the
+               RARM's causal [16, 256, 12, 64]: o, dq, dk, dv each within
+               KERNEL_TOL of its own max|ref|; median CUDA-event times of
+               kernel, plain version, SDPA (forward; forward + backward
+               through autograd) and the eager-recompute backward
+               (RDM_TPU_FLASH_BWD=xla); bound.
+ 16. train     RDMTrainer at the ImageNet RDM width (VQ-f4 first stage,
+               p_uncond 0.1, batch 40, bf16 compute, f32 master weights,
+               random 256^2 images, neighbours from phase 5's table):
+               8 steps of `fit` with a checkpoint mid-way and validation;
+               10 flash_fwd + 10 flash_bwd launches per step and no block
+               kernel; finite loss and grad_norm; every parameter with a
+               gradient; a second trainer resumes equal to the saved state
+               and continues; steps with RDM_TPU_FLASH_BWD=xla; a batch-2
+               step's gradients against the CUDA f32 plain path
+               (TRAIN_GRAD_TOL); step time, samples/s, peak memory.
 
 The second-to-last line is one JSON object with the per-kernel numbers:
 name, route, source, replaces, launches, max_abs_err, ms, plain_ms,
@@ -87,7 +106,10 @@ the mean over the eight (B, pos) cases, `max_abs_err` the largest, and
 `launches` the count over the two RARM requests (`commit_rows`: over the
 batched-commit decode, the path that runs it); their int8 variants the
 same over phase 12's cases, `launches` over phase 13's requests; post_ff
-the sum over the sites, `launches` over phase 14's single-kernel requests.
+the sum over the sites, `launches` over phase 14's single-kernel requests;
+flash_fwd / flash_bwd the sum over phase 15's three shapes (`library_ms`:
+SDPA forward, and forward + backward), `launches` over the first
+trainer's 8 steps of phase 16.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -171,6 +193,27 @@ INT8_DECODE_INFO = {
 }
 POST_FF_INFO = ("rdm_tpu_torch/csrc/post_ff.cu",
                 "rdm_tpu/ops/block_kernel.py:264")
+FLASH_INFO = {
+    "flash_fwd": ("rdm_tpu_torch/csrc/flash_attn_fwd.cu",
+                  "rdm_tpu/ops/flash_attention.py:38"),
+    "flash_bwd": ("rdm_tpu_torch/csrc/flash_attn_bwd.cu",
+                  "rdm_tpu/ops/flash_attention.py:126"),
+}
+# B, S, heads, head_dim, causal: the ImageNet U-Net's ds-2 and ds-4
+# self-attention at the training batch, and the RARM's causal shape
+FLASH_SHAPES = ((40, 1024, 12, 32, False), (40, 256, 18, 32, False),
+                (16, 256, 12, 64, True))
+TRAIN_BATCH = 40   # configs/rdm/imagenet.yaml:44
+TRAIN_STEPS = 8    # the first trainer's; a checkpoint after the 5th
+FLASH_PER_STEP = 10  # ds-2 and ds-4 sites hold 5 blocks each
+# One full-width train step at batch 2, the bf16 kernel path against the
+# CUDA f32 plain path (RDM_TPU_FLASH=0) on the same draws, relative L2 of
+# all 400.9M gradients: bf16 activations through the U-Net's ~60 residual
+# layers and back. On an NVIDIA H100 80GB HBM3 at 700 W it measured
+# 5.569e-3 (losses 7.1e-4 apart, cosine 0.999987), so the limit is 2e-2:
+# room for other draws and weights, and well below what a lost or wrong
+# gradient path (a whole block's share of the norm) would give.
+TRAIN_GRAD_TOL = 2e-2
 RARM_BATCHES = (16, 32)           # B = 16, and 32 under CFG
 RARM_POSITIONS = (0, 63, 200, 255)
 RARM_SWEEP_SEEDS = 24             # more inputs for decode_attn's attention
@@ -1615,6 +1658,305 @@ def phase_post_ff(rdm_sd: dict, vq_sd: dict, emb: torch.Tensor) -> dict:
     return res
 
 
+def flash_cost(name: str, b: int, s: int, h: int, d: int, causal: bool):
+    """(bf16 operations, int8 operations, bytes) of one flash kernel call:
+    the TPU cost estimates' 4 (forward) and 10 (backward) x B H S^2 d,
+    halved under causal (the kernels skip the masked tiles); q, k, v (+ dO)
+    read once, o (dq, dk, dv) written once, bf16."""
+    ops = (4 if name == "flash_fwd" else 10) * b * h * s * s * d
+    tensors = 4 if name == "flash_fwd" else 7
+    return ops / (2 if causal else 1), 0, tensors * b * s * h * d * 2
+
+
+def phase_flash_kernels() -> dict:
+    """Phase 15: the flash forward and backward kernels against their plain
+    versions at the training shapes; per kernel {'max_abs_err', 'ms',
+    'plain_ms', 'library_ms', 'bound_ms', 'bound_by', 'cases'} (times
+    summed over the shapes) and the eager-recompute backward beside the
+    kernel."""
+    import torch.nn.functional as F
+
+    from rdm_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    res = {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+               "library_ms": 0.0, "cases": []} for n in FLASH_INFO}
+    for b, s, h, d, causal in FLASH_SHAPES:
+        q, k, v, do = (torch.randn(b, s, h, d, generator=g, device="cuda")
+                       .bfloat16() for _ in range(4))
+        sc = d ** -0.5
+        qkv_t = [a.transpose(1, 2).contiguous() for a in (q, k, v)]
+        do_t = do.transpose(1, 2).contiguous()
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(*qkv_t, is_causal=causal)
+
+        lib_in = [a.detach().requires_grad_() for a in qkv_t]
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(*lib_in, is_causal=causal)
+            return torch.autograd.grad(out, lib_in, do_t)
+
+        def eager_bwd():  # the backward under RDM_TPU_FLASH_BWD=xla
+            with torch.enable_grad():
+                qq = [a.detach().requires_grad_() for a in (q, k, v)]
+                out = fa._xla_reference(*qq, sc, causal)
+                return torch.autograd.grad(out, qq, do)
+
+        calls = {
+            "flash_fwd": (lambda: fa.flash_fwd(q, k, v, scale=sc,
+                                               causal=causal),
+                          lambda: fa.flash_attention_forward_reference(
+                              q, k, v, sc, causal), sdpa_fwd),
+            "flash_bwd": (lambda: fa.flash_bwd(q, k, v, do, scale=sc,
+                                               causal=causal),
+                          lambda: fa.flash_attention_backward_reference(
+                              q, k, v, do, sc, causal), sdpa_fwd_bwd),
+        }
+        for name, (kern, plain, library) in calls.items():
+            got = kern()
+            torch.cuda.synchronize()
+            outs = got if isinstance(got, tuple) else (got,)
+            labels = ("dq", "dk", "dv") if name == "flash_bwd" else ("o",)
+            held = _hold(f"{name} [{b},{s},{h},{d}] causal={causal}",
+                         list(zip(labels, outs, _as_tuple(plain()))))
+            err = max(e for _, e, _ in held)
+            ms, plain_ms, lib_ms = (median_ms(fn) for fn in
+                                    (kern, plain, library))
+            bound_ms, by = bound(*flash_cost(name, b, s, h, d, causal))
+            case = {"B": b, "S": s, "heads": h, "head_dim": d,
+                    "causal": causal, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": lib_ms, "bound_ms": bound_ms,
+                    "bound_by": by,
+                    "rel_err": {lab: rel for lab, _, rel in held}}
+            if name == "flash_bwd":
+                case["eager_bwd_ms"] = median_ms(eager_bwd)
+            say("flash_kernels", f"{name} [{b},{s},{h},{d}] causal="
+                f"{causal}: /max|ref| " + ", ".join(
+                    f"{lab} {rel:.3e}" for lab, _, rel in held)
+                + f" (limit {KERNEL_TOL:g}); kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, SDPA {'fwd+bwd ' if name == 'flash_bwd' else ''}"
+                f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({by})"
+                + (f"; eager-recompute backward {case['eager_bwd_ms']:.4f} ms"
+                   if name == "flash_bwd" else ""))
+            r = res[name]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            r["ms"] += ms
+            r["plain_ms"] += plain_ms
+            r["library_ms"] += lib_ms
+            r["cases"].append(case)
+            del got, outs
+        del q, k, v, do, qkv_t, do_t, lib_in
+        torch.cuda.empty_cache()
+    for name, r in res.items():
+        _sum_bound(r, [flash_cost(name, *shape) for shape in FLASH_SHAPES])
+    return res
+
+
+def _as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _train_batches(emb: torch.Tensor, batch: int, seed: int):
+    """Endless batches made on the card: random 256^2 images in [-1, 1]
+    (NHWC) and neighbours [B, 1, 4, 512] gathered from the table."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    while True:
+        ids = torch.randint(0, emb.shape[0], (batch * CONTEXT,), generator=g,
+                            device="cuda")
+        yield {"image": torch.rand(batch, 256, 256, 3, generator=g,
+                                   device="cuda") * 2 - 1,
+               "nn_embeddings": emb[ids].reshape(batch, 1, CONTEXT, 512)}
+
+
+class _Take:
+    """The first n items of an endless iterator, again on each pass."""
+
+    def __init__(self, it, n: int):
+        self.it, self.n = it, n
+
+    def __iter__(self):
+        for _ in range(self.n):
+            yield next(self.it)
+
+
+def phase_train(rdm_sd: dict, vq_sd: dict, emb: torch.Tensor) -> dict:
+    """Phase 16: RDMTrainer at the full ImageNet RDM width; returns the
+    flash kernels' launches over the first trainer's steps and the step
+    numbers."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    from rdm_tpu_torch.config import AutoencoderConfig, RDMConfig
+    from rdm_tpu_torch.ops import block_kernel as bk
+    from rdm_tpu_torch.ops import flash_attention as fa
+    from rdm_tpu_torch.training.train_state import compute_grads, fold_in
+    from rdm_tpu_torch.training.trainer import RDMTrainer, TrainerConfig
+
+    cfg = dataclasses.replace(RDMConfig.imagenet(), p_uncond=0.1)
+    batch = TRAIN_BATCH
+    tmp = tempfile.mkdtemp(prefix="rdm_train_smoke_")
+    per_step, step_s = [], []
+
+    def make(max_steps: int):
+        tcfg = TrainerConfig(
+            logdir=os.path.join(tmp, "run"), base_lr=1e-4,
+            max_steps=max_steps, log_every=1, ckpt_every=4,
+            image_log_every=0, max_ckpts=1, val_batches=1,
+            adam_mu_dtype="bfloat16")
+        tr = RDMTrainer(cfg, tcfg, AutoencoderConfig.vq_f4(), vq_sd,
+                        batch_size=batch, device="cuda",
+                        init_state_dict=rdm_sd)
+        inner = tr.step_fn
+
+        def counted(state, z, nns, seed, **draws):
+            fa.reset_launch_counts()
+            bk.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner(state, z, nns, seed, **draws)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            per_step.append({**fa.launch_counts(), **bk.launch_counts()})
+            m = out[1]
+            if not (torch.isfinite(m["loss"]) and torch.isfinite(
+                    m["grad_norm"])):
+                raise RuntimeError(f"train step: non-finite metrics {m}")
+            return out
+
+        tr.step_fn = counted
+        return tr
+
+    def check_counts(steps, fwd, bwd, what):
+        for c in steps:
+            want = dict.fromkeys(c, 0)
+            want.update(flash_fwd=fwd, flash_bwd=bwd)
+            if c != want:
+                raise RuntimeError(f"{what}: launches per step {c}, "
+                                   f"expected {want}")
+
+    try:
+        batches = _train_batches(emb, batch, SEED + 60)
+        torch.cuda.reset_peak_memory_stats()
+        tr1 = make(TRAIN_STEPS)
+        saved, save = [], tr1.ckpt.save
+        tr1.ckpt.save = lambda step, *a, **k: (saved.append(step),
+                                               save(step, *a, **k))
+        t0 = time.perf_counter()
+        state1 = tr1.fit(_Take(batches, TRAIN_STEPS),
+                         val_loader=_Take(batches, 1))
+        fit_s = time.perf_counter() - t0
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        check_counts(per_step, FLASH_PER_STEP, FLASH_PER_STEP, "fit")
+        launches = {n: sum(c[n] for c in per_step) for n in FLASH_INFO}
+        missing = [n for n, p in state1.model.named_parameters()
+                   if p.grad is None]
+        if missing or state1.step != TRAIN_STEPS:
+            raise RuntimeError(f"step {state1.step}; parameters without a "
+                               f"gradient: {missing[:5]} ({len(missing)})")
+        if saved != [5, TRAIN_STEPS]:  # mid-way (loop step 4) and the end
+            raise RuntimeError(f"checkpoints saved at steps {saved}")
+        n_params = sum(p.numel() for p in state1.model.parameters())
+        ckpts = tr1.ckpt.steps()
+        times = step_s[1:TRAIN_STEPS]
+        med = float(np.median(times))
+        say("train", f"ImageNet RDM ({n_params / 1e6:.1f}M parameters, "
+            f"VQ-f4 first stage), batch {batch}, p_uncond 0.1, bf16 compute "
+            f"/ f32 master weights, lr {tr1.lr:.2e}: {TRAIN_STEPS} steps in "
+            f"{fit_s:.1f} s (fit, checkpoints and validation included); "
+            f"step {med * 1e3:.1f} ms median after the first ({step_s[0]:.2f}"
+            f" s), {batch / med:.2f} samples/s; peak device memory "
+            f"{peak_gib:.2f} GiB; {FLASH_PER_STEP} flash_fwd + "
+            f"{FLASH_PER_STEP} flash_bwd launches per step, no block kernel;"
+            f" every parameter has a gradient; checkpoints saved at steps "
+            f"{saved}, kept {ckpts}")
+
+        # resume: equal to the saved state, then continue
+        tr2 = make(TRAIN_STEPS + 2)
+        state2 = tr2.resume_or_init()
+        a, b_ = state1.state_dict(), state2.state_dict()
+        same = (a["step"] == b_["step"]
+                and a["ema"]["count"] == b_["ema"]["count"]
+                and a["opt_state"]["count"] == b_["opt_state"]["count"]
+                and all(torch.equal(a["params"][n], b_["params"][n])
+                        for n in a["params"])
+                and all(torch.equal(a["opt_state"][m][n],
+                                    b_["opt_state"][m][n])
+                        for m in ("mu", "nu") for n in a["opt_state"][m])
+                and all(torch.equal(a["ema"]["params"][n],
+                                    b_["ema"]["params"][n])
+                        for n in a["ema"]["params"]))
+        if not same:
+            raise RuntimeError("resumed state differs from the saved one")
+        del a, b_, state1, tr1
+        torch.cuda.empty_cache()
+        per_step.clear()
+        state2 = tr2.fit(_Take(batches, 2), state=state2)
+        check_counts(per_step, FLASH_PER_STEP, FLASH_PER_STEP, "resumed fit")
+        say("train", f"resumed at step {TRAIN_STEPS}: step counter, "
+            f"parameters, Adam moments and EMA equal the saved ones; "
+            f"continued to step {state2.step}")
+
+        # the eager-recompute backward (RDM_TPU_FLASH_BWD=xla)
+        os.environ["RDM_TPU_FLASH_BWD"] = "xla"
+        per_step.clear()
+        step_s.clear()
+        for _ in range(3):
+            z, nns = tr2.prepare_batch(next(batches))
+            state2, _ = tr2.step_fn(state2, z, nns, 1)
+        os.environ.pop("RDM_TPU_FLASH_BWD")
+        check_counts(per_step, FLASH_PER_STEP, 0, "RDM_TPU_FLASH_BWD=xla")
+        xla_med = float(np.median(step_s[1:]))
+        say("train", f"RDM_TPU_FLASH_BWD=xla (eager-recompute backward): "
+            f"step {xla_med * 1e3:.1f} ms median of the last two, "
+            f"{batch / xla_med:.2f} samples/s, against {med * 1e3:.1f} ms "
+            f"with the backward kernel")
+
+        # one batch-2 step, bf16 kernel path against CUDA f32 plain path
+        model = state2.model
+        z, nns = tr2.prepare_batch(next(_train_batches(emb, 2, SEED + 61)))
+        z = z.float()
+        grads, losses = {}, {}
+        for path in ("bf16", "f32"):
+            if path == "f32":
+                os.environ["RDM_TPU_FLASH"] = "0"
+                model.unet.dtype = torch.float32
+            fa.reset_launch_counts()
+            loss, _, g = compute_grads(model, z, nns,
+                                       fold_in(SEED, 0, "cuda"), tr2.schedule)
+            counts = fa.launch_counts()
+            want = ({"flash_fwd": FLASH_PER_STEP, "flash_bwd": FLASH_PER_STEP}
+                    if path == "bf16" else {"flash_fwd": 0, "flash_bwd": 0})
+            if counts != want:
+                raise RuntimeError(f"{path} step: launches {counts}")
+            losses[path] = loss.item()
+            grads[path] = torch.cat([
+                (torch.zeros_like(p) if g[n] is None else g[n]).reshape(-1)
+                .float() for n, p in model.named_parameters()])
+        os.environ.pop("RDM_TPU_FLASH")
+        model.unet.dtype = torch.bfloat16
+        gb, gf = grads["bf16"], grads["f32"]
+        rel = ((gb - gf).norm() / gf.norm()).item()
+        loss_rel = abs(losses["bf16"] - losses["f32"]) / abs(losses["f32"])
+        say("train", f"batch-2 step, bf16 kernel path vs CUDA f32 plain path"
+            f" (RDM_TPU_FLASH=0), same draws: loss {losses['bf16']:.6f} vs "
+            f"{losses['f32']:.6f} (rel {loss_rel:.3e}); gradients rel L2 "
+            f"{rel:.3e} (limit {TRAIN_GRAD_TOL:g}), cosine "
+            f"{torch.nn.functional.cosine_similarity(gb, gf, dim=0).item():.6f}")
+        if not (rel <= TRAIN_GRAD_TOL and torch.isfinite(gb).all()):
+            raise RuntimeError(f"bf16 gradients rel L2 {rel} > "
+                               f"{TRAIN_GRAD_TOL}")
+        return {"launches": launches, "step_ms": med * 1e3,
+                "samples_per_s": batch / med, "xla_bwd_step_ms":
+                xla_med * 1e3, "peak_gib": peak_gib, "grad_rel_l2": rel,
+                "loss_rel": loss_rel, "batch": batch}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -1653,6 +1995,8 @@ def main() -> int:
         rarm_sd, seeded_state_dict(vq16, SEED + 13), emb)
     del rarm_sd
     post_ff = phase_post_ff(rdm_sd, vq_sd, emb)
+    flash = phase_flash_kernels()
+    train = phase_train(rdm_sd, vq_sd, emb)
 
     def row(name, info, launches_, r, **extra):
         return {"name": name, "route": "cuda", "source": info[0],
@@ -1679,6 +2023,9 @@ def main() -> int:
                     split_ms=post_ff["split_ms"], sites=post_ff["sites"],
                     request_s=post_ff["request_s"],
                     forward_rel_l2=post_ff["forward_rel_l2"]))
+    rows += [row(n, FLASH_INFO[n], train["launches"], r, cases=r["cases"],
+                 train={k: v for k, v in train.items() if k != "launches"})
+             for n, r in flash.items()]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,9 +10,11 @@ casts them to the activation dtype at use, and normalisations keep f32
 statistics with dtype-native arithmetic, as the JAX modules do.
 
 SpatialTransformer routes its blocks through the fused block kernels
-(`ops/block_kernel.fused_transformer_block`) whenever a context is given,
-except while calibrating for int8 (`ops/quant.py`);
-`TransformerBlock.forward` is the unfused math they are held against.
+(`ops/block_kernel.fused_transformer_block`) in eval mode whenever a
+context is given, except while calibrating for int8 (`ops/quant.py`); in
+train mode it runs `TransformerBlock.forward`, the unfused differentiable
+math the kernels are held against, whose self-attention takes the flash
+kernels (`ops/attention.py`) where their gate admits it.
 `Conv2d`, `CrossAttention` and `GEGLUFeedForward` record activation
 absmax for that calibration, and `Conv2d` and `TransformerBlock` carry the
 int8 serving state (`layers.QuantizableConv` and the "quant" collection of
@@ -22,6 +24,7 @@ the JAX package).
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
@@ -389,6 +392,13 @@ class TransformerBlock(nn.Module):
             qscales=self.qscales())
 
 
+def fused_block_train() -> bool:
+    """RDM_TPU_FUSED_BLOCK_TRAIN=1 asks for the fused blocks in training,
+    as in the JAX package; the port refuses it until their backward is
+    ported."""
+    return os.environ.get("RDM_TPU_FUSED_BLOCK_TRAIN", "0") == "1"
+
+
 class SpatialTransformer(nn.Module):
     """GroupNorm -> 1x1 conv -> tokens -> `depth` transformer blocks
     cross-attending to `context` -> 1x1 conv -> residual."""
@@ -411,10 +421,16 @@ class SpatialTransformer(nn.Module):
         x = self.proj_in(self.norm(x))
         inner = x.shape[1]
         x = x.permute(0, 2, 3, 1).reshape(b, h * w, inner)
-        # calibration runs the unfused blocks, which record the absmax the
-        # int8 kernels quantize with
+        # Training (the JAX package's deterministic=False) runs the unfused,
+        # differentiable blocks; so does calibration, which records the
+        # absmax the int8 kernels quantize with.
+        if self.training and fused_block_train():
+            raise NotImplementedError(
+                "RDM_TPU_FUSED_BLOCK_TRAIN=1: the fused block's backward "
+                "(fused_transformer_block_ad) is not ported")
+        fused = (context is not None and not self.training
+                 and not quant.CALIBRATE)
         for blk in self.transformer_blocks:
-            x = (blk(x, context) if context is None or quant.CALIBRATE
-                 else blk.forward_fused(x, context))
+            x = blk.forward_fused(x, context) if fused else blk(x, context)
         x = x.reshape(b, h, w, inner).permute(0, 3, 1, 2)
         return self.proj_out(x) + x_in

@@ -4,21 +4,23 @@ Counterpart of `rdm_tpu/models/rdm.py` for the released configs'
 `retro_only` routing (also `crossattn`, which routes the same way): the
 retrieved CLIP neighbors [B, n*k, 512] are the U-Net's cross-attention
 context. The module keeps the reference checkpoint names:
-`model.diffusion_model.*` for the U-Net and `unconditional_guidance_vex`.
+`model.diffusion_model.*` for the U-Net, `unconditional_guidance_vex` and,
+with `learn_logvar`, `logvar`. `training_loss` is the diffusion objective
+the training path (`training/`) differentiates.
 Learned neighbor encoders and the concat/hybrid/adm routings are not
 ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from rdm_tpu_torch.config import DDIMSamplerConfig, RDMConfig
 from rdm_tpu_torch.models.unet import UNet
-from rdm_tpu_torch.ops.schedules import DiffusionSchedule
+from rdm_tpu_torch.ops.schedules import DiffusionSchedule, q_sample
 from rdm_tpu_torch.sampling import ddim_sample
 
 __all__ = ["RDM", "RDMConfig", "make_denoise_feats_fn", "make_denoise_fn",
@@ -50,6 +52,9 @@ class RDM(nn.Module):
         self.model = _DiffusionWrapper(UNet(config.unet, dtype))
         self.unconditional_guidance_vex = nn.Parameter(
             torch.randn(config.context_dim))
+        if config.learn_logvar:  # else a constant, see logvar_table
+            self.logvar = nn.Parameter(torch.full((config.timesteps,),
+                                                  config.logvar_init))
 
     @property
     def unet(self) -> UNet:
@@ -83,6 +88,73 @@ class RDM(nn.Module):
         if guidance_label is not None:
             vex = vex / torch.linalg.vector_norm(vex) * guidance_label
         return vex.expand(batch, seq_len, vex.shape[-1])
+
+    def logvar_table(self, device) -> torch.Tensor:
+        """The per-t log-variance [T]: the `logvar` parameter with
+        learn_logvar, else the constant logvar_init (outside the state
+        dict, as it is outside the JAX params)."""
+        if self.config.learn_logvar:
+            return self.logvar
+        return torch.full((self.config.timesteps,), self.config.logvar_init,
+                          device=device)
+
+    def training_loss(self, z: torch.Tensor, neighbors: torch.Tensor,
+                      generator: torch.Generator,
+                      schedule: DiffusionSchedule, *,
+                      t: Optional[torch.Tensor] = None,
+                      noise: Optional[torch.Tensor] = None,
+                      drop: Optional[torch.Tensor] = None,
+                      ctx_noise: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """One evaluation of the diffusion training objective
+        (`RDM.training_loss` of the JAX package): eps-prediction L2 with the
+        per-t logvar weighting and the optional ELBO term.
+
+        z: latents [B, C, H, W] (first-stage encoded and scaled);
+        neighbors [B, n, k, D] or [B, S, D]. The draws - timesteps t, the
+        noise, the classifier-free-guidance drop mask and, with
+        retro_noise, the context noise - come from `generator` (on z's
+        device), in that order. The keyword-only t / noise / drop /
+        ctx_noise replace a draw; they are a seam for the tests, which feed
+        the JAX package's draws. Returns (loss, {loss_simple, loss_vlb (with
+        original_elbo_weight > 0), loss})."""
+        cfg = self.config
+        b, dev = z.shape[0], z.device
+        context = (self.encode_neighbors(neighbors).float()
+                   if neighbors is not None else None)
+        if t is None:
+            t = torch.randint(0, cfg.timesteps, (b,), generator=generator,
+                              device=dev)
+        if noise is None:
+            noise = torch.randn(z.shape, generator=generator, device=dev)
+        if context is not None and cfg.p_uncond > 0.0:
+            if drop is None:
+                drop = torch.rand(b, generator=generator,
+                                  device=dev) < cfg.p_uncond
+            uncond = self.uncond_context(b, context.shape[1])
+            context = torch.where(drop.to(dev)[:, None, None], uncond,
+                                  context)
+        x_noisy = q_sample(schedule, z, t, noise)
+        if cfg.retro_noise and context is not None:
+            if ctx_noise is None:
+                ctx_noise = torch.randn(context.shape, generator=generator,
+                                        device=dev)
+            context = q_sample(schedule, context, t, ctx_noise)
+
+        pred = self(x_noisy, t, context)
+        target = noise if cfg.parameterization == "eps" else z
+        err = (pred.float() - target.float()) ** 2
+        loss_simple = err.mean(dim=(1, 2, 3))                      # [B]
+        logvar_t = self.logvar_table(dev)[t]
+        loss = loss_simple / torch.exp(logvar_t) + logvar_t
+        loss = cfg.l_simple_weight * loss.mean()
+        metrics = {"loss_simple": loss_simple.mean()}
+        if cfg.original_elbo_weight > 0.0:
+            lvlb = (schedule.lvlb_weights.to(dev)[t] * loss_simple).mean()
+            loss = loss + cfg.original_elbo_weight * lvlb
+            metrics["loss_vlb"] = lvlb
+        metrics["loss"] = loss
+        return loss, metrics
 
 
 def make_denoise_fn(model: RDM):

@@ -32,6 +32,8 @@ import time
 from pathlib import Path
 from typing import List, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 CUDA_HOME_DEFAULT = Path("/usr/local/cuda")
@@ -57,6 +59,8 @@ _SIGNATURES = {
     "rdm_decode_attn": [_P] * 10 + [_I, _I, _I, _I, _F, _P],
     "rdm_decode_post_ff": [_P] * 30 + [_I, _I, _I, _I, _F, _P],
     "rdm_commit_rows": [_P, _P, _I, _I, _I, _P],
+    "rdm_flash_fwd": [_P] * 4 + [_I] * 6 + [_F, _P],
+    "rdm_flash_bwd": [_P] * 10 + [_I] * 6 + [_F, _F, _P],
 }
 
 _lock = threading.Lock()
@@ -148,6 +152,18 @@ def load() -> ctypes.CDLL:
             lib.rdm_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise if grad mode is on and an input requires grad: a ctypes-bound
+    kernel's output has no autograd graph, so its gradients would be lost
+    without an error (differentiable callers wrap a kernel in an
+    autograd.Function, whose forward runs with grad mode off)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: a CUDA kernel without a backward got an input that "
+            "requires grad; run it under torch.no_grad() / inference_mode, "
+            "or take the differentiable unfused path (module.train())")
 
 
 def check(code: int, what: str) -> None:

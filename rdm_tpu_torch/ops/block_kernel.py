@@ -96,11 +96,11 @@ def ln_qkv_reference(x2, n1s, n1b, wqkv):
 
 def packed_attn_reference(q, k, v, *, heads: int, head_dim: int):
     """q/k/v [B, S, C] -> [B, S, C]: per-head softmax attention with f32
-    scores (ops.attention semantics)."""
+    scores (ops.attention's plain path, never the flash kernels)."""
     b, s, c = q.shape
     shp = (b, s, heads, head_dim)
     o = dot_product_attention(q.reshape(shp), k.reshape(shp),
-                              v.reshape(shp))
+                              v.reshape(shp), impl="xla")
     return o.reshape(b, s, c)
 
 
@@ -168,7 +168,10 @@ def _check(name: str, bf16, f32=(), *, i8=(),
     """Raise unless the CUDA kernel takes these (tensor, shape) pairs: bf16
     activations and weights, f32 norms, biases and scales, int8 weights,
     each of its shape, on one device, contiguous and 16-byte aligned (the
-    kernels move 16-byte vectors)."""
+    kernels move 16-byte vectors), and none requiring grad in grad mode
+    (`_build.refuse_grad`)."""
+    _build.refuse_grad(name, *(t for group in (bf16, f32, i8)
+                               for t, _ in group))
     if head_dim != HEAD_DIM:
         raise ValueError(f"{name}: the CUDA kernel takes head_dim "
                          f"{HEAD_DIM}, got {head_dim}")

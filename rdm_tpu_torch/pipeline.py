@@ -117,10 +117,12 @@ class RDMPipeline:
         # weights: the random init of 400M parameters would be thrown away
         with torch.device("meta"):
             model = RDM(config, dtype=dtype)
-            first_stage = VQModel(first_stage_config, dtype=dtype)
+            first_stage = VQModel(first_stage_config, dtype=dtype,
+                                  encoder=False)
         self.model = _bind(model, params, self.device, dtype)
-        self.first_stage = _bind(first_stage, first_stage_params,
-                                 self.device, dtype)
+        self.first_stage = _bind(
+            first_stage, VQModel.decode_side(first_stage_params),
+            self.device, dtype)
         self.schedule = DiffusionSchedule.create(
             config.timesteps, config.beta_schedule, config.linear_start,
             config.linear_end, device=self.device)
@@ -298,10 +300,12 @@ class RARMPipeline:
         self.device = torch.device(device)
         with torch.device("meta"):  # bound to the given weights below
             model = RARM(config, dtype=dtype)
-            first_stage = VQModel(first_stage_config, dtype=dtype)
+            first_stage = VQModel(first_stage_config, dtype=dtype,
+                                  encoder=False)
         self.model = _bind(model, params, self.device, dtype)
-        self.first_stage = _bind(first_stage, first_stage_params,
-                                 self.device, dtype)
+        self.first_stage = _bind(
+            first_stage, VQModel.decode_side(first_stage_params),
+            self.device, dtype)
         self.decode_weights = extract_decode_weights(self.model, dtype)
         self._decode_weights_int8 = None
         self.memory = memory

@@ -2,10 +2,12 @@
 
 The inverses of `rdm_tpu/utils/torch_convert.py`: `unet_state_dict_from_jax`
 undoes `convert_unet`, `vq_state_dict_from_jax` undoes `convert_autoencoder`
-on the decode side (decoder, post_quant_conv, codebook), and
-`rdm_state_dict_from_jax` adds `unconditional_guidance_vex`,
-`rarm_state_dict_from_jax` undoes `convert_rarm_transformer`. With them both
-implementations run on the same weights. Inputs are nested dicts of array
+(encoder, quant_conv, decoder, post_quant_conv, codebook),
+`rdm_state_dict_from_jax` adds `unconditional_guidance_vex` (and `logvar`),
+`rarm_state_dict_from_jax` undoes `convert_rarm_transformer`, and
+`train_state_from_jax` carries a whole JAX train state (params, Adam
+moments, counts, EMA). With them both implementations run on the same
+weights. Inputs are nested dicts of array
 likes (numpy or jax arrays), with or without the top-level "params" key.
 
 Layout rules (inverse of the converter's):
@@ -209,8 +211,10 @@ def rdm_state_dict_from_jax(params: Mapping[str, Any], cfg: RDMConfig
     sd = unet_state_dict_from_jax(tree["unet"], cfg.unet,
                                   prefix="model.diffusion_model.",
                                   quant=quant)
-    sd["unconditional_guidance_vex"] = torch.from_numpy(np.asarray(
-        tree["unconditional_guidance_vex"], dtype=np.float32).copy())
+    for name in ("unconditional_guidance_vex", "logvar"):
+        if name in tree:  # logvar only with learn_logvar
+            sd[name] = torch.from_numpy(np.asarray(tree[name],
+                                                   dtype=np.float32).copy())
     return sd
 
 
@@ -290,10 +294,72 @@ def _ae_trunk(m: _Inverse, cfg: AutoencoderConfig, side: str) -> None:
 
 def vq_state_dict_from_jax(params: Mapping[str, Any], cfg: AutoencoderConfig
                            ) -> Dict[str, torch.Tensor]:
-    """rdm_tpu VQModel params -> port `VQModel` state dict: decoder,
-    post_quant_conv and codebook (the decode side)."""
+    """rdm_tpu VQModel params -> port `VQModel` state dict: encoder and
+    quant_conv (where the tree has them: a tree initialised through the
+    decode side alone does not), decoder, post_quant_conv and codebook."""
     m = _Inverse(_tree(params))
+    if m.has("encoder"):
+        _ae_trunk(m, cfg, "encoder")
+        m.conv("quant_conv", "quant_conv")
     _ae_trunk(m, cfg, "decoder")
     m.conv("post_quant_conv", "post_quant_conv")
     m.copy("quantize/embedding", "quantize.embedding.weight")
     return m.sd
+
+
+# ------------------------------------------------------------ train state
+
+def _find_states(node, name: str) -> List[Any]:
+    """Every optax state of class `name` inside an optimizer state."""
+    if type(node).__name__ == name:
+        return [node]
+    if isinstance(node, (tuple, list)):
+        return [s for child in node for s in _find_states(child, name)]
+    return []
+
+
+def train_state_from_jax(state: Any, cfg: RDMConfig) -> Dict[str, Any]:
+    """A JAX `TrainState` of `rdm_tpu.training` (optimizer from its
+    `make_optimizer`: AdamW, optionally under clip_by_global_norm and
+    MultiSteps) -> the port's `TrainState.load_state_dict` input: step,
+    params, the Adam moments mu / nu (each leaf in its own dtype), the
+    counts, the MultiSteps accumulator and the EMA shadow and count. Every
+    parameter-shaped tree goes through `rdm_state_dict_from_jax`, so the
+    moments take the same key mapping and transposes as the params."""
+
+    def sd(tree, dtype=None):
+        out = rdm_state_dict_from_jax(tree, cfg)
+        return out if dtype is None else {k: v.to(dtype)
+                                          for k, v in out.items()}
+
+    opt = state.opt_state
+    multi = _find_states(opt, "MultiStepsState")
+    inner = multi[0].inner_opt_state if multi else opt
+    adam = _find_states(inner, "ScaleByAdamState")
+    sched = _find_states(inner, "ScaleByScheduleState")
+    if len(adam) != 1 or len(sched) != 1:
+        raise ValueError("expected one ScaleByAdamState and one "
+                         "ScaleByScheduleState in the optimizer state")
+    adam, sched = adam[0], sched[0]
+    mu_dtype = torch.bfloat16 if str(np.asarray(
+        next(iter(_leaves(adam.mu)))).dtype) == "bfloat16" else None
+    opt_sd = {"count": int(np.asarray(adam.count)), "mu": sd(adam.mu,
+                                                           mu_dtype),
+              "nu": sd(adam.nu), "sched_count": int(np.asarray(sched.count)),
+              "mini_step": 0, "gradient_step": 0, "acc_grads": None}
+    if multi:
+        opt_sd.update(mini_step=int(np.asarray(multi[0].mini_step)),
+                      gradient_step=int(np.asarray(multi[0].gradient_step)),
+                      acc_grads=sd(multi[0].acc_grads))
+    return {"step": int(np.asarray(state.step)), "params": sd(state.params),
+            "opt_state": opt_sd,
+            "ema": {"params": sd(state.ema.params),
+                    "count": int(np.asarray(state.ema.count))}}
+
+
+def _leaves(tree):
+    if isinstance(tree, Mapping):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree

@@ -19,7 +19,9 @@ from rdm_tpu.models.rarm import RARMConfig as JRARM
 from rdm_tpu.models.rdm import RDMConfig as JRDM
 from rdm_tpu.models.unet import UNetConfig as JUNet
 from rdm_tpu.sampling import DDIMSamplerConfig as JDDIM
+from rdm_tpu.training.trainer import TrainerConfig as JTrainer
 from rdm_tpu_torch import config as port
+from rdm_tpu_torch.training.trainer import TrainerConfig
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -29,6 +31,7 @@ PAIRS = {
     "autoencoder": (port.AutoencoderConfig, JAutoencoder),
     "rarm": (port.RARMConfig, JRARM),
     "ddim": (port.DDIMSamplerConfig, JDDIM),
+    "trainer": (TrainerConfig, JTrainer),
 }
 
 PORT_MODULES = [
@@ -40,6 +43,9 @@ PORT_MODULES = [
     "rdm_tpu_torch.models.autoencoder", "rdm_tpu_torch.models.rarm",
     "rdm_tpu_torch.ops.decode_kernel", "rdm_tpu_torch.retrieval.engine",
     "rdm_tpu_torch.retrieval.database", "rdm_tpu_torch.utils.from_jax",
+    "rdm_tpu_torch.ops.flash_attention", "rdm_tpu_torch.training.optim",
+    "rdm_tpu_torch.training.ema", "rdm_tpu_torch.training.train_state",
+    "rdm_tpu_torch.training.checkpoint", "rdm_tpu_torch.training.trainer",
 ]
 
 

@@ -1,6 +1,7 @@
 """rdm_tpu_torch's CUDA kernels (the SpatialTransformer block kernels, their
-int8 variants and the RARM decode kernels) against their plain PyTorch
-versions, on the card.
+int8 variants, the RARM decode kernels and the flash-attention forward and
+backward) against their plain PyTorch versions, on the card, with the grad
+guard and the training route through the flash kernels.
 
 This file imports no JAX, so it also runs on a GPU machine without JAX:
 
@@ -27,6 +28,7 @@ from rdm_tpu_torch.models import rarm
 from rdm_tpu_torch.models.layers import TransformerBlock
 from rdm_tpu_torch.ops import block_kernel as bk
 from rdm_tpu_torch.ops import decode_kernel as dk
+from rdm_tpu_torch.ops import flash_attention as fa
 
 TOL = 2e-2
 HD = 32
@@ -506,3 +508,93 @@ def test_serving_modes_sample_on_card(cuda, opts):
     assert dk.launch_counts() == want
     assert toks.shape == (3, cfg.seq_len)
     assert 0 <= int(toks.min()) and int(toks.max()) < cfg.out_vocab
+
+
+# ------------------------------------------------- flash attention, training
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,h,d,causal", [
+    (2, 100, 70, 3, 32, False), (2, 100, 130, 3, 32, True),
+    (2, 130, 100, 2, 64, True), (1, 64, 64, 2, 96, False),
+    (1, 200, 200, 2, 128, True), (2, 256, 256, 4, 32, False)])
+def test_flash_kernels_match_plain(cuda, b, sq, sk, h, d, causal):
+    """The flash forward and backward kernels against their plain versions
+    (ragged tiles, Sq != Sk, every head_dim the kernels are built for)."""
+    g = torch.Generator(device="cuda").manual_seed(sq + sk + d)
+    q, do = (torch.randn(b, sq, h, d, generator=g, device="cuda").bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn(b, sk, h, d, generator=g, device="cuda").bfloat16()
+            for _ in range(2))
+    sc = d ** -0.5
+    fa.reset_launch_counts()
+    o = fa.flash_fwd(q, k, v, scale=sc, causal=causal)
+    grads = fa.flash_bwd(q, k, v, do, scale=sc, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.launch_counts() == {"flash_fwd": 1, "flash_bwd": 1}
+    assert _rel_err(o, fa.flash_attention_forward_reference(
+        q, k, v, sc, causal)) <= TOL
+    for got, want in zip(grads, fa.flash_attention_backward_reference(
+            q, k, v, do, sc, causal)):
+        assert torch.isfinite(got).all()
+        assert _rel_err(got, want) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bwd", ["pallas", "xla"])
+def test_flash_attention_gradients_on_card(cuda, bwd, monkeypatch):
+    """flash_attention's autograd on CUDA bf16 (the backward kernel, or the
+    eager recompute) against autograd through the plain `_xla_reference`."""
+    monkeypatch.setenv("RDM_TPU_FLASH_BWD", bwd)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v, do = (torch.randn(2, 256, 3, 32, generator=g,
+                               device="cuda").bfloat16() for _ in range(4))
+    fa.reset_launch_counts()
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(fa.flash_attention(*qkv), qkv, do)
+    assert fa.launch_counts() == {"flash_fwd": 1,
+                                  "flash_bwd": int(bwd == "pallas")}
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(fa._xla_reference(*ref, 32 ** -0.5, False),
+                               ref, do)
+    for a, w in zip(got, want):
+        assert _rel_err(a, w) <= TOL
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_inputs_that_require_grad(cuda):
+    """The grad guard: a ctypes-bound kernel raises on an input that
+    requires grad in grad mode, and runs under no_grad."""
+    blk = _block(2, 64, seed=1)
+    x = torch.randn((1, 16, 64), device="cuda").bfloat16().requires_grad_()
+    ctx = torch.randn((1, 4, 64), device="cuda").bfloat16()
+    n = torch.ones(64, device="cuda")
+    w = torch.randn((64, 192), device="cuda").bfloat16()
+    with pytest.raises(RuntimeError, match="requires grad"):
+        bk.ln_qkv(x.reshape(16, 64), n, n, w)
+    q = torch.randn((1, 256, 2, 32), device="cuda").bfloat16()
+    with pytest.raises(RuntimeError, match="requires grad"):
+        fa.flash_fwd(q.requires_grad_(), q, q, scale=1.0, causal=False)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        blk.eval().forward_fused(x, ctx)  # eval mode, grad on: no silent loss
+    with torch.no_grad():
+        assert torch.isfinite(blk.forward_fused(x, ctx)).all()
+
+
+@pytest.mark.cuda
+def test_spatial_transformer_trains_through_flash_kernels(cuda):
+    """Train mode on the card: the unfused blocks, their S = 256 self-
+    attention through the flash forward and backward kernels, no block
+    kernel, a gradient for every parameter."""
+    from rdm_tpu_torch.models.layers import SpatialTransformer
+
+    torch.manual_seed(0)
+    st = SpatialTransformer(64, 16, heads=2, head_dim=32).cuda().train()
+    x = torch.randn(2, 64, 16, 16, device="cuda").bfloat16()
+    ctx = torch.randn(2, 4, 16, device="cuda").bfloat16()
+    fa.reset_launch_counts()
+    bk.reset_launch_counts()
+    st(x, ctx).float().square().mean().backward()
+    assert fa.launch_counts() == {"flash_fwd": 1, "flash_bwd": 1}
+    assert not any(bk.launch_counts().values())
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for p in st.parameters())

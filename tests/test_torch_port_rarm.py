@@ -297,7 +297,7 @@ def test_decode_code_matches_jax():
     idx = np.random.default_rng(19).integers(0, 16, (2, 4, 4))
     want = jvq.apply(vq_params, jnp.asarray(idx, jnp.int32),
                      method=JVQModel.decode_code)
-    vq = VQModel(ae).eval()
+    vq = VQModel(ae, encoder=False).eval()  # a decode-side tree
     vq.load_state_dict(vq_sd)
     with torch.no_grad():
         got = vq.decode_code(torch.from_numpy(idx))

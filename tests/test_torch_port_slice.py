@@ -265,7 +265,8 @@ def test_vq_decoder_loads_the_reference_torch_layout():
     oracle = TVQ(AE_CFG).eval()
     keep = ("decoder.", "post_quant_conv.", "quantize.")
     sd = {k: v for k, v in oracle.state_dict().items() if k.startswith(keep)}
-    port = VQModel(pc.AutoencoderConfig(**dataclasses.asdict(AE_CFG))).eval()
+    port = VQModel(pc.AutoencoderConfig(**dataclasses.asdict(AE_CFG)),
+                   encoder=False).eval()
     port.load_state_dict(sd)  # strict: the same names
     z = torch.randn((2, AE_CFG.embed_dim, 8, 8),
                     generator=torch.Generator().manual_seed(3))
