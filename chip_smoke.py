@@ -6,8 +6,10 @@
 Drives the port's serving paths — retrieval-conditioned RDM sampling at
 the ImageNet RDM width (exact bf16, and the int8 and encoder-reuse serving
 modes), and KV-cached RARM token sampling at the ImageNet-dogs RARM width
-— and RDM training at the ImageNet RDM width, through their public entry
-points, on random weights made from a seed.
+— RDM training at the ImageNet RDM width, and the CLIP-queried requests
+(captions, inpainting, adaptive re-retrieval, the nn-memory build) with a
+ViT-B/32 CLIP, through their public entry points, on random weights made
+from a seed.
 Phases (each prints one line or a few; any failure raises and the script
 exits non-zero):
 
@@ -92,6 +94,24 @@ exits non-zero):
                and continues; steps with RDM_TPU_FLASH_BWD=xla; a batch-2
                step's gradients against the CUDA f32 plain path
                (TRAIN_GRAD_TOL); step time, samples/s, peak memory.
+ 17. knn       the kNN kernel pair against its plain version (f64 sums,
+               stable sort) over phase 5's 1,281,280 x 512 table in bf16 at
+               (B, k) = (4, 4), (16, 4), (32, 4), (256, 20): scores within
+               KNN_SCORE_TOL, ids equal but at near-tie ranks (counted);
+               a ragged N, duplicate rows in four slices (ascending ids
+               back) and a 10-row table with negative scores (no id >= N);
+               median CUDA-event times of kernel, plain version and
+               torch.topk(q @ db.T); bound.
+ 18. clip_serve  a seeded ViT-B/32 CLIP: both towers in bf16 on the card
+               against CPU f32 (CLIP_TOWER_TOL); an RDMPipeline with CLIP
+               over phase 5's table serves sample_with_caption,
+               sample_retro_adaptive (retro_every 10) and sample_inpaint
+               (half mask), batch 4, DDIM-50, guidance 2.0, k = 4, with
+               2 knn launches per search (2, 10 and 2) and 16 launches of
+               each block kernel per U-Net forward; NNMemory.
+               build_from_queries over 4,096 table rows at k = 20, batch
+               256 (top-1 the query itself unless a duplicate ties); the
+               RARMPipeline's caption embedding equals the RDMPipeline's.
 
 The second-to-last line is one JSON object with the per-kernel numbers:
 name, route, source, replaces, launches, max_abs_err, ms, plain_ms,
@@ -109,7 +129,10 @@ same over phase 12's cases, `launches` over phase 13's requests; post_ff
 the sum over the sites, `launches` over phase 14's single-kernel requests;
 flash_fwd / flash_bwd the sum over phase 15's three shapes (`library_ms`:
 SDPA forward, and forward + backward), `launches` over the first
-trainer's 8 steps of phase 16.
+trainer's 8 steps of phase 16; knn the op point B = 16, k = 4 of phase 17
+(every case under `cases`; `library_ms` torch.topk(q @ db.T), two calls
+with no promise on tie order), `launches` over phase 18's requests and
+nn-memory build.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -199,6 +222,26 @@ FLASH_INFO = {
     "flash_bwd": ("rdm_tpu_torch/csrc/flash_attn_bwd.cu",
                   "rdm_tpu/ops/flash_attention.py:126"),
 }
+KNN_INFO = ("rdm_tpu_torch/csrc/knn_topk.cu",
+            "rdm_tpu/ops/knn_kernel.py:57")
+# (B, k) of phase 17: the RDM requests' batch 4, the kNN op point B = 16
+# (ROADMAP), the RARM requests' B = 32 and the nn-memory build's 256 x 20
+KNN_CASES = ((4, 4), (16, 4), (32, 4), (256, 20))
+KNN_OP_POINT = (16, 4)  # the case whose times head the kernel's JSON row
+# Kernel against plain, both f32 sums of the same bf16 products in another
+# order: scores within 1e-5 (a unit-norm score's f32 sums carry ~1e-7),
+# ids equal except at a rank whose plain score lies within 2e-6 of a
+# neighbouring rank's, where another summation order may swap the two.
+KNN_SCORE_TOL = 1e-5
+KNN_NEAR_TIE = 2e-6
+# Phase 18: the ViT-B/32 towers in bf16 on the card against CPU f32,
+# relative L2: bf16 activations through 12 residual layers, as the U-Net's
+# FORWARD_TOL.
+CLIP_TOWER_TOL = 3e-2
+SMOKE_CAPTIONS = ["a photograph of a golden retriever on a beach",
+                  "an oil painting of a lighthouse at dusk",
+                  "two cats asleep on a red sofa",
+                  "a bowl of ramen, top view"]
 # B, S, heads, head_dim, causal: the ImageNet U-Net's ds-2 and ds-4
 # self-attention at the training batch, and the RARM's causal shape
 FLASH_SHAPES = ((40, 1024, 12, 32, False), (40, 256, 18, 32, False),
@@ -1957,6 +2000,292 @@ def phase_train(rdm_sd: dict, vq_sd: dict, emb: torch.Tensor) -> dict:
         torch.cuda.empty_cache()
 
 
+def knn_cost(b: int, n: int, d: int, k: int):
+    """(bf16 operations, int8 operations, bytes) of one search: 2 B N D
+    products; the table and the queries read once (bf16), scores (f32)
+    and ids (int64) written once."""
+    return 2 * b * n * d, 0, n * d * 2 + b * d * 2 + b * k * 12
+
+
+def _knn_hold(what: str, got, plain, n: int) -> int:
+    """Holds a kernel search against the plain one (computed with k + 1
+    columns where the table has them, so that a near tie at the last rank
+    shows): scores within KNN_SCORE_TOL, ids in [0, n), ids equal except
+    at near-tie ranks; returns the count of near-tie ranks whose ids
+    differ."""
+    gs, gi = got
+    ps, pi = plain
+    k = gs.shape[1]
+    if gi.min().item() < 0 or gi.max().item() >= n:
+        raise RuntimeError(f"{what}: an id outside [0, {n}) came back")
+    err = (gs - ps[:, :k]).abs().max().item()
+    if err > KNN_SCORE_TOL:
+        raise RuntimeError(f"{what}: scores {err:.3e} from the plain "
+                           f"version (limit {KNN_SCORE_TOL:g})")
+    near_pair = (ps[:, :-1] - ps[:, 1:]).abs() <= KNN_NEAR_TIE
+    near = torch.zeros_like(ps, dtype=torch.bool)
+    near[:, :-1] |= near_pair
+    near[:, 1:] |= near_pair
+    diff = gi != pi[:, :k]
+    if (diff & ~near[:, :k]).any():
+        raise RuntimeError(f"{what}: ids differ from the plain version "
+                           "away from any near tie")
+    return int((diff & near[:, :k]).sum().item())
+
+
+def phase_knn(emb: torch.Tensor) -> dict:
+    """Phase 17: the kNN kernel pair against its plain version over the
+    1,281,280 x 512 table in bf16 at KNN_CASES, a ragged N, duplicate rows
+    in different slices and a 10-row table whose top k holds negative
+    scores; {'max_abs_err', 'ms', 'plain_ms', 'library_ms', 'bound_ms',
+    'bound_by'} of the op point and every case under 'cases'."""
+    from rdm_tpu_torch.ops import knn_kernel as kk
+    from rdm_tpu_torch.retrieval.engine import knn_search, l2_normalize
+
+    db = emb.to(torch.bfloat16)
+    n, d = db.shape
+    g = torch.Generator(device="cuda").manual_seed(SEED + 60)
+    cases, near_total, worst = [], 0, 0.0
+    for b, k in KNN_CASES:
+        q = l2_normalize(torch.randn(b, d, generator=g, device="cuda"))
+        got = knn_search(db, q, k)
+        plain = knn_search(db, q, k + 1, impl="reference")
+        torch.cuda.synchronize()
+        near = _knn_hold(f"B={b} k={k}", got, plain, n)
+        near_total += near
+        err = (got[0] - plain[0][:, :k]).abs().max().item()
+        worst = max(worst, err)
+        qb = q.to(torch.bfloat16)
+        ms, plain_ms, lib_ms = (median_ms(fn) for fn in (
+            lambda: knn_search(db, q, k),
+            lambda: knn_search(db, q, k, impl="reference"),
+            lambda: torch.topk(qb @ db.t(), k)))
+        bound_ms, by = bound(*knn_cost(b, n, d, k))
+        p = kk.plan(b, n, d, k, torch.cuda.get_device_properties(0)
+                    .multi_processor_count)
+        cases.append({"B": b, "k": k, "N": n, "D": d, "ms": ms,
+                      "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "bound_ms": bound_ms, "bound_by": by,
+                      "max_abs_err": err, "near_tie_ranks": near,
+                      "slices": p.n_slices, "slice_rows": p.slice_rows})
+        say("knn", f"B={b:3d} k={k:2d} over {n}x{d}: scores max|err| "
+            f"{err:.3e} (limit {KNN_SCORE_TOL:g}), ids equal but {near} "
+            f"near-tie ranks; {p.n_slices} slices of {p.slice_rows} rows; "
+            f"kernel {ms:.4f} ms, plain sort {plain_ms:.4f} ms, "
+            f"torch.topk(q @ db.T) {lib_ms:.4f} ms (two calls, no tie "
+            f"order), bound {bound_ms:.4f} ms ({by})")
+
+    # a ragged N: the first n - 1 rows
+    q = l2_normalize(torch.randn(16, d, generator=g, device="cuda"))
+    got = knn_search(db[:n - 1], q, 4)
+    near_total += _knn_hold("ragged N", got,
+                            knn_search(db[:n - 1], q, 5, impl="reference"),
+                            n - 1)
+    # duplicate rows in four slices of the B = 16 split, and a query equal
+    # to them: their ids must come back in ascending order
+    p = kk.plan(16, n, d, 4, torch.cuda.get_device_properties(0)
+                .multi_processor_count)
+    dup = torch.tensor([1000, 1000 + p.slice_rows + 7,
+                        1000 + 9 * p.slice_rows + 3, n - 5], device="cuda")
+    saved = db[dup].clone()
+    db[dup] = db[dup[0]].clone()
+    q[0] = db[dup[0]].float()
+    got = knn_search(db, q, 4)
+    near_total += _knn_hold("duplicates", got,
+                            knn_search(db, q, 5, impl="reference"), n)
+    if got[1][0].tolist() != dup.tolist():
+        raise RuntimeError(f"duplicate rows came back as {got[1][0]}, "
+                           f"want {dup.tolist()} in ascending order")
+    db[dup] = saved
+    # the reference's padding fault: 10 rows, negative scores in the top 8
+    small = l2_normalize(torch.randn(10, d, generator=g, device="cuda")
+                         ).to(torch.bfloat16)
+    q = l2_normalize(torch.randn(4, d, generator=g, device="cuda"))
+    got = knn_search(small, q, 8)
+    want = knn_search(small, q, 8, impl="reference")
+    if not torch.equal(got[1], want[1]) or (got[0] >= 0).all():
+        raise RuntimeError(f"N=10: ids {got[1].tolist()} against "
+                           f"{want[1].tolist()}, or no negative score")
+    say("knn", f"ragged N={n - 1}, duplicate rows {dup.tolist()} (one per "
+        f"slice, ascending ids back), N=10 with negative scores in the top "
+        f"8 (no id >= N): ids equal; near-tie ranks over all cases "
+        f"{near_total}")
+    del db
+    torch.cuda.empty_cache()
+    res = dict(next(c for c in cases if (c["B"], c["k"]) == KNN_OP_POINT))
+    res.update(max_abs_err=worst, cases=cases, near_tie_ranks=near_total)
+    return res
+
+
+class _Recorder:
+    """A retrieval engine that keeps the ids of every search it serves."""
+
+    def __init__(self, engine):
+        self.engine, self.ids = engine, []
+
+    def search(self, queries, k, **kw):
+        out = self.engine.search(queries, k, **kw)
+        self.ids.append(out["nns"])
+        return out
+
+
+def _request(what: str, knn_want: int, fn, steps: int = SERVE_STEPS):
+    """Runs one request between synchronisations with the kNN and block
+    launch counts at 0; checks its knn launches (2 per search) and its
+    block-kernel launches (16 per U-Net forward), and the images; returns
+    (seconds, images)."""
+    from rdm_tpu_torch.ops import block_kernel as bk
+    from rdm_tpu_torch.ops import knn_kernel as kk
+
+    kk.reset_launch_counts()
+    bk.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    images = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    knn = kk.launch_counts()["knn"]
+    blocks = {n: bk.launch_counts()[n] for n in KERNEL_INFO}
+    if knn != knn_want:
+        raise RuntimeError(f"{what}: {knn} knn launches, want {knn_want}")
+    if any(n != 16 * steps for n in blocks.values()):
+        raise RuntimeError(f"{what}: block launches {blocks}, want "
+                           f"{16 * steps} each")
+    if images.shape != (4, 256, 256, 3) or images.dtype != np.uint8 or \
+            images.std() == 0:
+        raise RuntimeError(f"{what}: images {images.shape} {images.dtype} "
+                           f"std {images.std()}")
+    say("clip_serve", f"{what}: batch 4, DDIM-{steps}, guidance 2.0, k=4: "
+        f"{wall:.3f} s, {4 / wall:.3f} img/s; knn launches {knn}, block "
+        f"launches {blocks}")
+    return wall, images
+
+
+def phase_clip_serve(rdm_sd: dict, vq_sd: dict, emb: torch.Tensor,
+                     rarm_sd: dict, vq16_sd: dict) -> dict:
+    """Phase 18: a full-width ViT-B/32 CLIP (seeded) with the full-width
+    RDM over phase 5's table: both towers on the card in bf16 against CPU
+    f32; caption, adaptive re-retrieval and inpainting requests with their
+    knn launches; the nn-memory build at k = 20; the RARM pipeline's
+    caption embedding against the RDM pipeline's. Returns the knn launches
+    of these runs and the request seconds."""
+    from rdm_tpu_torch.config import (AutoencoderConfig, ClipConfig,
+                                      RARMConfig, RDMConfig)
+    from rdm_tpu_torch.models.clip import CLIP, preprocess
+    from rdm_tpu_torch.models.retrievers import bind_clip
+    from rdm_tpu_torch.ops import knn_kernel as kk
+    from rdm_tpu_torch.pipeline import RARMPipeline, RDMPipeline
+    from rdm_tpu_torch.retrieval.database import DataPool, NNMemory
+    from rdm_tpu_torch.utils.tokenizer import tokenize
+
+    cfg = ClipConfig.vit_b32()
+    with torch.device("meta"):
+        meta = CLIP(cfg)
+    clip_sd = seeded_state_dict(meta, SEED + 70)
+    g = torch.Generator().manual_seed(SEED + 71)
+    images = torch.rand(4, 256, 256, 3, generator=g) * 2 - 1
+    toks = torch.from_numpy(tokenize(SMOKE_CAPTIONS)).long()
+    cpu = CLIP(cfg).eval()
+    cpu.load_state_dict(clip_sd)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want = (cpu.encode_image(preprocess(images).permute(0, 3, 1, 2)),
+                cpu.encode_text(toks))
+    cpu_s = time.perf_counter() - t0
+    del cpu
+    gpu = bind_clip(clip_sd, cfg, "cuda", torch.bfloat16)
+    with torch.inference_mode():
+        got = (gpu.encode_image(preprocess(images.cuda()).permute(0, 3, 1, 2)),
+               gpu.encode_text(toks.cuda()))
+    rels = [((a.cpu() - b).norm() / b.norm()).item()
+            for a, b in zip(got, want)]
+    say("clip_serve", f"ViT-B/32 CLIP towers, CUDA bf16 vs CPU f32 (4 "
+        f"images 256 -> 224, 4 captions): rel L2 image {rels[0]:.3e}, text "
+        f"{rels[1]:.3e} (limit {CLIP_TOWER_TOL:g}); CPU f32 {cpu_s:.1f} s")
+    if max(rels) > CLIP_TOWER_TOL or not all(
+            torch.isfinite(a).all() for a in got):
+        raise RuntimeError(f"CLIP towers: rel L2 {rels}")
+    del gpu
+
+    t0 = time.perf_counter()
+    pipe = RDMPipeline(RDMConfig.imagenet(), rdm_sd,
+                       AutoencoderConfig.vq_f4(), vq_sd,
+                       pool=DataPool(embeddings=emb), clip_params=clip_sd,
+                       clip_config=cfg, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    caption, kw = SMOKE_CAPTIONS[0], dict(k_nn=4, guidance_scale=2.0)
+    mask = np.zeros((4, 64, 64, 1), np.float32)
+    mask[:, :, :32] = 1.0  # keep the left half
+    # warm-up at the request shapes; the first inpaint binds the encoder
+    pipe.sample_with_caption(caption, 4, steps=2, seed=99, **kw)
+    t0 = time.perf_counter()
+    pipe.sample_inpaint(images.numpy(), mask, steps=2, seed=99, **kw)
+    torch.cuda.synchronize()
+    bind_s = time.perf_counter() - t0
+    out = {"request_s": {}, "launches": 0}
+    for name, knn_want, fn in (
+            ("sample_with_caption", 2, lambda: pipe.sample_with_caption(
+                caption, 4, steps=SERVE_STEPS, seed=1, **kw)[
+                    "query_samples"]),
+            ("sample_retro_adaptive", 2 * (1 + (SERVE_STEPS - 1) // 10),
+             lambda: pipe.sample_retro_adaptive(
+                 4, steps=SERVE_STEPS, retro_every=10, seed=2, **kw)[
+                     "retro_adaptive_samples"]),
+            ("sample_inpaint", 2, lambda: pipe.sample_inpaint(
+                images.numpy(), mask, steps=SERVE_STEPS, seed=3, **kw)[
+                    "inpaint_samples"])):
+        wall, _ = _request(name, knn_want, fn)
+        out["request_s"][name] = wall
+        out["launches"] += knn_want
+    say("clip_serve", f"the first inpaint request (DDIM-2) bound the VQ "
+        f"encoder: {bind_s:.2f} s; pipeline set-up {setup_s:.1f} s")
+
+    # the nn-memory build: 4096 table rows as queries, k = 20, batch 256
+    n_q, k_mem = 4096, 20
+    rec = _Recorder(pipe.retrieval)
+    kk.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mem = NNMemory.build_from_queries(rec, emb[:n_q], k=k_mem,
+                                      batch_size=256)
+    build_s = time.perf_counter() - t0
+    launches = kk.launch_counts()["knn"]
+    if launches != 2 * n_q // 256:
+        raise RuntimeError(f"nn-memory build: {launches} knn launches, "
+                           f"want {2 * n_q // 256}")
+    ids = torch.cat(rec.ids)
+    own = torch.arange(n_q, device=ids.device)
+    off = (ids[:, 0] != own).nonzero().flatten()
+    table = pipe.retrieval.db_norm
+    if off.numel() and not torch.equal(table[ids[off, 0]], table[own[off]]):
+        raise RuntimeError(f"nn-memory build: top-1 of {off.numel()} "
+                           "queries is neither the query nor a duplicate")
+    if sum(mem.id_count.values()) != n_q * k_mem:
+        raise RuntimeError("nn-memory build: counts do not sum to "
+                           f"{n_q * k_mem}")
+    out["launches"] += launches
+    out["memory_build_s"] = build_s
+    say("clip_serve", f"NNMemory.build_from_queries: {n_q} table rows as "
+        f"queries, k={k_mem}, batch 256: {build_s:.3f} s, {launches} knn "
+        f"launches, top-1 the query's own id for all but {off.numel()} "
+        f"(duplicate rows), {len(mem.ids)} distinct ids")
+
+    rarm = RARMPipeline(RARMConfig.imagenet_dogs(), rarm_sd,
+                        AutoencoderConfig.vq_f16(), vq16_sd,
+                        clip_params=clip_sd, clip_config=cfg, device="cuda")
+    a, b = rarm.embed_caption(caption, 4), pipe.embed_caption(caption, 4)
+    if not torch.equal(a, b):
+        raise RuntimeError("RARMPipeline.embed_caption differs from "
+                           "RDMPipeline's on the same CLIP")
+    say("clip_serve", "RARMPipeline.embed_caption equals RDMPipeline's bit "
+        f"for bit; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del pipe, rarm
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -1986,17 +2315,17 @@ def main() -> int:
     decode = phase_rarm_kernels()
     rarm_sd = seeded_state_dict(rarm, SEED + 12)
     phase_rarm_forward(rarm_sd)
-    decode_launches = phase_rarm_serve(
-        rarm_sd, seeded_state_dict(vq16, SEED + 13), emb)
+    vq16_sd = seeded_state_dict(vq16, SEED + 13)
+    decode_launches = phase_rarm_serve(rarm_sd, vq16_sd, emb)
     phase_int8_forward(rdm_sd)
     int8_launches = phase_serve_modes(rdm_sd, vq_sd, emb)
     int8_decode = phase_rarm_int8_kernels()
-    int8_decode_launches = phase_rarm_serve_modes(
-        rarm_sd, seeded_state_dict(vq16, SEED + 13), emb)
-    del rarm_sd
+    int8_decode_launches = phase_rarm_serve_modes(rarm_sd, vq16_sd, emb)
     post_ff = phase_post_ff(rdm_sd, vq_sd, emb)
     flash = phase_flash_kernels()
     train = phase_train(rdm_sd, vq_sd, emb)
+    knn = phase_knn(emb)
+    clip = phase_clip_serve(rdm_sd, vq_sd, emb, rarm_sd, vq16_sd)
 
     def row(name, info, launches_, r, **extra):
         return {"name": name, "route": "cuda", "source": info[0],
@@ -2026,6 +2355,9 @@ def main() -> int:
     rows += [row(n, FLASH_INFO[n], train["launches"], r, cases=r["cases"],
                  train={k: v for k, v in train.items() if k != "launches"})
              for n, r in flash.items()]
+    rows.append(row("knn", KNN_INFO, {"knn": clip["launches"]}, knn,
+                    cases=knn["cases"], near_tie_ranks=knn["near_tie_ranks"],
+                    serve=clip))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

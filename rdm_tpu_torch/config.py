@@ -2,8 +2,8 @@
 
 Field-for-field mirrors of the JAX package's `UNetConfig`
 (rdm_tpu/models/unet.py), `RDMConfig` (models/rdm.py), `AutoencoderConfig`
-(models/autoencoder.py), `RARMConfig` (models/rarm.py) and
-`DDIMSamplerConfig` (sampling.py). Those live
+(models/autoencoder.py), `RARMConfig` (models/rarm.py), `ClipConfig`
+(models/clip.py) and `DDIMSamplerConfig` (sampling.py). Those live
 in modules that import flax, so they are mirrored here rather than
 imported; a test holds the fields and defaults equal.
 """
@@ -141,6 +141,36 @@ class RARMConfig:
 
     @classmethod
     def imagenet_dogs(cls) -> "RARMConfig":
+        return cls()
+
+
+@dataclasses.dataclass(frozen=True)
+class ClipConfig:
+    embed_dim: int = 512
+    # vision
+    image_resolution: int = 224
+    vision_width: int = 768
+    vision_layers: int = 12
+    vision_patch_size: int = 32
+    # text
+    context_length: int = 77
+    vocab_size: int = 49408
+    transformer_width: int = 512
+    transformer_layers: int = 12
+    head_dim: int = 64  # OpenAI convention: heads = width / 64
+    # the RN50-style tower in place of the ViT: the stage depths
+    resnet_layers: Optional[Tuple[int, ...]] = None  # e.g. (3, 4, 6, 3)
+
+    @property
+    def vision_heads(self) -> int:
+        return self.vision_width // self.head_dim
+
+    @property
+    def transformer_heads(self) -> int:
+        return self.transformer_width // self.head_dim
+
+    @classmethod
+    def vit_b32(cls) -> "ClipConfig":
         return cls()
 
 

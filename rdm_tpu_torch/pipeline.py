@@ -3,10 +3,13 @@ decode) and RARM (retrieval -> KV-cached token sampling -> VQ decode_code).
 
 Counterpart of `rdm_tpu/pipeline.py` `RDMPipeline` and `RARMPipeline` on
 one device, with the RDM serving modes (`int8_weights`, `encoder_reuse`)
-and the RARM ones (`int8_weights`, `int8_kv`, `approx_top_k`); no mesh,
-no captions and no `from_model_dir` yet. Public inputs and outputs keep the
-JAX layouts: query embeddings [B, D], neighbors [B, k, D], images NHWC
-uint8 numpy arrays. Inside, images and latents are NCHW.
+and the RARM ones (`int8_weights`, `int8_kv`, `approx_top_k`), and, given
+CLIP weights, captions (`embed_caption`, `sample_with_caption`),
+inpainting (`sample_inpaint`) and adaptive re-retrieval
+(`sample_retro_adaptive`); no mesh and no `from_model_dir` yet. Public
+inputs and outputs keep the JAX layouts: query embeddings [B, D],
+neighbors [B, k, D], images NHWC (in: float [-1, 1]; out: uint8 numpy).
+Inside, images and latents are NCHW.
 
 Semantics kept (reference ddpm.py:688-984): unconditional sampling draws
 query ids from the nn-memory (or uniformly from the pool), retrieves k
@@ -24,17 +27,23 @@ import numpy as np
 import torch
 from torch import nn
 
-from rdm_tpu_torch.config import (AutoencoderConfig, DDIMSamplerConfig,
-                                  RARMConfig, RDMConfig)
+from rdm_tpu_torch.config import (AutoencoderConfig, ClipConfig,
+                                  DDIMSamplerConfig, RARMConfig, RDMConfig)
 from rdm_tpu_torch.models.autoencoder import VQModel
+from rdm_tpu_torch.models.clip import encode_captions
 from rdm_tpu_torch.models.layers import TransformerBlock
 from rdm_tpu_torch.models.rarm import (RARM, extract_decode_weights,
                                        sample_tokens_fused)
-from rdm_tpu_torch.models.rdm import RDM, sample_with_neighbors
+from rdm_tpu_torch.models.rdm import (RDM, make_denoise_fn,
+                                      sample_with_neighbors)
+from rdm_tpu_torch.models.retrievers import bind_clip, embed_images
 from rdm_tpu_torch.ops import quant
 from rdm_tpu_torch.ops.schedules import DiffusionSchedule
 from rdm_tpu_torch.retrieval.database import DataPool, NNMemory
-from rdm_tpu_torch.retrieval.engine import RetrievalEngine
+from rdm_tpu_torch.retrieval.engine import (RetrievalEngine,
+                                            gather_unnormalized, knn_search,
+                                            l2_normalize)
+from rdm_tpu_torch.sampling import ddim_retro_sample, ddim_sample
 
 
 def to_uint8(images: torch.Tensor) -> np.ndarray:
@@ -106,6 +115,8 @@ class RDMPipeline:
                  first_stage_params: Mapping[str, Any],
                  pool: Optional[DataPool] = None,
                  memory: Optional[NNMemory] = None,
+                 clip_params: Optional[Mapping[str, Any]] = None,
+                 clip_config: Optional[ClipConfig] = None,
                  dtype: torch.dtype = torch.bfloat16, device="cuda",
                  int8_weights: bool = False):
         self.config = config
@@ -123,6 +134,12 @@ class RDMPipeline:
         self.first_stage = _bind(
             first_stage, VQModel.decode_side(first_stage_params),
             self.device, dtype)
+        # the encoder side is bound at the first inpaint request
+        self._first_stage_params = first_stage_params
+        self._first_stage_config = first_stage_config
+        self._encoder: Optional[VQModel] = None
+        self.clip = (bind_clip(clip_params, clip_config, self.device, dtype)
+                     if clip_params is not None else None)
         self.schedule = DiffusionSchedule.create(
             config.timesteps, config.beta_schedule, config.linear_start,
             config.linear_end, device=self.device)
@@ -130,6 +147,16 @@ class RDMPipeline:
         self.retrieval = (RetrievalEngine(pool, device=self.device)
                           if pool is not None else None)
         self._int8_ready = quant.num_quantized(self.model) > 0
+
+    # ---------- conditioning assembly ----------
+
+    def embed_caption(self, caption: str, batch_size: int) -> torch.Tensor:
+        """The caption's CLIP text embedding [batch_size, D] f32 on the
+        pipeline's device."""
+        if self.clip is None:
+            raise ValueError("caption sampling requires CLIP weights "
+                             "(clip_ckpt)")
+        return encode_captions(self.clip, [caption] * batch_size)
 
     # ---------- sampling ----------
 
@@ -177,6 +204,109 @@ class RDMPipeline:
         return {"query_samples": self._run_ddim(neighbors, steps,
                                                 guidance_scale, seed,
                                                 encoder_reuse)}
+
+    def sample_with_caption(self, caption: str, batch_size: int,
+                            **kw) -> Dict[str, Any]:
+        """Text-to-image: the caption's CLIP embedding as the query of
+        `sample_with_query`."""
+        return self.sample_with_query(self.embed_caption(caption,
+                                                         batch_size), **kw)
+
+    def _vq_encoder(self) -> VQModel:
+        """The whole VQ model, encoder side included, bound at first use:
+        only inpainting encodes, so serving pipelines skip it until then."""
+        if self._encoder is None:
+            with torch.device("meta"):
+                vq = VQModel(self._first_stage_config, dtype=self.dtype)
+            self._encoder = _bind(vq, self._first_stage_params, self.device,
+                                  self.dtype)
+        return self._encoder
+
+    def sample_inpaint(self, images, mask, neighbors=None, *,
+                       k_nn: Optional[int] = None, steps: int = 100,
+                       guidance_scale: float = 2.0, seed: int = 0
+                       ) -> Dict[str, Any]:
+        """Inpainting (the reference's DDIM mask blend, ddim.py:187-190):
+        keep `images` where mask == 1, regenerate the rest.
+
+        images [B, H, W, 3] float [-1, 1]; mask [B, h, w, 1] (or
+        broadcastable to the NHWC latent) at latent resolution, 1 = keep.
+        neighbors [B, k, D] default to a search by the images' own CLIP
+        embedding, which needs CLIP weights and a database."""
+        cfg = self.config
+        x = torch.as_tensor(images, dtype=torch.float32, device=self.device)
+        with torch.inference_mode():
+            z0 = self._vq_encoder().encode_prequant(
+                x.permute(0, 3, 1, 2)).float() * cfg.scale_factor
+            if neighbors is None:
+                if self.clip is None or self.retrieval is None:
+                    raise ValueError("provide neighbors, or CLIP weights + "
+                                     "a database for auto-retrieval")
+                neighbors = self.retrieval.search(
+                    embed_images(self.clip, x),
+                    k=k_nn or cfg.k_nn)["embeddings"]
+            ctx = self.model.encode_neighbors(torch.as_tensor(
+                neighbors, dtype=torch.float32, device=self.device))
+            uncond = (self.model.uncond_context(ctx.shape[0], ctx.shape[1],
+                                                0.0).to(self.device)
+                      if guidance_scale != 1.0 else None)
+            b, c, h, w = z0.shape
+            m = torch.as_tensor(mask, dtype=torch.float32,
+                                device=self.device).broadcast_to(
+                (b, h, w, c)).permute(0, 3, 1, 2)
+            sampler = DDIMSamplerConfig(num_steps=steps,
+                                        guidance_scale=guidance_scale,
+                                        cfg_mode="shared")
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            z, _ = ddim_sample(make_denoise_fn(self.model), self.schedule,
+                               sampler, tuple(z0.shape), ctx, gen,
+                               uncond_context=uncond, mask=m, x0=z0)
+            out = self.first_stage.decode(z / cfg.scale_factor)
+            return {"inpaint_samples": to_uint8(out.permute(0, 2, 3, 1))}
+
+    def sample_retro_adaptive(self, batch_size: int, *,
+                              k_nn: Optional[int] = None, steps: int = 100,
+                              guidance_scale: float = 2.0,
+                              retro_every: int = 10, memsize=0.01,
+                              use_weights: bool = False, seed: int = 0
+                              ) -> Dict[str, Any]:
+        """Adaptive re-retrieval (the reference's DDIMRetroSampler,
+        ddim.py:270-415): queries drawn as in `sample_unconditional`, then
+        every `retro_every` DDIM steps the current pred_x0 is decoded,
+        CLIP-embedded and searched, and its neighbours become the context,
+        all on the pipeline's device. Needs CLIP weights and a database."""
+        if self.retrieval is None:
+            raise ValueError("retro sampling requires a database")
+        if self.clip is None:
+            raise ValueError("retro sampling requires CLIP weights")
+        cfg = self.config
+        k_nn = k_nn or cfg.k_nn
+        eng = self.retrieval
+        q_emb = _query_embeddings(eng, self.memory, batch_size, memsize,
+                                  use_weights, None, seed)
+        with torch.inference_mode():
+            init_ctx = eng.search(q_emb, k=k_nn)["embeddings"]
+
+            def reembed(pred_x0):
+                img = self.first_stage.decode(pred_x0 / cfg.scale_factor)
+                emb = embed_images(self.clip, img.permute(0, 2, 3, 1))
+                _, nns = knn_search(eng.db_norm, l2_normalize(emb), k_nn)
+                return gather_unnormalized(eng.db_norm, eng.row_norms, nns)
+
+            uncond = (self.model.uncond_context(batch_size, k_nn, 0.0)
+                      .to(self.device) if guidance_scale != 1.0 else None)
+            sampler = DDIMSamplerConfig(num_steps=steps,
+                                        guidance_scale=guidance_scale,
+                                        cfg_mode="shared")
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            z = ddim_retro_sample(
+                make_denoise_fn(self.model), self.schedule, sampler,
+                (batch_size, cfg.channels, cfg.image_size, cfg.image_size),
+                init_ctx, gen, reembed_fn=reembed, retro_every=retro_every,
+                uncond_context=uncond)
+            out = self.first_stage.decode(z / cfg.scale_factor)
+            return {"retro_adaptive_samples": to_uint8(
+                out.permute(0, 2, 3, 1))}
 
     # ---------- int8 serving ----------
 
@@ -295,6 +425,8 @@ class RARMPipeline:
                  first_stage_params: Mapping[str, Any],
                  pool: Optional[DataPool] = None,
                  memory: Optional[NNMemory] = None,
+                 clip_params: Optional[Mapping[str, Any]] = None,
+                 clip_config: Optional[ClipConfig] = None,
                  dtype: torch.dtype = torch.bfloat16, device="cuda"):
         self.config = config
         self.device = torch.device(device)
@@ -311,6 +443,15 @@ class RARMPipeline:
         self.memory = memory
         self.retrieval = (RetrievalEngine(pool, device=self.device)
                           if pool is not None else None)
+        self.clip = (bind_clip(clip_params, clip_config, self.device, dtype)
+                     if clip_params is not None else None)
+
+    def embed_caption(self, caption: str, batch_size: int) -> torch.Tensor:
+        """The caption's CLIP text embedding [batch_size, D] f32 on the
+        pipeline's device."""
+        if self.clip is None:
+            raise ValueError("caption sampling requires CLIP weights")
+        return encode_captions(self.clip, [caption] * batch_size)
 
     def sample_unconditional(self, batch_size: int, *, k_nn: int = 4,
                              top_k: int = 256, temperature: float = 1.0,

@@ -4,7 +4,9 @@ The inverses of `rdm_tpu/utils/torch_convert.py`: `unet_state_dict_from_jax`
 undoes `convert_unet`, `vq_state_dict_from_jax` undoes `convert_autoencoder`
 (encoder, quant_conv, decoder, post_quant_conv, codebook),
 `rdm_state_dict_from_jax` adds `unconditional_guidance_vex` (and `logvar`),
-`rarm_state_dict_from_jax` undoes `convert_rarm_transformer`, and
+`rarm_state_dict_from_jax` undoes `convert_rarm_transformer`,
+`clip_state_dict_from_jax` undoes `convert_clip` (and, for the RN50 tower,
+`convert_clip_resnet_visual`, batch statistics into the running buffers), and
 `train_state_from_jax` carries a whole JAX train state (params, Adam
 moments, counts, EMA). With them both implementations run on the same
 weights. Inputs are nested dicts of array
@@ -29,8 +31,8 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from rdm_tpu_torch.config import (AutoencoderConfig, RARMConfig, RDMConfig,
-                                  UNetConfig)
+from rdm_tpu_torch.config import (AutoencoderConfig, ClipConfig, RARMConfig,
+                                  RDMConfig, UNetConfig)
 
 
 def _tree(params: Mapping[str, Any]) -> Mapping[str, Any]:
@@ -304,6 +306,77 @@ def vq_state_dict_from_jax(params: Mapping[str, Any], cfg: AutoencoderConfig
     _ae_trunk(m, cfg, "decoder")
     m.conv("post_quant_conv", "post_quant_conv")
     m.copy("quantize/embedding", "quantize.embedding.weight")
+    return m.sd
+
+
+# ------------------------------------------------------------ CLIP
+
+def _clip_block(m: _Inverse, fb: str, tb: str) -> None:
+    """ResidualAttentionBlock: the packed in_proj Dense becomes
+    nn.MultiheadAttention's in_proj_weight / in_proj_bias."""
+    m.norm(f"{fb}/ln_1", f"{tb}.ln_1", "LayerNorm_0")
+    m.norm(f"{fb}/ln_2", f"{tb}.ln_2", "LayerNorm_0")
+    m.put(f"{tb}.attn.in_proj_weight",
+          np.transpose(m.get(f"{fb}/attn/in_proj/kernel")))
+    m.copy(f"{fb}/attn/in_proj/bias", f"{tb}.attn.in_proj_bias")
+    m.linear(f"{fb}/attn/out_proj", f"{tb}.attn.out_proj")
+    m.linear(f"{fb}/mlp_fc", f"{tb}.mlp.c_fc")
+    m.linear(f"{fb}/mlp_proj", f"{tb}.mlp.c_proj")
+
+
+def _clip_bn(m: _Inverse, stats: _Inverse, fmod: str, tmod: str) -> None:
+    """flax BatchNorm params + batch_stats -> BatchNorm2d weight, bias and
+    running statistics."""
+    m.copy(f"{fmod}/scale", f"{tmod}.weight")
+    m.copy(f"{fmod}/bias", f"{tmod}.bias")
+    m.put(f"{tmod}.running_mean", stats.get(f"{fmod}/mean"))
+    m.put(f"{tmod}.running_var", stats.get(f"{fmod}/var"))
+    m.sd[f"{tmod}.num_batches_tracked"] = torch.tensor(0)
+
+
+def clip_state_dict_from_jax(variables: Mapping[str, Any], cfg: ClipConfig
+                             ) -> Dict[str, torch.Tensor]:
+    """rdm_tpu CLIP variables ({'params'} and, for the ModifiedResNet
+    tower, {'batch_stats'}) -> port `CLIP` state dict in OpenAI's names:
+    the inverse of `convert_clip` and `convert_clip_resnet_visual`."""
+    m = _Inverse(_tree(variables))
+    if cfg.resnet_layers is None:
+        m.conv("visual/conv1", "visual.conv1")
+        m.copy("visual/class_embedding", "visual.class_embedding")
+        m.copy("visual/positional_embedding", "visual.positional_embedding")
+        m.norm("visual/ln_pre", "visual.ln_pre", "LayerNorm_0")
+        for i in range(cfg.vision_layers):
+            _clip_block(m, f"visual/block_{i}",
+                        f"visual.transformer.resblocks.{i}")
+        m.norm("visual/ln_post", "visual.ln_post", "LayerNorm_0")
+        m.copy("visual/proj", "visual.proj")
+    else:
+        stats = _Inverse(variables["batch_stats"])
+        for i in (1, 2, 3):
+            m.conv(f"visual/conv{i}", f"visual.conv{i}")
+            _clip_bn(m, stats, f"visual/bn{i}", f"visual.bn{i}")
+        for stage, blocks in enumerate(cfg.resnet_layers):
+            for blk in range(blocks):
+                f = f"visual/layer{stage + 1}_{blk}"
+                t = f"visual.layer{stage + 1}.{blk}"
+                for c in (1, 2, 3):
+                    m.conv(f"{f}/conv{c}", f"{t}.conv{c}")
+                    _clip_bn(m, stats, f"{f}/bn{c}", f"{t}.bn{c}")
+                if m.has(f"{f}/downsample_conv"):
+                    m.conv(f"{f}/downsample_conv", f"{t}.downsample.0")
+                    _clip_bn(m, stats, f"{f}/downsample_bn",
+                             f"{t}.downsample.1")
+        m.copy("visual/attnpool/positional_embedding",
+               "visual.attnpool.positional_embedding")
+        for p in ("q_proj", "k_proj", "v_proj", "c_proj"):
+            m.linear(f"visual/attnpool/{p}", f"visual.attnpool.{p}")
+    m.copy("text/token_embedding/embedding", "token_embedding.weight")
+    m.copy("text/positional_embedding", "positional_embedding")
+    for i in range(cfg.transformer_layers):
+        _clip_block(m, f"text/block_{i}", f"transformer.resblocks.{i}")
+    m.norm("text/ln_final", "ln_final", "LayerNorm_0")
+    m.copy("text/text_projection", "text_projection")
+    m.copy("logit_scale", "logit_scale")
     return m.sd
 
 

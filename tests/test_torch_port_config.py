@@ -3,7 +3,8 @@
 The port mirrors the JAX package's config dataclasses field for field
 (they live in flax modules, so the port cannot import them); these tests
 hold the fields, defaults, constructors and derived values equal. The port
-must never import jax, and `chip_smoke.py` must fail without a GPU.
+must never import jax (nor `regex`, which the machine with the card
+lacks), and `chip_smoke.py` must fail without a GPU.
 """
 
 import dataclasses
@@ -15,6 +16,7 @@ import sys
 import pytest
 
 from rdm_tpu.models.autoencoder import AutoencoderConfig as JAutoencoder
+from rdm_tpu.models.clip import ClipConfig as JClip
 from rdm_tpu.models.rarm import RARMConfig as JRARM
 from rdm_tpu.models.rdm import RDMConfig as JRDM
 from rdm_tpu.models.unet import UNetConfig as JUNet
@@ -32,6 +34,7 @@ PAIRS = {
     "rarm": (port.RARMConfig, JRARM),
     "ddim": (port.DDIMSamplerConfig, JDDIM),
     "trainer": (TrainerConfig, JTrainer),
+    "clip": (port.ClipConfig, JClip),
 }
 
 PORT_MODULES = [
@@ -46,6 +49,8 @@ PORT_MODULES = [
     "rdm_tpu_torch.ops.flash_attention", "rdm_tpu_torch.training.optim",
     "rdm_tpu_torch.training.ema", "rdm_tpu_torch.training.train_state",
     "rdm_tpu_torch.training.checkpoint", "rdm_tpu_torch.training.trainer",
+    "rdm_tpu_torch.ops.knn_kernel", "rdm_tpu_torch.models.clip",
+    "rdm_tpu_torch.models.retrievers", "rdm_tpu_torch.utils.tokenizer",
 ]
 
 
@@ -66,7 +71,7 @@ def test_fields_and_defaults_match(name):
 @pytest.mark.parametrize("name,ctor", [
     ("unet", "imagenet_rdm"), ("unet", "ffhq_rdm"), ("rdm", "imagenet"),
     ("rdm", "ffhq"), ("autoencoder", "vq_f4"), ("autoencoder", "vq_f16"),
-    ("autoencoder", "kl_f8"), ("rarm", "imagenet_dogs")])
+    ("autoencoder", "kl_f8"), ("rarm", "imagenet_dogs"), ("clip", "vit_b32")])
 def test_named_configs_match(name, ctor):
     mine, ref = PAIRS[name]
     assert (dataclasses.asdict(getattr(mine, ctor)())
@@ -84,15 +89,22 @@ def test_derived_values_match():
         assert mine.num_resolutions == ref.num_resolutions
         assert mine.downsample_factor == ref.downsample_factor
     assert port.RARMConfig().inner_dim == JRARM().inner_dim
+    for kw in ({}, {"vision_width": 64, "transformer_width": 128,
+                    "head_dim": 32, "resnet_layers": (3, 4, 6, 3)}):
+        mine, ref = port.ClipConfig(**kw), JClip(**kw)
+        assert mine.vision_heads == ref.vision_heads
+        assert mine.transformer_heads == ref.transformer_heads
 
 
 def test_port_never_imports_jax():
     code = ("import sys\n"
             f"for m in {PORT_MODULES!r}:\n"
             "    __import__(m)\n"
+            "from rdm_tpu_torch.utils.tokenizer import tokenize\n"
+            "tokenize(['a caption, ½ of Ⅻ'])\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
-            "                                    'rdm_tpu'))\n"
+            "                                    'rdm_tpu', 'regex'))\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

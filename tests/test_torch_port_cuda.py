@@ -1,6 +1,6 @@
 """rdm_tpu_torch's CUDA kernels (the SpatialTransformer block kernels, their
-int8 variants, the RARM decode kernels and the flash-attention forward and
-backward) against their plain PyTorch versions, on the card, with the grad
+int8 variants, the RARM decode kernels, the flash-attention forward and
+backward and the kNN pair) against their plain PyTorch versions, on the card, with the grad
 guard and the training route through the flash kernels.
 
 This file imports no JAX, so it also runs on a GPU machine without JAX:
@@ -14,10 +14,14 @@ C = 96 not a multiple of the 64-column tile, 16 context tokens; for the
 decode kernels B = 3, C = 192 (3 heads of 64), pos 0 and T - 1, 1 and 16
 context rows, also in the int8_weights / int8_kv variants; for the int8
 kernels R = 80 rows, a half-filled last 128-channel scale group and two
-512-row q scale cells; for post_ff R = 80 rows and 16 context tokens).
+512-row q scale cells; for post_ff R = 80 rows and 16 context tokens; for
+the kNN N not a multiple of the 64-row chunk, B = 17 and 40 over two and
+three 16-query tiles, k = 1 and 128, duplicate rows in different slices).
 Tolerance: max|err| <= 2e-2 x max|ref| in bf16, as chip_smoke.py sets it
 (kernel and plain version round to bf16 at different points); the int8
-cache commit as chip_smoke.py phase 12 holds it.
+cache commit as chip_smoke.py phase 12 holds it; the kNN as phase 17
+holds it (scores within 1e-5, ids equal but where the plain scores of two
+neighbouring ranks lie within 2e-6).
 """
 
 import pytest
@@ -29,6 +33,7 @@ from rdm_tpu_torch.models.layers import TransformerBlock
 from rdm_tpu_torch.ops import block_kernel as bk
 from rdm_tpu_torch.ops import decode_kernel as dk
 from rdm_tpu_torch.ops import flash_attention as fa
+from rdm_tpu_torch.ops import knn_kernel as kk
 
 TOL = 2e-2
 HD = 32
@@ -598,3 +603,49 @@ def test_spatial_transformer_trains_through_flash_kernels(cuda):
     assert not any(bk.launch_counts().values())
     assert all(p.grad is not None and torch.isfinite(p.grad).all()
                for p in st.parameters())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,d,k", [(1, 64, 16, 1), (17, 5000, 128, 7),
+                                     (3, 777, 512, 128), (40, 20000, 64, 20)])
+def test_knn_kernel_matches_plain(cuda, b, n, d, k):
+    g = torch.Generator(device="cuda").manual_seed(n)
+    db = torch.nn.functional.normalize(
+        torch.randn(n, d, generator=g, device="cuda"), dim=1).bfloat16()
+    dup = [0, n // 3, n // 2, n - 1]  # one row in (up to) four slices
+    db[dup] = db[n // 2].clone()
+    q = torch.nn.functional.normalize(
+        torch.randn(b, d, generator=g, device="cuda"), dim=1)
+    q[0] = db[n // 2].float()
+    kk.reset_launch_counts()
+    s, i = kk.knn_topk(db, q, k)
+    torch.cuda.synchronize()
+    assert kk.launch_counts() == {"knn": 2}
+    assert s.shape == i.shape == (b, k) and i.dtype == torch.int64
+    assert ((i >= 0) & (i < n)).all()
+    # the whole ranking (f64 sums, stable sort), so that a near tie at the
+    # last rank shows even at k = 128, the most the plain version takes
+    ps, pi = torch.sort((q.bfloat16().double() @ db.double().t()).float(),
+                        dim=1, descending=True, stable=True)
+    assert torch.equal(kk.knn_search_reference(db, q, k)[1], pi[:, :k])
+    assert (s - ps[:, :k]).abs().max().item() <= 1e-5
+    near = torch.zeros_like(ps, dtype=torch.bool)
+    pair = (ps[:, :-1] - ps[:, 1:]).abs() <= 2e-6
+    near[:, :-1] |= pair
+    near[:, 1:] |= pair
+    assert not ((i != pi[:, :k]) & ~near[:, :k]).any()
+    assert i[0, :min(k, 4)].tolist() == dup[:min(k, 4)]
+
+
+@pytest.mark.cuda
+def test_knn_wrapper_raises_instead_of_falling_back(cuda):
+    db = torch.randn(300, 64, device="cuda")
+    q = torch.randn(2, 64, device="cuda")
+    with pytest.raises(ValueError, match="bf16"):
+        kk.knn_topk(db, q, 4)  # an f32 table
+    with pytest.raises(ValueError, match="queries on"):
+        kk.knn_topk(db.bfloat16(), q.cpu(), 4)
+    with pytest.raises(ValueError, match="k="):
+        kk.knn_topk(db.bfloat16(), q, 301)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        kk.knn_topk(db[:, :40].contiguous().bfloat16(), q[:, :40], 4)
