@@ -14,12 +14,19 @@ Phases (each prints one line or a few; any failure raises and the script
 exits non-zero):
 
   1. device    CUDA must be available; prints nvidia-smi's name and power
-               limit of the card.
+               limit of the card, and its maximum SM clock.
   2. build     builds the hand-written CUDA kernels from rdm_tpu_torch/csrc.
   3. kernels   each block kernel against its plain PyTorch version at the
                three SpatialTransformer sites of the ImageNet U-Net
                (C/S/heads = 384/1024/12, 576/256/18, 960/64/30; 2B = 8
-               images, bf16): error and median CUDA-event times.
+               images, bf16): error and median CUDA-event times. The
+               attention core (packed_attn, csrc/attn_fwd_sm90.cuh) also
+               gives its device time (20 calls in a CUDA graph) beside
+               SDPA's, its exp2 floor (ex2 count / (132 SMs x 16 a clock x
+               the max SM clock)), its output equal bit for bit to
+               flash_fwd's on the same memory (one core), and the host
+               microseconds of one call (wrapper and bare launcher, beside
+               ln_qkv's launcher, which builds no tensor maps).
   4. forward   one full-width U-Net forward, CUDA bf16 (kernel path)
                against CPU f32 (plain path), x batch 1 with a 2-row
                (cond, uncond) context; each kernel must launch 16 times.
@@ -83,7 +90,9 @@ exits non-zero):
                KERNEL_TOL of its own max|ref|; median CUDA-event times of
                kernel, plain version, SDPA (forward; forward + backward
                through autograd) and the eager-recompute backward
-               (RDM_TPU_FLASH_BWD=xla); bound.
+               (RDM_TPU_FLASH_BWD=xla); bound; for the forward also its
+               device time (a CUDA graph) beside SDPA's and the exp2
+               floor, as in phase 3.
  16. train     RDMTrainer at the ImageNet RDM width (VQ-f4 first stage,
                p_uncond 0.1, batch 40, bf16 compute, f32 master weights,
                random 256^2 images, neighbours from phase 5's table):
@@ -132,12 +141,14 @@ SDPA forward, and forward + backward), `launches` over the first
 trainer's 8 steps of phase 16; knn the op point B = 16, k = 4 of phase 17
 (every case under `cases`; `library_ms` torch.topk(q @ db.T), two calls
 with no promise on tie order), `launches` over phase 18's requests and
-nn-memory build.
+nn-memory build. The rows of packed_attn and flash_fwd, one core, name its
+header beside their launchers under `sources`.
 The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import subprocess
@@ -222,6 +233,8 @@ FLASH_INFO = {
     "flash_bwd": ("rdm_tpu_torch/csrc/flash_attn_bwd.cu",
                   "rdm_tpu/ops/flash_attention.py:126"),
 }
+# the attention-forward core that packed_attn and flash_fwd launch
+ATTN_CORE = "rdm_tpu_torch/csrc/attn_fwd_sm90.cuh"
 KNN_INFO = ("rdm_tpu_torch/csrc/knn_topk.cu",
             "rdm_tpu/ops/knn_kernel.py:57")
 # (B, k) of phase 17: the RDM requests' batch 4, the kNN op point B = 16
@@ -292,6 +305,10 @@ SERVE_STEPS = 50
 # their type and its bytes (inputs read once, outputs written once) over
 # the memory rate.
 PEAK_BF16, PEAK_INT8, HBM_BYTES_S = 989e12, 1979e12, 3.35e12
+# The SFU's rate, which bounds attention at small head_dim: 16 ex2 results
+# per SM per clock, on the H100 SXM's 132 SMs.
+SMS, EX2_PER_SM_CLOCK = 132, 16
+HOST_CALLS = 200  # back-to-back calls that time one call's host cost
 
 
 def bound(ops16: float = 0.0, ops8: float = 0.0, nbytes: float = 0.0):
@@ -332,6 +349,54 @@ def block_cost(name: str, c: int, s: int, t: int = CONTEXT,
     mm = 6 * r * c * f  # geglu_ff
     nbytes = 2 * r * c * 2 + 3 * c * f * wb + (2 * f + 3 * c) * 4
     return (0, mm, nbytes + (2 * f + c) * 4) if q8 else (mm, 0, nbytes)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm)."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0]
+    return float(mhz) * 1e6
+
+
+def exp2_floor_ms(n_exp: float) -> float:
+    """Least time of n_exp ex2 on the SFU at the maximum SM clock."""
+    return n_exp / (SMS * EX2_PER_SM_CLOCK * sm_clock_hz()) * 1e3
+
+
+def graph_ms(fn, calls: int = 20) -> float:
+    """Device time of one fn() call: `calls` calls captured in a CUDA graph
+    and replayed (median over TIMING_RUNS replays), so no host work sits
+    between them, as it does in median_ms for a short kernel."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = median_ms(graph.replay) / calls
+    del graph
+    return ms
+
+
+def host_us(fn, calls: int = HOST_CALLS) -> float:
+    """Host microseconds of one fn() call: `calls` calls back to back with
+    no synchronisation (the launch queue takes them all), wall time over
+    the count."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def _sdpa_ms(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> float:
@@ -398,6 +463,8 @@ def phase_device() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     print(smi, flush=True)
+    say("device", f"max SM clock {sm_clock_hz() / 1e6:.0f} MHz "
+        "(nvidia-smi clocks.max.sm; the exp2 floors use it)")
     say("device", f"{torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
@@ -449,6 +516,55 @@ def _flat(out) -> torch.Tensor:
     """A kernel's output (a tensor or a tuple of them) as one f32 vector."""
     outs = out if isinstance(out, tuple) else (out,)
     return torch.cat([o.reshape(-1).float() for o in outs])
+
+
+def _attn_core_site(t: dict, q, k, v, heads: int, hd: int) -> dict:
+    """Phase 3's extra numbers of the attention core at one site: device
+    time beside SDPA's, the exp2 floor, the host cost of one call, and
+    packed_attn equal bit for bit to flash_fwd on the same memory."""
+    import torch.nn.functional as F
+
+    from rdm_tpu_torch.ops import _build
+    from rdm_tpu_torch.ops import block_kernel as bk
+    from rdm_tpu_torch.ops import flash_attention as fa
+
+    b, s, c = q.shape
+    shp = (b, s, heads, hd)
+    packed = bk.packed_attn(q, k, v, heads=heads, head_dim=hd)
+    flash = fa.flash_fwd(q.view(shp), k.view(shp), v.view(shp),
+                         scale=hd ** -0.5, causal=False)
+    if not torch.equal(packed, flash.view(b, s, c)):
+        raise RuntimeError(f"packed_attn and flash_fwd differ at C={c}, "
+                           f"S={s}: they run one core")
+    bhsd = [a.view(shp).transpose(1, 2).contiguous() for a in (q, k, v)]
+    lib, stream = _build.load(), torch.cuda.current_stream().cuda_stream
+    o = torch.empty_like(q)
+    x2, r = t["x"].reshape(b * s, c), b * s
+    qkv = [torch.empty_like(x2) for _ in range(3)]
+    out = {
+        "device_ms": graph_ms(
+            lambda: bk.packed_attn(q, k, v, heads=heads, head_dim=hd)),
+        "library_device_ms": graph_ms(
+            lambda: F.scaled_dot_product_attention(*bhsd)),
+        "exp2_floor_ms": exp2_floor_ms(b * heads * s * s),
+        "equal_flash_fwd": True,
+        "host_us": host_us(
+            lambda: bk.packed_attn(q, k, v, heads=heads, head_dim=hd)),
+        "launcher_host_us": host_us(lambda: lib.rdm_packed_attn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s,
+            heads, hd ** -0.5 * 1.4426950408889634, stream)),
+        "ln_qkv_launcher_host_us": host_us(lambda: lib.rdm_ln_qkv(
+            x2.data_ptr(), t["n1s"].data_ptr(), t["n1b"].data_ptr(),
+            t["wqkv"].data_ptr(), *(a.data_ptr() for a in qkv), r, c,
+            bk._tiles_per_block(3 * c, r), stream)),
+    }
+    say("kernels", f"attention core C={c:4d} S={s:4d}: device "
+        f"{out['device_ms']:.4f} ms (SDPA {out['library_device_ms']:.4f}), "
+        f"exp2 floor {out['exp2_floor_ms']:.4f} ms, equal to flash_fwd; "
+        f"host per call {out['host_us']:.1f} us (bare launcher "
+        f"{out['launcher_host_us']:.1f}, ln_qkv's without tensor maps "
+        f"{out['ln_qkv_launcher_host_us']:.1f})")
+    return out
 
 
 def phase_kernels() -> dict:
@@ -518,6 +634,7 @@ def phase_kernels() -> dict:
                 site["library_ms"] = _sdpa_ms(
                     *(a.reshape(shp).transpose(1, 2) for a in (q, k, v)))
                 res["library_ms"] += site["library_ms"]
+                site.update(_attn_core_site(t, q, k, v, heads, hd))
             res["sites"].append(site)
     for name, res in results.items():
         _sum_bound(res, [block_cost(name, c, s) for c, s, _ in SITES])
@@ -1774,6 +1891,11 @@ def phase_flash_kernels() -> dict:
                     "rel_err": {lab: rel for lab, _, rel in held}}
             if name == "flash_bwd":
                 case["eager_bwd_ms"] = median_ms(eager_bwd)
+            else:
+                case["device_ms"] = graph_ms(kern)
+                case["library_device_ms"] = graph_ms(library)
+                case["exp2_floor_ms"] = exp2_floor_ms(
+                    b * h * s * s / (2 if causal else 1))
             say("flash_kernels", f"{name} [{b},{s},{h},{d}] causal="
                 f"{causal}: /max|ref| " + ", ".join(
                     f"{lab} {rel:.3e}" for lab, _, rel in held)
@@ -1781,7 +1903,10 @@ def phase_flash_kernels() -> dict:
                 f"{plain_ms:.4f} ms, SDPA {'fwd+bwd ' if name == 'flash_bwd' else ''}"
                 f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({by})"
                 + (f"; eager-recompute backward {case['eager_bwd_ms']:.4f} ms"
-                   if name == "flash_bwd" else ""))
+                   if name == "flash_bwd" else
+                   f"; device {case['device_ms']:.4f} ms (SDPA "
+                   f"{case['library_device_ms']:.4f}), exp2 floor "
+                   f"{case['exp2_floor_ms']:.4f} ms"))
             r = res[name]
             r["max_abs_err"] = max(r["max_abs_err"], err)
             r["ms"] += ms
@@ -2335,7 +2460,12 @@ def main() -> int:
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                 **extra}
 
-    rows = [row(n, KERNEL_INFO[n], launches, r, sites=r["sites"])
+    core = {"packed_attn": {"sources": [KERNEL_INFO["packed_attn"][0],
+                                        ATTN_CORE]},
+            "flash_fwd": {"sources": [FLASH_INFO["flash_fwd"][0],
+                                      ATTN_CORE]}}
+    rows = [row(n, KERNEL_INFO[n], launches, r, sites=r["sites"],
+                **core.get(n, {}))
             for n, r in kernels.items()]
     rows += [row(n, INT8_INFO[n], int8_launches, r, sites=r["sites"])
              for n, r in int8_kernels.items()]
@@ -2353,7 +2483,8 @@ def main() -> int:
                     request_s=post_ff["request_s"],
                     forward_rel_l2=post_ff["forward_rel_l2"]))
     rows += [row(n, FLASH_INFO[n], train["launches"], r, cases=r["cases"],
-                 train={k: v for k, v in train.items() if k != "launches"})
+                 train={k: v for k, v in train.items() if k != "launches"},
+                 **core.get(n, {}))
              for n, r in flash.items()]
     rows.append(row("knn", KNN_INFO, {"knn": clip["launches"]}, knn,
                     cases=knn["cases"], near_tie_ranks=knn["near_tie_ranks"],

@@ -114,6 +114,10 @@ def profile_decode(decode, steps: int) -> dict:
         per_kernel[name][1] += 1
     device_us = sum(d for _, _, d in ev)
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:12]
+    # the attention-forward core (csrc/attn_fwd_sm90.cuh), which packed_attn
+    # and flash_fwd launch, whether or not it is among the top kernels
+    core = [v for n, v in per_kernel.items() if "attn_fwd_kernel" in n]
+    core_us = sum(t for t, _ in core)
     return {
         "wall_ms_per_step": wall_us / steps / 1e3,
         "device_ms_per_step": device_us / steps / 1e3,
@@ -121,7 +125,10 @@ def profile_decode(decode, steps: int) -> dict:
         "launches_per_step": len(ev) / steps,
         "top": [{"name": n[:90], "ms_per_step": t / steps / 1e3,
                  "share": t / device_us, "per_step": c / steps}
-                for n, (t, c) in top]}
+                for n, (t, c) in top],
+        "attn_core": {"ms_per_step": core_us / steps / 1e3,
+                      "share": core_us / device_us,
+                      "per_step": sum(c for _, c in core) / steps}}
 
 
 def main() -> int:

@@ -25,7 +25,8 @@ first request. Then measures, in this order:
             features (encoder reuse) in bf16 and int8: device time,
             host-clock wall time of the same synchronised forward, idle
             share (1 - the union of the device intervals / wall),
-            launches, and device time per kernel.
+            launches, device time per kernel, and the attention core's
+            (packed_attn: csrc/attn_fwd_sm90.cuh) time and share.
 
 Prints one line per measurement, the card's name, power limit, SM clock
 and power draw first and last, and writes everything to --out as JSON.
@@ -159,6 +160,10 @@ def main() -> int:
                 for k in r["top"]:
                     print(f"    {k['ms_per_step']:.4f} ms {k['share']:7.2%} "
                           f"x{k['per_step']:g}  {k['name']}", flush=True)
+                a = r["attn_core"]
+                print(f"    attention core (packed_attn): "
+                      f"{a['ms_per_step']:.4f} ms {a['share']:7.2%} "
+                      f"x{a['per_step']:g}", flush=True)
     os.environ.pop("RDM_TPU_INT8_ATTN")
     os.environ.pop("RDM_TPU_SPLIT_K3")
     out["card_after"] = card()

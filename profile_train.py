@@ -17,7 +17,8 @@ for the eager-recompute backward (RDM_TPU_FLASH_BWD=xla), in turns:
             idle share (1 - the union of the device intervals / wall),
             launches per step, and device time by kernel (the flash
             kernels, the first stage's encode and the optimizer's
-            foreach kernels among them);
+            foreach kernels among them; the forward kernel, the attention
+            core of csrc/attn_fwd_sm90.cuh, always);
   memory    peak device memory of the steps.
 
 Prints one line per measurement, the card's name, power limit, SM clock
@@ -112,6 +113,10 @@ def main() -> int:
                 print(f"  {mode}: {t['ms_per_step']:9.3f} ms/step "
                       f"{t['share']:.3f} x{t['per_step']:.0f} {t['name']}",
                       flush=True)
+            a = out[mode]["profile"]["attn_core"]
+            print(f"  {mode}: {a['ms_per_step']:9.3f} ms/step "
+                  f"{a['share']:.3f} x{a['per_step']:.0f} attention core "
+                  "(flash_fwd)", flush=True)
     out["card_after"] = card()
     print(out["card_after"], flush=True)
     with open(args.out, "w") as f:

@@ -3,205 +3,19 @@
 // Replaces rdm_tpu/ops/block_kernel.py:_packed_attn_kernel. For q, k, v
 // [B, S, C] bf16 with head h at channels [32h, 32h + 32):
 //   o[b, :, h] = softmax(q_h k_h^T * d^-1/2) v_h        (f32 scores)
-// written into o [B, S, C] bf16 in the same layout, so no BSHD transpose
-// exists on either side. The TPU kernel's lane masks (several heads packed
-// into one 128-lane group) and its multi-image grid are TPU artifacts and
-// are not carried over: here one thread block owns one (image, head,
-// 64-query tile) and each of its four warps 16 query rows.
-//
-// Math: scores are scaled by d^-1/2 * log2(e) and exponentiated with exp2,
-// as on the TPU. The softmax runs online over 64-key tiles (running row
-// max m, running f32 denominator l); probabilities are rounded to bf16 for
-// the PV product and the output is divided by l at the end, which equals
-// the TPU kernel's full-row softmax up to the bf16 rounding of P.
-//
-// What bounds it on the H100: 4*B*S^2*C FLOP (12.9/1.2/0.13 GFLOP at the
-// S = 1024/256/64, C = 384/576/960 sites, B = 8) over 8*B*S*C bytes of
-// q/k/v/o; with head_dim 32 every product has depth 32, so wmma issue rate
-// and the per-tile softmax (exp2 over [16, 64] per warp) bound it, not
-// memory. K/V tiles are re-read from L2 once per 64-query tile.
-#include "block_common.cuh"
-
-namespace rdmk {
-
-constexpr int HD = 32;        // head_dim
-constexpr int AQ = 64;        // queries per block (16 per warp)
-constexpr int AK = 64;        // keys per tile
-constexpr int kLdH = HD + 8;  // bf16 row stride of q/k/v tiles
-constexpr int kLdS = AK + 4;  // f32 row stride of a warp's score tile
-constexpr int kLdP = AK + 8;  // bf16 row stride of a warp's P tile
-constexpr int kLdO = HD + 4;  // f32 row stride of a warp's output tile
-
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
-    FragBT;
-
-constexpr size_t kQBytes = align128((size_t)AQ * kLdH * sizeof(bf16));
-constexpr size_t kKVBytes = align128((size_t)AK * kLdH * sizeof(bf16));
-constexpr size_t kSBytes = align128((size_t)4 * 16 * kLdS * sizeof(float));
-constexpr size_t kPBytes = align128((size_t)4 * 16 * kLdP * sizeof(bf16));
-constexpr size_t kOBytes = align128((size_t)4 * 16 * kLdO * sizeof(float));
-constexpr size_t kRowBytes = align128((size_t)3 * AQ * sizeof(float));
-constexpr size_t kAttnSmem =
-    kQBytes + 2 * kKVBytes + kSBytes + kPBytes + kOBytes + kRowBytes;
-
-__device__ __forceinline__ void load_head_tile(bf16* dst, const bf16* src,
-                                               int s0, int S, int C) {
-  // [64 rows, 32 channels] = 4 16-byte vectors per row, 2 per thread
-  for (int i = threadIdx.x; i < 64 * HD / 8; i += kThreads) {
-    const int r = i >> 2, v = i & 3;
-    const bool ok = s0 + r < S;
-    cp_async16(dst + r * kLdH + v * 8,
-               src + (size_t)(ok ? s0 + r : 0) * C + v * 8, ok);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-    packed_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, bf16* __restrict__ o,
-                       int S, int C, float scale_log2) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = reinterpret_cast<bf16*>(smem + kQBytes);
-  bf16* vs = reinterpret_cast<bf16*>(smem + kQBytes + kKVBytes);
-  float* ss = reinterpret_cast<float*>(smem + kQBytes + 2 * kKVBytes);
-  bf16* ps = reinterpret_cast<bf16*>(smem + kQBytes + 2 * kKVBytes + kSBytes);
-  float* os = reinterpret_cast<float*>(smem + kQBytes + 2 * kKVBytes +
-                                       kSBytes + kPBytes);
-  float* rows = reinterpret_cast<float*>(smem + kQBytes + 2 * kKVBytes +
-                                         kSBytes + kPBytes + kOBytes);
-  float* m_row = rows;          // running max (log2 domain)
-  float* l_row = rows + AQ;     // running denominator
-  float* a_row = rows + 2 * AQ; // rescale factor of the current tile
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q0 = blockIdx.x * AQ;
-  const size_t base = (size_t)blockIdx.z * S * C + (size_t)blockIdx.y * HD;
-
-  float* sw = ss + warp * 16 * kLdS;
-  bf16* pw = ps + warp * 16 * kLdP;
-  float* ow = os + warp * 16 * kLdO;
-  const int my_row = lane >> 1;        // two lanes per query row
-  const int half = lane & 1;
-
-  load_head_tile(qs, q + base, q0, S, C);
-  cp_async_commit();
-  for (int i = lane; i < 16 * kLdO; i += 32) ow[i] = 0.f;
-  if (lane < 16) {
-    m_row[warp * 16 + lane] = -INFINITY;
-    l_row[warp * 16 + lane] = 0.f;
-  }
-
-  for (int kt = 0; kt < S; kt += AK) {
-    load_head_tile(ks, k + base, kt, S, C);
-    load_head_tile(vs, v + base, kt, S, C);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-
-    // scores [16, 64] = q_w [16, 32] @ k_tile^T [32, 64]
-    FragC sc[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(sc[j], 0.f);
-#pragma unroll
-    for (int kk = 0; kk < HD; kk += 16) {
-      FragA fa;
-      wmma::load_matrix_sync(fa, qs + (warp * 16) * kLdH + kk, kLdH);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        FragBT fb;
-        wmma::load_matrix_sync(fb, ks + (j * 16) * kLdH + kk, kLdH);
-        wmma::mma_sync(sc[j], fa, fb, sc[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(sw + j * 16, sc[j], kLdS, wmma::mem_row_major);
-    __syncwarp();
-
-    // online softmax over this tile: each lane owns 32 of its row's 64 keys
-    float* srow = sw + my_row * kLdS + half * 32;
-    float mx = -INFINITY;
-#pragma unroll 8
-    for (int c = 0; c < 32; ++c) {
-      const int key = kt + half * 32 + c;
-      const float s = key < S ? srow[c] * scale_log2 : -INFINITY;
-      srow[c] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_old = m_row[warp * 16 + my_row];
-    const float m_new = fmaxf(m_old, mx);
-    const float alpha = exp2f(m_old - m_new);
-    float sum = 0.f;
-    bf16* prow = pw + my_row * kLdP + half * 32;
-#pragma unroll 8
-    for (int c = 0; c < 32; ++c) {
-      const float p = exp2f(srow[c] - m_new);
-      sum += p;
-      prow[c] = __float2bfloat16(p);
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    __syncwarp();  // both lanes of a row have read m_old
-    if (half == 0) {
-      m_row[warp * 16 + my_row] = m_new;
-      l_row[warp * 16 + my_row] = l_row[warp * 16 + my_row] * alpha + sum;
-      a_row[warp * 16 + my_row] = alpha;
-    }
-    __syncwarp();
-
-    // pv [16, 32] = p [16, 64] @ v_tile [64, 32], staged over the scores
-    FragC pv[2];
-    wmma::fill_fragment(pv[0], 0.f);
-    wmma::fill_fragment(pv[1], 0.f);
-#pragma unroll
-    for (int kk = 0; kk < AK; kk += 16) {
-      FragA fa;
-      wmma::load_matrix_sync(fa, pw + kk, kLdP);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        FragB fb;
-        wmma::load_matrix_sync(fb, vs + kk * kLdH + j * 16, kLdH);
-        wmma::mma_sync(pv[j], fa, fb, pv[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(sw + j * 16, pv[j], kLdS, wmma::mem_row_major);
-    __syncwarp();
-
-    // o = o * alpha + pv, each lane 16 of its row's 32 channels
-    const float a = a_row[warp * 16 + my_row];
-    float* orow = ow + my_row * kLdO + half * 16;
-    const float* prv = sw + my_row * kLdS + half * 16;
-#pragma unroll
-    for (int c = 0; c < 16; ++c) orow[c] = orow[c] * a + prv[c];
-    __syncthreads();  // every warp is done with this k/v tile
-  }
-
-  const int gq = q0 + warp * 16 + my_row;
-  if (gq < S) {
-    const float inv = 1.0f / l_row[warp * 16 + my_row];
-    float outv[16];
-    const float* orow = ow + my_row * kLdO + half * 16;
-#pragma unroll
-    for (int c = 0; c < 16; ++c) outv[c] = orow[c] * inv;
-    bf16* dst = o + base + (size_t)gq * C + half * 16;
-    store8(dst, outv);
-    store8(dst + 8, outv + 8);
-  }
-}
-
-}  // namespace rdmk
+// written into o [B, S, C] bf16 in the same layout. [B, S, C] with 32-wide
+// heads is exactly BSHD [B, S, C / 32, 32], so this is a launcher over the
+// Hopper attention core (attn_fwd_sm90.cuh) that csrc/flash_attn_fwd.cu
+// shares, with Sq = Sk = S, H = heads, D = 32, non-causal, on the same
+// memory: the two give bit-equal outputs. The TPU kernel's lane masks
+// (several heads packed into one 128-lane group) and its multi-image grid
+// are TPU artifacts and are not carried over. The core's note says what
+// bounds it and what its design does about it.
+#include "attn_fwd_sm90.cuh"
 
 extern "C" int rdm_packed_attn(const void* q, const void* k, const void* v,
                                void* o, int B, int S, int heads,
                                float scale_log2, void* stream) {
-  using namespace rdmk;
-  cudaError_t e = allow_smem(packed_attn_kernel, kAttnSmem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((S + AQ - 1) / AQ, heads, B);
-  packed_attn_kernel<<<grid, kThreads, kAttnSmem, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, S,
-      heads * HD, scale_log2);
-  return (int)cudaGetLastError();
+  return rdmk::attn::launch_attn_fwd<32, false>(
+      q, k, v, o, B, S, S, heads, scale_log2, (cudaStream_t)stream);
 }

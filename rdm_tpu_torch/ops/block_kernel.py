@@ -7,7 +7,10 @@ each residual; reference attention.py:77-96) runs as four kernels:
   1. `ln_qkv`      - LN1 + the [C, 3C] q/k/v projection
                      (csrc/ln_qkv.cu; replaces `_ln_qkv_kernel`)
   2. `packed_attn` - softmax(q k^T d^-1/2) v per head
-                     (csrc/packed_attn.cu; replaces `_packed_attn_kernel`)
+                     (csrc/packed_attn.cu; replaces `_packed_attn_kernel`):
+                     [B, S, C] read as BSHD [B, S, heads, 32] by the
+                     attention core that `flash_fwd` also launches
+                     (csrc/attn_fwd_sm90.cuh), so the two are bit-equal
   3. `post_cross`  - out-proj + residual + LN2 + cross-attention over the
                      pre-projected context + out-proj + residual
                      (csrc/post_cross.cu; replaces `_post_cross_kernel`)

@@ -3,7 +3,9 @@
 Counterpart of `rdm_tpu/ops/flash_attention.py`:
 
   `flash_fwd` - softmax(q k^T * scale) v (csrc/flash_attn_fwd.cu;
-                replaces `_attn_kernel`)
+                replaces `_attn_kernel`), a launcher over the attention
+                core that `block_kernel.packed_attn` also launches
+                (csrc/attn_fwd_sm90.cuh: TMA, wgmma, scores in registers)
   `flash_bwd` - its dq, dk, dv (csrc/flash_attn_bwd.cu; replaces
                 `_attn_bwd_kernel`)
 

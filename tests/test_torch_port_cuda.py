@@ -521,10 +521,15 @@ def test_serving_modes_sample_on_card(cuda, opts):
 @pytest.mark.parametrize("b,sq,sk,h,d,causal", [
     (2, 100, 70, 3, 32, False), (2, 100, 130, 3, 32, True),
     (2, 130, 100, 2, 64, True), (1, 64, 64, 2, 96, False),
-    (1, 200, 200, 2, 128, True), (2, 256, 256, 4, 32, False)])
+    (1, 200, 200, 2, 128, True), (2, 256, 256, 4, 32, False),
+    (1, 64, 64, 30, 32, False), (2, 1000, 1000, 3, 32, True),
+    (2, 100, 300, 2, 64, True), (1, 300, 100, 2, 96, True)])
 def test_flash_kernels_match_plain(cuda, b, sq, sk, h, d, causal):
     """The flash forward and backward kernels against their plain versions
-    (ragged tiles, Sq != Sk, every head_dim the kernels are built for)."""
+    (ragged tiles, Sq != Sk, every head_dim the kernels are built for; the
+    forward core's one-warpgroup CTA at Sq = 64, a ragged multi-tile causal
+    case, causal Sk > Sq with skipped key tiles, and rows with no visible
+    key at Sk < Sq)."""
     g = torch.Generator(device="cuda").manual_seed(sq + sk + d)
     q, do = (torch.randn(b, sq, h, d, generator=g, device="cuda").bfloat16()
              for _ in range(2))
@@ -542,6 +547,28 @@ def test_flash_kernels_match_plain(cuda, b, sq, sk, h, d, causal):
             q, k, v, do, sc, causal)):
         assert torch.isfinite(got).all()
         assert _rel_err(got, want) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [256, 64])
+@pytest.mark.parametrize("heads", [12, 18, 30])
+def test_packed_attn_equals_flash_fwd(cuda, heads, s):
+    """packed_attn and flash_fwd run one attention core: on the same memory
+    ([B, S, C] read as BSHD [B, S, heads, 32]) their outputs are equal bit
+    for bit."""
+    g = torch.Generator(device="cuda").manual_seed(heads + s)
+    q, k, v = (torch.randn(2, s, heads * HD, generator=g,
+                           device="cuda").bfloat16() for _ in range(3))
+    bk.reset_launch_counts()
+    fa.reset_launch_counts()
+    got = bk.packed_attn(q, k, v, heads=heads, head_dim=HD)
+    shp = (2, s, heads, HD)
+    want = fa.flash_fwd(q.view(shp), k.view(shp), v.view(shp),
+                        scale=HD ** -0.5, causal=False)
+    torch.cuda.synchronize()
+    assert bk.launch_counts()["packed_attn"] == 1
+    assert fa.launch_counts()["flash_fwd"] == 1
+    assert torch.equal(got, want.view(2, s, heads * HD))
 
 
 @pytest.mark.cuda
