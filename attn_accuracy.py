@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Accuracy of the attention-forward kernel on one NVIDIA GPU (rdm_tpu_torch).
+"""Accuracy of the attention kernels on one NVIDIA GPU (rdm_tpu_torch).
 
     python3 attn_accuracy.py [TREE]
 
@@ -12,6 +12,9 @@ checkout, then this checkout, then the parent:
              inputs against the exact attention of the same inputs in
              float64: max|err| / max|o|, relative L2, and the mean signed
              error over mean|o| (a bias);
+  backward   flash_bwd's dq, dk and dv at the same shapes against the
+             exact gradients of that float64 attention (autograd):
+             max|err| / max|ref| and relative L2 of each;
   gradients  one batch-2 train step of the ImageNet RDM on chip_smoke.py's
              seeded (untrained) weights, the bf16 kernel path against the
              CUDA f32 plain path (RDM_TPU_FLASH=0) on the same draws:
@@ -66,6 +69,27 @@ def main() -> int:
               f"{(err.norm() / exact.norm()).item():.4e}, bias "
               f"{(err.mean() / exact.abs().mean()).item():+.3e}", flush=True)
         del q, k, v, o, qd, kd, vd, sc, exact, err
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED + 51)
+    for b, s, h, d, causal in cs.FLASH_SHAPES:
+        q, k, v, do = (torch.randn(b, s, h, d, generator=g, device="cuda")
+                       .bfloat16() for _ in range(4))
+        got = fa.flash_bwd(q, k, v, do, scale=d ** -0.5, causal=causal)
+        qkv = [a.double().transpose(1, 2).requires_grad_() for a in (q, k, v)]
+        sc = qkv[0] @ qkv[1].transpose(-1, -2) * d ** -0.5
+        if causal:
+            sc = sc.masked_fill(~fa._causal_keep(s, s, q.device), -1e9)
+        out = torch.softmax(sc, -1) @ qkv[2]
+        exact = torch.autograd.grad(out, qkv, do.double().transpose(1, 2))
+        parts = []
+        for name, a, w in zip(("dq", "dk", "dv"), got, exact):
+            err = a.double() - w.transpose(1, 2)
+            mx = (err.abs().max() / w.abs().max()).item()
+            parts.append(f"{name} max|err|/max {mx:.4e} rel L2 "
+                         f"{(err.norm() / w.norm()).item():.4e}")
+        print(f"backward [{b},{s},{h},{d}] causal={causal}: "
+              + ", ".join(parts), flush=True)
+        del q, k, v, do, got, qkv, sc, out, exact, err
+        torch.cuda.empty_cache()
 
     cfg = dataclasses.replace(RDMConfig.imagenet(), p_uncond=0.1)
     with torch.device("meta"):  # shapes only

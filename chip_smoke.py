@@ -36,8 +36,11 @@ exits non-zero):
   6. rarm_kernels  each RARM decode kernel against its plain PyTorch version
                at full width (C = 768, 12 heads of 64, T = 256, F = 3072,
                bf16) at B = 16 and 32, pos 0/63/200/255, k = 4 context
-               rows: error and median CUDA-event times; then decode_attn's
-               attention output on 24 more seeds (144 cases).
+               rows: error and median CUDA-event times; decode_attn's two
+               launches apart in CUDA graphs (the projection, decode_qkv.cu,
+               and the attention, decode_attn.cu) beside SDPA's device time
+               for the attention alone; then decode_attn's attention output
+               on 24 more seeds (144 cases).
   7. rarm_forward  32 teacher-forced decode steps of the full-width RARM
                (depth 18) through the kernel path, CUDA bf16, against the
                CPU f32 teacher-forced forward over the same tokens.
@@ -90,9 +93,13 @@ exits non-zero):
                KERNEL_TOL of its own max|ref|; median CUDA-event times of
                kernel, plain version, SDPA (forward; forward + backward
                through autograd) and the eager-recompute backward
-               (RDM_TPU_FLASH_BWD=xla); bound; for the forward also its
-               device time (a CUDA graph) beside SDPA's and the exp2
-               floor, as in phase 3.
+               (RDM_TPU_FLASH_BWD=xla); bound; for both their device
+               time (a CUDA graph) beside SDPA's (forward; forward +
+               backward) and the exp2 floor (one ex2 per visible score), as
+               in phase 3; for the backward (csrc/flash_attn_bwd.cu, three
+               TMA + wgmma launches, no atomics) also the host microseconds
+               of one call, each launch's device time (torch.profiler) and
+               two calls bit-equal.
  16. train     RDMTrainer at the ImageNet RDM width (VQ-f4 first stage,
                p_uncond 0.1, batch 40, bf16 compute, f32 master weights,
                random 256^2 images, neighbours from phase 5's table):
@@ -397,6 +404,27 @@ def host_us(fn, calls: int = HOST_CALLS) -> float:
     us = (time.perf_counter() - t0) / calls * 1e6
     torch.cuda.synchronize()
     return us
+
+
+def kernel_device_ms(fn, calls: int = 10) -> dict:
+    """Device ms of one fn() call by kernel name (torch.profiler over
+    `calls` calls), for a wrapper of several launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = (getattr(ev, "device_time_total", None)
+              or getattr(ev, "cuda_time_total", 0))
+        if us > 0:
+            name = ev.key.split("(")[0].split("::")[-1]
+            out[name] = out.get(name, 0.0) + us / calls / 1e3
+    return out
 
 
 def _sdpa_ms(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> float:
@@ -832,6 +860,51 @@ def decode_cost(name: str, b: int, pos: int, c: int = 768, t: int = CONTEXT,
     return 0, 0, 2 * 2 * layers * b * c * 2  # commit_rows
 
 
+def _decode_attn_apart(t: dict, pos: int, kc, vc, b: int, heads: int,
+                       hd: int) -> dict:
+    """decode_attn's two launches apart, each in a CUDA graph: LN1, the
+    q/k/v projection and the row commit (csrc/decode_qkv.cu), then the
+    attention over rows <= pos (csrc/decode_attn.cu); beside SDPA's device
+    time for the attention alone, on the projected q and the cache rows
+    <= pos (BHSD copies made outside the timed call)."""
+    import torch.nn.functional as F
+
+    from rdm_tpu_torch.ops import _build
+
+    lib = _build.load()
+    x, c = t["x"], t["x"].shape[1]
+    q, kn, vn, out = (torch.empty_like(x) for _ in range(4))
+
+    def p(a):
+        return a.data_ptr()
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def qkv():
+        _build.check(lib.rdm_decode_qkv(
+            p(x), p(t["n1s"]), p(t["n1b"]), p(t["wqkv"]), None, p(q), p(kn),
+            p(vn), p(kc), p(vc), None, None, pos, b, c, stream()),
+            "decode_qkv")
+
+    def attn():
+        _build.check(lib.rdm_decode_attn(
+            p(q), p(kn), p(vn), p(kc), p(vc), None, None, None, None,
+            p(out), pos, b, c, heads, hd ** -0.5 * 1.4426950408889634,
+            stream()), "decode_attn")
+
+    qkv()
+
+    def bhsd(a, n):
+        return a.reshape(n, b, heads, hd).permute(1, 2, 0, 3).contiguous()
+
+    lib_in = (bhsd(q, 1), bhsd(kc[:pos + 1], pos + 1),
+              bhsd(vc[:pos + 1], pos + 1))
+    return {"qkv_device_ms": graph_ms(qkv), "attn_device_ms": graph_ms(attn),
+            "library_device_ms": graph_ms(
+                lambda: F.scaled_dot_product_attention(*lib_in))}
+
+
 def phase_rarm_kernels() -> dict:
     """Per decode kernel: {'max_abs_err', 'ms', 'plain_ms', 'cases'}.
 
@@ -931,6 +1004,14 @@ def phase_rarm_kernels() -> dict:
                     case["library_ms"] = _sdpa_ms(
                         bhsd(t["x"], 1), bhsd(t["kc"][:pos + 1], pos + 1),
                         bhsd(t["vc"][:pos + 1], pos + 1))
+                    case.update(_decode_attn_apart(t, pos, kc_k, vc_k, b,
+                                                   heads, hd))
+                    say("rarm_kernels", f"decode_attn    {what:13s}: device "
+                        f"{case['qkv_device_ms']:.4f} ms projection "
+                        f"(decode_qkv.cu) + {case['attn_device_ms']:.4f} ms "
+                        f"attention (decode_attn.cu); SDPA over rows <= pos "
+                        f"{case['library_device_ms']:.4f} ms, the attention "
+                        "launch's work only")
                 res["cases"].append(case)
         del t, caches_k, caches_p, kc_k, vc_k, kc_p, vc_p
         torch.cuda.empty_cache()
@@ -941,6 +1022,9 @@ def phase_rarm_kernels() -> dict:
             res[key] = sum(c[key] for c in res["cases"]) / n
         res["bound_by"] = max(res["cases"], key=lambda c: c["bound_ms"])[
             "bound_by"]
+    cases = results["decode_attn"]["cases"]
+    for key in ("qkv_device_ms", "attn_device_ms", "library_device_ms"):
+        results["decode_attn"][key] = sum(c[key] for c in cases) / len(cases)
 
     # The attention output is the output most sensitive to rounding (the
     # softmax amplifies any difference in q), so hold it on more inputs.
@@ -1889,24 +1973,35 @@ def phase_flash_kernels() -> dict:
                     "library_ms": lib_ms, "bound_ms": bound_ms,
                     "bound_by": by,
                     "rel_err": {lab: rel for lab, _, rel in held}}
+            case["device_ms"] = graph_ms(kern)
+            case["library_device_ms"] = graph_ms(library)
+            # one ex2 per visible score: the forward's floor, and the least
+            # any backward that saves no P can do
+            case["exp2_floor_ms"] = exp2_floor_ms(
+                b * h * s * s / (2 if causal else 1))
             if name == "flash_bwd":
                 case["eager_bwd_ms"] = median_ms(eager_bwd)
-            else:
-                case["device_ms"] = graph_ms(kern)
-                case["library_device_ms"] = graph_ms(library)
-                case["exp2_floor_ms"] = exp2_floor_ms(
-                    b * h * s * s / (2 if causal else 1))
+                case["host_us"] = host_us(kern)
+                case["launch_device_ms"] = kernel_device_ms(kern)
+                if not all(torch.equal(a, b_) for a, b_ in zip(kern(), outs)):
+                    raise RuntimeError(f"flash_bwd [{b},{s},{h},{d}]: two "
+                                       "calls differ (it has no atomics)")
             say("flash_kernels", f"{name} [{b},{s},{h},{d}] causal="
                 f"{causal}: /max|ref| " + ", ".join(
                     f"{lab} {rel:.3e}" for lab, _, rel in held)
                 + f" (limit {KERNEL_TOL:g}); kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms, SDPA {'fwd+bwd ' if name == 'flash_bwd' else ''}"
                 f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({by})"
-                + (f"; eager-recompute backward {case['eager_bwd_ms']:.4f} ms"
-                   if name == "flash_bwd" else
-                   f"; device {case['device_ms']:.4f} ms (SDPA "
-                   f"{case['library_device_ms']:.4f}), exp2 floor "
-                   f"{case['exp2_floor_ms']:.4f} ms"))
+                + f"; device {case['device_ms']:.4f} ms (SDPA "
+                f"{'fwd+bwd ' if name == 'flash_bwd' else ''}"
+                f"{case['library_device_ms']:.4f}), exp2 floor "
+                f"{case['exp2_floor_ms']:.4f} ms"
+                + (f"; eager-recompute backward {case['eager_bwd_ms']:.4f} "
+                   f"ms; host per call {case['host_us']:.1f} us; by launch "
+                   + ", ".join(f"{n} {t:.4f}" for n, t in
+                               case["launch_device_ms"].items())
+                   + " ms; two calls bit-equal"
+                   if name == "flash_bwd" else ""))
             r = res[name]
             r["max_abs_err"] = max(r["max_abs_err"], err)
             r["ms"] += ms
@@ -2469,10 +2564,11 @@ def main() -> int:
             for n, r in kernels.items()]
     rows += [row(n, INT8_INFO[n], int8_launches, r, sites=r["sites"])
              for n, r in int8_kernels.items()]
+    apart = ("sweep_rel_err", "qkv_device_ms", "attn_device_ms",
+             "library_device_ms")  # decode_attn's alone
     rows += [row(n, DECODE_INFO[n], decode_launches, r,
                  sources=DECODE_INFO[n][2], cases=r["cases"],
-                 **({"sweep_rel_err": r["sweep_rel_err"]}
-                    if "sweep_rel_err" in r else {}))
+                 **{k: r[k] for k in apart if k in r})
              for n, r in decode.items()]
     rows += [row(n, INT8_DECODE_INFO[n], int8_decode_launches, r,
                  sources=INT8_DECODE_INFO[n][2], cases=r["cases"])

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -116,8 +117,17 @@ def profile_decode(decode, steps: int) -> dict:
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:12]
     # the attention-forward core (csrc/attn_fwd_sm90.cuh), which packed_attn
     # and flash_fwd launch, whether or not it is among the top kernels
-    core = [v for n, v in per_kernel.items() if "attn_fwd_kernel" in n]
+    # the flash backward's three launches (csrc/flash_attn_bwd.cu): its
+    # statistics launch is the core with kStats, attn_fwd_kernel<D, C, true>
+    def is_bwd(name):
+        return ("attn_bwd_" in name
+                or re.search(r"attn_fwd_kernel<\d+, \w+, true>", name))
+
+    bwd = [v for n, v in per_kernel.items() if is_bwd(n)]
+    core = [v for n, v in per_kernel.items()
+            if "attn_fwd_kernel" in n and not is_bwd(n)]
     core_us = sum(t for t, _ in core)
+    bwd_us = sum(t for t, _ in bwd)
     return {
         "wall_ms_per_step": wall_us / steps / 1e3,
         "device_ms_per_step": device_us / steps / 1e3,
@@ -128,7 +138,10 @@ def profile_decode(decode, steps: int) -> dict:
                 for n, (t, c) in top],
         "attn_core": {"ms_per_step": core_us / steps / 1e3,
                       "share": core_us / device_us,
-                      "per_step": sum(c for _, c in core) / steps}}
+                      "per_step": sum(c for _, c in core) / steps},
+        "attn_bwd": {"ms_per_step": bwd_us / steps / 1e3,
+                     "share": bwd_us / device_us,
+                     "per_step": sum(c for _, c in bwd) / steps}}
 
 
 def main() -> int:

@@ -18,7 +18,10 @@ for the eager-recompute backward (RDM_TPU_FLASH_BWD=xla), in turns:
             launches per step, and device time by kernel (the flash
             kernels, the first stage's encode and the optimizer's
             foreach kernels among them; the forward kernel, the attention
-            core of csrc/attn_fwd_sm90.cuh, always);
+            core of csrc/attn_fwd_sm90.cuh, and the backward kernel's
+            three launches of csrc/flash_attn_bwd.cu (the core's
+            statistics instantiation attn_fwd_kernel<D, causal, true>,
+            attn_bwd_dkdv_kernel, attn_bwd_dq_kernel), always);
   memory    peak device memory of the steps.
 
 Prints one line per measurement, the card's name, power limit, SM clock
@@ -117,6 +120,11 @@ def main() -> int:
             print(f"  {mode}: {a['ms_per_step']:9.3f} ms/step "
                   f"{a['share']:.3f} x{a['per_step']:.0f} attention core "
                   "(flash_fwd)", flush=True)
+            a = out[mode]["profile"]["attn_bwd"]
+            print(f"  {mode}: {a['ms_per_step']:9.3f} ms/step "
+                  f"{a['share']:.3f} x{a['per_step']:.0f} flash backward "
+                  "(flash_bwd's statistics, dK / dV and dQ launches)",
+                  flush=True)
     out["card_after"] = card()
     print(out["card_after"], flush=True)
     with open(args.out, "w") as f:

@@ -63,6 +63,10 @@
 //   p is exp2(-1e9 - m) = 0 exactly) where Sk >= Sq.
 // - o is written from registers, two bf16 per store, rows >= Sq skipped.
 //
+// The flash backward's first launch (csrc/flash_attn_bwd.cu) is this
+// kernel with kStats: the same walk, then each row's softmax statistics
+// in place of o (write_stats).
+//
 // The host side builds the three tensor maps per call
 // (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, so nothing
 // links -lcuda) and passes them as __grid_constant__ parameters.
@@ -228,6 +232,24 @@ __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// (the backward's S^T = K Q^T over 32-query tiles at head_dim 96 and 128)
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a,
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15 "
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
@@ -493,16 +515,70 @@ struct Rows {
   }
 };
 
+// Rows of the flash backward's statistics: Sq rounded up to the 64 rows of
+// a CTA. They lie as stats[((b H + h) 3 + c) Sqp + row], c = 0 the row max
+// m (log2 domain), 1 its 1 / l, 2 delta.
+__host__ __device__ __forceinline__ int stat_rows(int Sq) {
+  return (Sq + kRows - 1) / kRows * kRows;
+}
+
+// The epilogue of the backward's statistics launch (csrc/flash_attn_bwd.cu),
+// in place of o: each row's m, 1 / l and delta = rowsum(dO O), O = (sum p v)
+// / l still in f32 registers; rows past Sq (up to stat_rows) get zeros.
+template <int D, bool CAUSAL>
+__device__ __forceinline__ void write_stats(const Rows<D, CAUSAL>& w,
+                                            int row, float l0, float l1,
+                                            const bf16* __restrict__ dout,
+                                            float* __restrict__ stats,
+                                            int Sq, int H) {
+  const float i0 = 1.0f / l0, i1 = 1.0f / l1;
+  const size_t stride = (size_t)H * D;
+  const bf16* g = dout + ((size_t)w.b * Sq * H + w.h) * D + w.col;
+  float d0 = 0.f, d1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    if (row < Sq) {
+      const float2 x = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(g + row * stride + 8 * j));
+      d0 = fmaf(x.x, w.acc[4 * j], fmaf(x.y, w.acc[4 * j + 1], d0));
+    }
+    if (row + 8 < Sq) {
+      const float2 x = __bfloat1622float2(*reinterpret_cast<
+          const __nv_bfloat162*>(g + (row + 8) * stride + 8 * j));
+      d1 = fmaf(x.x, w.acc[4 * j + 2], fmaf(x.y, w.acc[4 * j + 3], d1));
+    }
+  }
+  d0 += __shfl_xor_sync(0xffffffffu, d0, 1);
+  d0 += __shfl_xor_sync(0xffffffffu, d0, 2);
+  d1 += __shfl_xor_sync(0xffffffffu, d1, 1);
+  d1 += __shfl_xor_sync(0xffffffffu, d1, 2);
+  if ((w.lane & 3) == 0) {
+    const int Sqp = stat_rows(Sq);
+    float* st = stats + (size_t)(w.b * H + w.h) * 3 * Sqp;
+    const bool ok0 = row < Sq, ok1 = row + 8 < Sq;
+    st[row] = ok0 ? w.m0 : 0.f;
+    st[Sqp + row] = ok0 ? i0 : 0.f;
+    st[2 * Sqp + row] = ok0 ? d0 * i0 : 0.f;
+    st[row + 8] = ok1 ? w.m1 : 0.f;
+    st[Sqp + row + 8] = ok1 ? i1 : 0.f;
+    st[2 * Sqp + row + 8] = ok1 ? d1 * i1 : 0.f;
+  }
+}
+
 // One CTA: 64 query rows of one (image, head); grid (ceil(Sq / 64), H, B),
 // one warpgroup. Registers: <= 128 a thread at D = 32 (four CTAs an SM),
-// <= 255 above (two).
-template <int D, bool CAUSAL>
+// <= 255 above (two). kStats: the flash backward's statistics launch,
+// which writes write_stats' m, 1 / l and delta from dout into stats in
+// place of o; the forward's instantiations (kStats false) do not read
+// either pointer.
+template <int D, bool CAUSAL, bool kStats = false>
 __global__ void __launch_bounds__(kThreads, D == 32 ? 4 : 2)
     attn_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv,
                     bf16* __restrict__ o, int Sq, int Sk, int H,
-                    float scale_log2) {
+                    float scale_log2, const bf16* __restrict__ dout,
+                    float* __restrict__ stats) {
   using L = Smem<D>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -574,17 +650,21 @@ __global__ void __launch_bounds__(kThreads, D == 32 ? 4 : 2)
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float i0 = 1.0f / l0, i1 = 1.0f / l1;
-  const size_t stride = (size_t)H * D;
-  bf16* out = o + ((size_t)w.b * Sq * H + w.h) * D + w.col;
+  if constexpr (kStats) {
+    write_stats<D, CAUSAL>(w, row, l0, l1, dout, stats, Sq, H);
+  } else {
+    const float i0 = 1.0f / l0, i1 = 1.0f / l1;
+    const size_t stride = (size_t)H * D;
+    bf16* out = o + ((size_t)w.b * Sq * H + w.h) * D + w.col;
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    if (row < Sq)
-      *reinterpret_cast<uint32_t*>(out + row * stride + 8 * j) =
-          pack_bf16(w.acc[4 * j] * i0, w.acc[4 * j + 1] * i0);
-    if (row + 8 < Sq)
-      *reinterpret_cast<uint32_t*>(out + (row + 8) * stride + 8 * j) =
-          pack_bf16(w.acc[4 * j + 2] * i1, w.acc[4 * j + 3] * i1);
+    for (int j = 0; j < D / 8; ++j) {
+      if (row < Sq)
+        *reinterpret_cast<uint32_t*>(out + row * stride + 8 * j) =
+            pack_bf16(w.acc[4 * j] * i0, w.acc[4 * j + 1] * i0);
+      if (row + 8 < Sq)
+        *reinterpret_cast<uint32_t*>(out + (row + 8) * stride + 8 * j) =
+            pack_bf16(w.acc[4 * j + 2] * i1, w.acc[4 * j + 3] * i1);
+    }
   }
 }
 
@@ -635,6 +715,27 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The calling thread's device, its primary context made current.
+// cuTensorMapEncodeTiled needs a current context, and a thread that has
+// made no runtime call yet has none (an autograd worker whose first CUDA
+// work is a kernel of this library, say).
+inline cudaError_t bind_device(int* dev) {
+  cudaError_t e = cudaGetDevice(dev);
+  return e == cudaSuccess ? cudaSetDevice(*dev) : e;
+}
+
+// The shared-memory opt-in of `kernel` on device `dev`, once per device (a
+// bit per device ordinal in `done`).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, int dev,
+                       unsigned long long& done) {
+  if (dev < 64 && (done >> dev & 1)) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess && dev < 64) done |= 1ull << dev;
+  return e;
+}
+
 // q [B, Sq, H, D], k / v [B, Sk, H, D], o like q, all bf16, contiguous and
 // 16-byte aligned; returns a cudaError_t.
 template <int D, bool CAUSAL>
@@ -642,26 +743,21 @@ int launch_attn_fwd(const void* q, const void* k, const void* v, void* o,
                     int B, int Sq, int Sk, int H, float scale_log2,
                     cudaStream_t stream) {
   using L = Smem<D>;
+  int dev = 0;
+  cudaError_t e = bind_device(&dev);
+  if (e != cudaSuccess) return (int)e;
   CUtensorMap mq, mk, mv;
   if (!make_map(&mq, q, B, Sq, H, D, kRows) ||
       !make_map(&mk, k, B, Sk, H, D, kTK) ||
       !make_map(&mv, v, B, Sk, H, D, kTK))
     return (int)cudaErrorInvalidValue;
-  // the shared-memory opt-in, once per device (a bit per device ordinal)
   static unsigned long long smem_set = 0;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  e = allow_smem(attn_fwd_kernel<D, CAUSAL>, L::kBytes, dev, smem_set);
   if (e != cudaSuccess) return (int)e;
-  if (dev >= 64 || !(smem_set >> dev & 1)) {
-    e = cudaFuncSetAttribute(attn_fwd_kernel<D, CAUSAL>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             L::kBytes);
-    if (e != cudaSuccess) return (int)e;
-    if (dev < 64) smem_set |= 1ull << dev;
-  }
   dim3 grid((Sq + kRows - 1) / kRows, H, B);
   attn_fwd_kernel<D, CAUSAL><<<grid, kThreads, L::kBytes, stream>>>(
-      mq, mk, mv, static_cast<bf16*>(o), Sq, Sk, H, scale_log2);
+      mq, mk, mv, static_cast<bf16*>(o), Sq, Sk, H, scale_log2, nullptr,
+      nullptr);
   return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,4 @@
-"""Flash attention over BSHD tensors: two hand-written CUDA kernels.
+"""Flash attention over BSHD tensors: hand-written CUDA kernels.
 
 Counterpart of `rdm_tpu/ops/flash_attention.py`:
 
@@ -7,7 +7,8 @@ Counterpart of `rdm_tpu/ops/flash_attention.py`:
                 core that `block_kernel.packed_attn` also launches
                 (csrc/attn_fwd_sm90.cuh: TMA, wgmma, scores in registers)
   `flash_bwd` - its dq, dk, dv (csrc/flash_attn_bwd.cu; replaces
-                `_attn_bwd_kernel`)
+                `_attn_bwd_kernel`): three TMA + wgmma launches with no
+                atomics, the first of them the forward core's walk
 
 `flash_attention` is differentiable: an autograd.Function whose forward
 is `flash_fwd` and which saves (q, k, v), as the JAX custom_vjp does. Its
@@ -165,24 +166,25 @@ flash_fwd.launches = 0
 
 def flash_bwd(q, k, v, do, *, scale: float, causal: bool
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Backward kernel (two launches, csrc/flash_attn_bwd.cu): dO [B, Sq,
-    H, D] -> (dq, dk, dv) in q's, k's and v's type."""
+    """Backward kernel (three launches, csrc/flash_attn_bwd.cu: the rows'
+    softmax statistics, dK / dV per key tile, dQ per query tile): dO [B,
+    Sq, H, D] -> (dq, dk, dv) in q's, k's and v's type."""
     if _on_cpu(q, k, v, do):
         return flash_attention_backward_reference(q, k, v, do, scale, causal)
     _check("flash_bwd", q, (k, v), (do,))
     b, sq, h, d = q.shape
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    # per-row softmax statistics (max, 1/sum, delta), written by the first
-    # launch for the second
-    stats = torch.empty((3, b * h * sq), dtype=torch.float32,
+    # per-row max, 1/sum and delta, Sq padded to the kernels' 64-row tiles,
+    # written by the first launch for the other two
+    stats = torch.empty(b * h * 3 * (-(-sq // 64) * 64), dtype=torch.float32,
                         device=q.device)
     lib = _build.load()
     with torch.cuda.device(q.device):
         rc = lib.rdm_flash_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats[0].data_ptr(),
-            stats[1].data_ptr(), stats[2].data_ptr(), b, sq, k.shape[1], h,
-            d, int(causal), scale * _LOG2E, scale, _stream(q))
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+            b, sq, k.shape[1], h, d, int(causal), scale * _LOG2E, scale,
+            _stream(q))
     _build.check(rc, "flash_bwd")
     flash_bwd.launches += 1
     return dq, dk, dv

@@ -24,6 +24,8 @@ holds it (scores within 1e-5, ids equal but where the plain scores of two
 neighbouring ranks lie within 2e-6).
 """
 
+import threading
+
 import pytest
 import torch
 
@@ -523,13 +525,18 @@ def test_serving_modes_sample_on_card(cuda, opts):
     (2, 130, 100, 2, 64, True), (1, 64, 64, 2, 96, False),
     (1, 200, 200, 2, 128, True), (2, 256, 256, 4, 32, False),
     (1, 64, 64, 30, 32, False), (2, 1000, 1000, 3, 32, True),
-    (2, 100, 300, 2, 64, True), (1, 300, 100, 2, 96, True)])
+    (2, 100, 300, 2, 64, True), (1, 300, 100, 2, 96, True),
+    (2, 200, 1000, 2, 32, False), (2, 1000, 200, 2, 64, True),
+    (1, 70, 130, 2, 128, False), (1, 130, 70, 2, 96, True),
+    (1, 200, 1000, 2, 128, True)])
 def test_flash_kernels_match_plain(cuda, b, sq, sk, h, d, causal):
     """The flash forward and backward kernels against their plain versions
-    (ragged tiles, Sq != Sk, every head_dim the kernels are built for; the
-    forward core's one-warpgroup CTA at Sq = 64, a ragged multi-tile causal
-    case, causal Sk > Sq with skipped key tiles, and rows with no visible
-    key at Sk < Sq)."""
+    (ragged tiles, Sq != Sk both ways, every head_dim the kernels are built
+    for, the backward's 32-wide query tiles at head_dim 96 and 128; the
+    forward core's one-warpgroup CTA at Sq = 64, ragged multi-tile causal
+    cases, causal Sk > Sq with skipped key and query tiles, and rows with
+    no visible key at Sk < Sq). The backward has no atomics: a second call
+    gives bit-equal dq, dk and dv."""
     g = torch.Generator(device="cuda").manual_seed(sq + sk + d)
     q, do = (torch.randn(b, sq, h, d, generator=g, device="cuda").bfloat16()
              for _ in range(2))
@@ -547,6 +554,8 @@ def test_flash_kernels_match_plain(cuda, b, sq, sk, h, d, causal):
             q, k, v, do, sc, causal)):
         assert torch.isfinite(got).all()
         assert _rel_err(got, want) <= TOL
+    again = fa.flash_bwd(q, k, v, do, scale=sc, causal=causal)
+    assert all(torch.equal(a, x) for a, x in zip(grads, again))
 
 
 @pytest.mark.cuda
@@ -569,6 +578,42 @@ def test_packed_attn_equals_flash_fwd(cuda, heads, s):
     assert bk.launch_counts()["packed_attn"] == 1
     assert fa.launch_counts()["flash_fwd"] == 1
     assert torch.equal(got, want.view(2, s, heads * HD))
+
+
+@pytest.mark.cuda
+def test_attention_kernels_launch_from_a_new_thread(cuda):
+    """A thread whose first CUDA work is one of the TMA kernels (an
+    autograd worker, say) has no current context until the launcher binds
+    one, and the tensor-map encoder needs it: flash_fwd, flash_bwd and
+    packed_attn on a fresh thread give the main thread's outputs bit for
+    bit."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v, do = (torch.randn(2, 128, 2, HD, generator=g,
+                               device="cuda").bfloat16() for _ in range(4))
+    sc = HD ** -0.5
+
+    def run():
+        packed = bk.packed_attn(*(t.view(2, 128, 2 * HD) for t in (q, k, v)),
+                                heads=2, head_dim=HD)
+        return (fa.flash_fwd(q, k, v, scale=sc, causal=False),
+                *fa.flash_bwd(q, k, v, do, scale=sc, causal=False), packed)
+
+    got = []
+
+    def worker():
+        try:
+            got.append(run())
+            torch.cuda.synchronize()
+        except Exception as e:  # re-raised on the test's thread below
+            got.append(e)
+
+    t = threading.Thread(target=worker)
+    t.start()
+    t.join()
+    if isinstance(got[0], Exception):
+        raise got[0]
+    for a, b in zip(got[0], run()):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
