@@ -19,7 +19,9 @@ exits non-zero):
   3. kernels   each block kernel against its plain PyTorch version at the
                three SpatialTransformer sites of the ImageNet U-Net
                (C/S/heads = 384/1024/12, 576/256/18, 960/64/30; 2B = 8
-               images, bf16): error and median CUDA-event times. The
+               images, bf16): error, median CUDA-event times and device
+               time (torch.profiler, per launch; phases 6, 9, 12 and 14
+               give it too). The
                attention core (packed_attn, csrc/attn_fwd_sm90.cuh) also
                gives its device time (20 calls in a CUDA graph) beside
                SDPA's, its exp2 floor (ex2 count / (132 SMs x 16 a clock x
@@ -110,14 +112,18 @@ exits non-zero):
                and continues; steps with RDM_TPU_FLASH_BWD=xla; a batch-2
                step's gradients against the CUDA f32 plain path
                (TRAIN_GRAD_TOL); step time, samples/s, peak memory.
- 17. knn       the kNN kernel pair against its plain version (f64 sums,
-               stable sort) over phase 5's 1,281,280 x 512 table in bf16 at
-               (B, k) = (4, 4), (16, 4), (32, 4), (256, 20): scores within
-               KNN_SCORE_TOL, ids equal but at near-tie ranks (counted);
-               a ragged N, duplicate rows in four slices (ascending ids
-               back) and a 10-row table with negative scores (no id >= N);
-               median CUDA-event times of kernel, plain version and
-               torch.topk(q @ db.T); bound.
+ 17. knn       the kNN kernel pair (csrc/knn_topk.cu: a TMA + wgmma
+               search, then the merge) against its plain version (f64
+               sums, stable sort) over phase 5's 1,281,280 x 512 table in
+               bf16 at (B, k) = (4, 4), (16, 4), (32, 4), (256, 20): scores
+               within KNN_SCORE_TOL, ids equal but at near-tie ranks
+               (counted); a ragged N, duplicate rows in four stripes
+               (ascending ids back) and a 10-row table with negative scores
+               (no id >= N); median CUDA-event times of kernel, plain
+               version and torch.topk(q @ db.T); the kernel's and topk's
+               device times (CUDA graph), each launch's device time
+               (torch.profiler), host microseconds a call, the plan and the
+               bytes it reads from HBM (one pass per query group); bound.
  18. clip_serve  a seeded ViT-B/32 CLIP: both towers in bf16 on the card
                against CPU f32 (CLIP_TOWER_TOL); an RDMPipeline with CLIP
                over phase 5's table serves sample_with_caption,
@@ -427,6 +433,16 @@ def kernel_device_ms(fn, calls: int = 10) -> dict:
     return out
 
 
+def wrapper_device(fn) -> dict:
+    """A wrapper call's device time (graph_ms: every launch of the call,
+    in a CUDA graph) and, by kernel name, what torch.profiler saw of each
+    launch (kernel_device_ms), for phases 3, 6, 9, 12 and 14. The graph
+    is the number to use: in a long run the profiler has missed launches
+    (a whole post_ff call read as 0)."""
+    return {"kernel_device_ms": graph_ms(fn),
+            "launch_device_ms": kernel_device_ms(fn, calls=5)}
+
+
 def _sdpa_ms(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> float:
     """Median time of one scaled_dot_product_attention call on BHSD
     copies: the library yardstick, never used by the port."""
@@ -642,10 +658,11 @@ def phase_kernels() -> dict:
             err = (got - want).abs().max().item()
             rel = err / want.abs().max().item()
             ms, plain_ms = median_ms(kern), median_ms(plain)
+            dev = wrapper_device(kern)
             say("kernels", f"{name:11s} C={c:4d} S={s:4d} heads={heads:2d}: "
                 f"max|err| {err:.4g}, /max|ref| {rel:.3e} (limit "
-                f"{KERNEL_TOL:g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-                f"ms")
+                f"{KERNEL_TOL:g}); kernel {ms:.4f} ms (device "
+                f"{dev['kernel_device_ms']:.4f}), plain {plain_ms:.4f} ms")
             if not rel <= KERNEL_TOL:
                 raise RuntimeError(f"{name} at C={c}: relative error {rel} "
                                    f"> {KERNEL_TOL}")
@@ -656,7 +673,7 @@ def phase_kernels() -> dict:
             bound_ms, by = bound(*block_cost(name, c, s))
             site = {"C": c, "S": s, "heads": heads, "max_abs_err": err,
                     "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound_ms, "bound_by": by}
+                    "bound_ms": bound_ms, "bound_by": by, **dev}
             if name == "packed_attn":
                 shp = (CFG_BATCH, s, heads, hd)
                 site["library_ms"] = _sdpa_ms(
@@ -666,6 +683,8 @@ def phase_kernels() -> dict:
             res["sites"].append(site)
     for name, res in results.items():
         _sum_bound(res, [block_cost(name, c, s) for c, s, _ in SITES])
+        res["kernel_device_ms"] = sum(x["kernel_device_ms"]
+                                      for x in res["sites"])
     return results
 
 
@@ -987,17 +1006,19 @@ def phase_rarm_kernels() -> dict:
                     detail = ""
                 _, err, rel = errs[0]
                 ms, plain_ms = median_ms(kern), median_ms(plain)
+                dev = wrapper_device(kern)
                 say("rarm_kernels", f"{name:14s} {what:13s}: max|err| "
                     f"{err:.4g}, /max|ref| {rel:.3e} (limit {KERNEL_TOL:g})"
                     f"{'; ' + detail if detail else ''}; kernel {ms:.4f} "
-                    f"ms, plain {plain_ms:.4f} ms")
+                    f"ms (device {dev['kernel_device_ms']:.4f}), plain "
+                    f"{plain_ms:.4f} ms")
                 res = results[name]
                 res["max_abs_err"] = max(res["max_abs_err"], err)
                 bound_ms, by = bound(*decode_cost(name, b, pos))
                 case = {"B": b, "pos": pos, "max_abs_err": err,
                         "rel_err": {lab: r for lab, _, r in errs}, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": by}
+                        "bound_by": by, **dev}
                 if name == "decode_attn":  # SDPA over the cache rows <= pos
                     def bhsd(a, n):
                         return a.reshape(n, b, heads, hd).permute(1, 2, 0, 3)
@@ -1017,7 +1038,7 @@ def phase_rarm_kernels() -> dict:
         torch.cuda.empty_cache()
     for res in results.values():
         n = len(res["cases"])
-        for key in ("ms", "plain_ms", "bound_ms") + (
+        for key in ("ms", "plain_ms", "bound_ms", "kernel_device_ms") + (
                 ("library_ms",) if "library_ms" in res["cases"][0] else ()):
             res[key] = sum(c[key] for c in res["cases"]) / n
         res["bound_by"] = max(res["cases"], key=lambda c: c["bound_ms"])[
@@ -1297,12 +1318,13 @@ def phase_int8_kernels() -> dict:
             ms = median_ms(lambda: kern(*pos, **kw))
             plain_ms = median_ms(lambda: plain(*pos, **kw))
             site["bound_ms"], site["bound_by"] = bound(*block_cost(name, c, s))
-            site.update(ms=ms, plain_ms=plain_ms)
+            site.update(ms=ms, plain_ms=plain_ms,
+                        **wrapper_device(lambda: kern(*pos, **kw)))
             say("int8_kernels", f"{name:14s} C={c:4d} S={s:4d} heads="
                 f"{heads:2d}: max|err| {err:.4g}, /max|ref| {rel:.3e} "
-                f"(limit {KERNEL_TOL:g}){codes}; kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, bound {site['bound_ms']:.4f} ms "
-                f"({site['bound_by']})")
+                f"(limit {KERNEL_TOL:g}){codes}; kernel {ms:.4f} ms (device "
+                f"{site['kernel_device_ms']:.4f}), plain {plain_ms:.4f} ms, "
+                f"bound {site['bound_ms']:.4f} ms ({site['bound_by']})")
             if not rel <= KERNEL_TOL:
                 raise RuntimeError(f"{name} at C={c}: relative error {rel} "
                                    f"> {KERNEL_TOL}")
@@ -1315,6 +1337,8 @@ def phase_int8_kernels() -> dict:
         torch.cuda.empty_cache()
     for name, res in results.items():
         _sum_bound(res, [block_cost(name, c, s) for c, s, _ in SITES])
+        res["kernel_device_ms"] = sum(x["kernel_device_ms"]
+                                      for x in res["sites"])
     return results
 
 
@@ -1622,24 +1646,25 @@ def phase_rarm_int8_kernels() -> dict:
                                        for lab, _, rel in errs[1:]) + detail
                 _, err, rel = errs[0]
                 ms, plain_ms = median_ms(kern), median_ms(plain)
+                dev = wrapper_device(kern)
                 bound_ms, by = bound(*decode_cost(name, b, pos))
                 say("rarm_int8_kernels", f"{name:18s} {what:13s}: max|err| "
                     f"{err:.4g}, /max|ref| {rel:.3e} (limit {KERNEL_TOL:g})"
                     f"{'; ' + detail if detail else ''}; kernel {ms:.4f} "
-                    f"ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                    f"({by})")
+                    f"ms (device {dev['kernel_device_ms']:.4f}), plain "
+                    f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by})")
                 res = results[name]
                 res["max_abs_err"] = max(res["max_abs_err"], err)
                 res["cases"].append({
                     "B": b, "pos": pos, "max_abs_err": err,
                     "rel_err": {lab: r for lab, _, r in errs}, "ms": ms,
                     "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": by})
+                    "bound_by": by, **dev})
         del t
         torch.cuda.empty_cache()
     for res in results.values():
         n = len(res["cases"])
-        for key in ("ms", "plain_ms", "bound_ms"):
+        for key in ("ms", "plain_ms", "bound_ms", "kernel_device_ms"):
             res[key] = sum(c[key] for c in res["cases"]) / n
         res["bound_by"] = max(res["cases"], key=lambda c: c["bound_ms"])[
             "bound_by"]
@@ -1804,13 +1829,16 @@ def phase_post_ff(rdm_sd: dict, vq_sd: dict, emb: torch.Tensor) -> dict:
         pair_err = (got.float() - pair.float()).abs().max().item()
         ms, split_ms, plain_ms = (median_ms(fn) for fn in (kern, split,
                                                            plain))
+        dev = wrapper_device(kern)
+        split_dev = wrapper_device(split)["kernel_device_ms"]
         bound_ms, by = bound(*block_cost("post_ff", c, s))
         say("post_ff", f"C={c:4d} S={s:4d} heads={heads:2d}: max|err| "
             f"{err:.4g}, /max|ref| {rel:.3e} (limit {KERNEL_TOL:g}); against "
             f"the split pair's kernels max|err| {pair_err:.4g}"
             f"{' (bit-equal)' if torch.equal(got, pair) else ''}; kernel "
-            f"{ms:.4f} ms, split pair {split_ms:.4f} ms, plain {plain_ms:.4f}"
-            f" ms, bound {bound_ms:.4f} ms ({by})")
+            f"{ms:.4f} ms (device {dev['kernel_device_ms']:.4f}), split pair "
+            f"{split_ms:.4f} ms (device {split_dev:.4f}), plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by})")
         res["max_abs_err"] = max(res["max_abs_err"], err)
         res["ms"] += ms
         res["plain_ms"] += plain_ms
@@ -1819,9 +1847,12 @@ def phase_post_ff(rdm_sd: dict, vq_sd: dict, emb: torch.Tensor) -> dict:
                              "max_abs_err": err, "rel_err": rel,
                              "split_pair_max_abs_err": pair_err, "ms": ms,
                              "split_ms": split_ms, "plain_ms": plain_ms,
-                             "bound_ms": bound_ms, "bound_by": by})
+                             "bound_ms": bound_ms, "bound_by": by,
+                             "split_device_ms": split_dev, **dev})
         del t, q, k, v, attn, args, got, pair
     _sum_bound(res, [block_cost("post_ff", c, s) for c, s, _ in SITES])
+    for key in ("kernel_device_ms", "split_device_ms"):
+        res[key] = sum(x[key] for x in res["sites"])
     torch.cuda.empty_cache()
 
     # the full-width U-Net and requests through it
@@ -2253,6 +2284,40 @@ def _knn_hold(what: str, got, plain, n: int) -> int:
     return int((diff & near[:, :k]).sum().item())
 
 
+def _knn_launch_ms(db: torch.Tensor, q: torch.Tensor, k: int) -> dict:
+    """Device ms of knn_topk's two launches apart, each through its bare
+    launcher in a CUDA graph, on the wrapper's plan and buffers."""
+    from rdm_tpu_torch.ops import _build
+    from rdm_tpu_torch.ops import knn_kernel as kk
+
+    (n, d), b = db.shape, q.shape[0]
+    p = kk.device_plan(b, n, d, k, 0)
+    lib = _build.load()
+    qb = q.to(torch.bfloat16).contiguous()
+    part_s = torch.empty((b, p.n_slices, k), device="cuda")
+    part_i = torch.empty((b, p.n_slices, k), dtype=torch.int32,
+                         device="cuda")
+    out_s = torch.empty((b, k), device="cuda")
+    out_i = torch.empty((b, k), dtype=torch.int64, device="cuda")
+
+    def search():
+        return lib.rdm_knn_search(
+            qb.data_ptr(), db.data_ptr(), part_s.data_ptr(),
+            part_i.data_ptr(), b, n, d, k, p.queries, p.cluster, p.groups,
+            p.slice_rows, p.n_slices, p.stages,
+            torch.cuda.current_stream().cuda_stream)
+
+    def merge():
+        return lib.rdm_knn_merge(
+            part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
+            out_i.data_ptr(), b, p.n_slices * k, p.merge_pad, k,
+            torch.cuda.current_stream().cuda_stream)
+
+    _build.check(search(), "knn_search")
+    _build.check(merge(), "knn_merge")
+    return {"knn_search": graph_ms(search), "knn_merge": graph_ms(merge)}
+
+
 def phase_knn(emb: torch.Tensor) -> dict:
     """Phase 17: the kNN kernel pair against its plain version over the
     1,281,280 x 512 table in bf16 at KNN_CASES, a ragged N, duplicate rows
@@ -2276,24 +2341,42 @@ def phase_knn(emb: torch.Tensor) -> dict:
         err = (got[0] - plain[0][:, :k]).abs().max().item()
         worst = max(worst, err)
         qb = q.to(torch.bfloat16)
+        kernel = functools.partial(kk.knn_topk, db, q, k)
+
+        def library():
+            return torch.topk(qb @ db.t(), k)
+
         ms, plain_ms, lib_ms = (median_ms(fn) for fn in (
-            lambda: knn_search(db, q, k),
-            lambda: knn_search(db, q, k, impl="reference"),
-            lambda: torch.topk(qb @ db.t(), k)))
+            kernel, lambda: knn_search(db, q, k, impl="reference"),
+            library))
+        dev_ms, lib_dev_ms = graph_ms(kernel), graph_ms(library)
+        per_launch = _knn_launch_ms(db, q, k)
+        us = host_us(kernel)
         bound_ms, by = bound(*knn_cost(b, n, d, k))
-        p = kk.plan(b, n, d, k, torch.cuda.get_device_properties(0)
-                    .multi_processor_count)
+        p = kk.device_plan(b, n, d, k, 0)
+        read_gb = p.groups * n * d * 2 / 1e9  # one pass per query group
         cases.append({"B": b, "k": k, "N": n, "D": d, "ms": ms,
                       "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "device_ms": dev_ms, "library_device_ms": lib_dev_ms,
+                      "launch_device_ms": per_launch, "host_us": us,
+                      "table_read_gb": read_gb,
                       "bound_ms": bound_ms, "bound_by": by,
                       "max_abs_err": err, "near_tie_ranks": near,
-                      "slices": p.n_slices, "slice_rows": p.slice_rows})
+                      "slices": p.n_slices, "slice_rows": p.slice_rows,
+                      "queries": p.queries, "cluster": p.cluster,
+                      "groups": p.groups, "stages": p.stages})
+        launches_txt = ", ".join(f"{name} {t:.4f}"
+                                 for name, t in per_launch.items())
         say("knn", f"B={b:3d} k={k:2d} over {n}x{d}: scores max|err| "
             f"{err:.3e} (limit {KNN_SCORE_TOL:g}), ids equal but {near} "
-            f"near-tie ranks; {p.n_slices} slices of {p.slice_rows} rows; "
-            f"kernel {ms:.4f} ms, plain sort {plain_ms:.4f} ms, "
-            f"torch.topk(q @ db.T) {lib_ms:.4f} ms (two calls, no tie "
-            f"order), bound {bound_ms:.4f} ms ({by})")
+            f"near-tie ranks; {p.groups} group(s) of {p.cluster} x "
+            f"{p.queries} queries, {p.n_slices} stripes of {p.slice_rows} "
+            f"rows, {p.stages} stages, table read {read_gb:.3f} GB; device "
+            f"{dev_ms:.4f} ms ({launches_txt}) against torch.topk(q @ "
+            f"db.T) {lib_dev_ms:.4f} ms; host {us:.1f} us a call; event "
+            f"kernel {ms:.4f} ms, plain sort {plain_ms:.4f} ms, topk "
+            f"{lib_ms:.4f} ms (two calls, no tie order); bound "
+            f"{bound_ms:.4f} ms ({by})")
 
     # a ragged N: the first n - 1 rows
     q = l2_normalize(torch.randn(16, d, generator=g, device="cuda"))
@@ -2301,10 +2384,9 @@ def phase_knn(emb: torch.Tensor) -> dict:
     near_total += _knn_hold("ragged N", got,
                             knn_search(db[:n - 1], q, 5, impl="reference"),
                             n - 1)
-    # duplicate rows in four slices of the B = 16 split, and a query equal
-    # to them: their ids must come back in ascending order
-    p = kk.plan(16, n, d, 4, torch.cuda.get_device_properties(0)
-                .multi_processor_count)
+    # duplicate rows in four stripes of the B = 16 split, and a query
+    # equal to them: their ids must come back in ascending order
+    p = kk.device_plan(16, n, d, 4, 0)
     dup = torch.tensor([1000, 1000 + p.slice_rows + 7,
                         1000 + 9 * p.slice_rows + 3, n - 5], device="cuda")
     saved = db[dup].clone()
@@ -2327,7 +2409,7 @@ def phase_knn(emb: torch.Tensor) -> dict:
         raise RuntimeError(f"N=10: ids {got[1].tolist()} against "
                            f"{want[1].tolist()}, or no negative score")
     say("knn", f"ragged N={n - 1}, duplicate rows {dup.tolist()} (one per "
-        f"slice, ascending ids back), N=10 with negative scores in the top "
+        f"stripe, ascending ids back), N=10 with negative scores in the top "
         f"8 (no id >= N): ids equal; near-tie ranks over all cases "
         f"{near_total}")
     del db
@@ -2548,12 +2630,20 @@ def main() -> int:
     clip = phase_clip_serve(rdm_sd, vq_sd, emb, rarm_sd, vq16_sd)
 
     def row(name, info, launches_, r, **extra):
+        # device ms of a call in a CUDA graph: the sum over the sites or
+        # cases (packed_attn, flash_*: theirs), the mean over the decode
+        # cases, knn's op point
+        sites = r.get("sites") or r.get("cases") or ()
+        device = r.get("kernel_device_ms", r.get("device_ms"))
+        if device is None and sites and all("device_ms" in x
+                                            for x in sites):
+            device = sum(x["device_ms"] for x in sites)
         return {"name": name, "route": "cuda", "source": info[0],
                 "replaces": info[1], "launches": launches_[name],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                **extra}
+                "device_ms": device, **extra}
 
     core = {"packed_attn": {"sources": [KERNEL_INFO["packed_attn"][0],
                                         ATTN_CORE]},

@@ -158,6 +158,46 @@ __device__ __forceinline__ void tma_load(const CUtensorMap* map,
       : "memory");
 }
 
+// One box of a 2-D tensor map at (col, row) into shared memory at `dst`,
+// completing on `bar` (the kNN search's table chunks and queries).
+__device__ __forceinline__ void tma_load_2d(const CUtensorMap* map,
+                                            uint32_t dst, uint32_t bar,
+                                            int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row)
+      : "memory");
+}
+
+// The same box multicast to every CTA of the cluster in `mask`: it lands
+// at `dst` in each of them and completes on each one's barrier at `bar`.
+__device__ __forceinline__ void tma_load_2d_mc(const CUtensorMap* map,
+                                               uint32_t dst, uint32_t bar,
+                                               int col, int row,
+                                               uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row),
+      "h"(mask)
+      : "memory");
+}
+
+// One arrival on the barrier at the same shared offset `bar` in CTA `rank`
+// of the cluster (this CTA's own included).
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
+                                                    uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(bar), "r"(rank));
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(
+                   remote)
+               : "memory");
+}
+
 // wgmma shared-memory descriptor of a 64-byte-swizzled operand: start
 // address, leading and stride byte offsets (>> 4), layout type 2 (B64).
 __device__ __forceinline__ uint64_t sw64_desc(uint32_t addr, uint32_t lbo,
@@ -165,6 +205,17 @@ __device__ __forceinline__ uint64_t sw64_desc(uint32_t addr, uint32_t lbo,
   return (uint64_t)((addr & 0x3FFFF) >> 4) |
          ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)2 << 62);
+}
+
+// The descriptor of a K-major operand whose rows are PWB bytes (one TMA
+// box wide) and swizzled across PWB bytes: 128 (layout type 1), 64 (2) or
+// 32 (3); eight rows repeat the pattern, so SBO is 8 PWB.
+template <int PWB>
+__device__ __forceinline__ uint64_t sw_desc(uint32_t addr) {
+  static_assert(PWB == 128 || PWB == 64 || PWB == 32, "swizzle width");
+  constexpr uint64_t kType = PWB == 128 ? 1 : PWB == 64 ? 2 : 3;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)((8 * PWB) >> 4) << 32) | (kType << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -250,6 +301,34 @@ __device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a,
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
         "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// (the kNN search's S^T = T Q^T over 8 and 16 queries)
+template <>
+__device__ __forceinline__ void wgmma_ss<8>(float (&d)[4], uint64_t a,
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3 "
+      "}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<16>(float (&d)[8], uint64_t a,
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7 "
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
@@ -712,6 +791,27 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The tensor map of a bf16 row-major [rows, cols] matrix: dims {cols,
+// rows} innermost first, boxes {box_cols, box_rows}, swizzled across the
+// box's box_cols * 2 bytes (128, 64 or 32), rows and columns past the
+// matrix zero-filled.
+inline bool make_map_2d(CUtensorMap* map, const void* ptr, int rows,
+                        int cols, int box_cols, int box_rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUtensorMapSwizzle sw = box_cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                 : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

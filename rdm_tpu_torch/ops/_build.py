@@ -61,7 +61,8 @@ _SIGNATURES = {
     "rdm_commit_rows": [_P, _P, _I, _I, _I, _P],
     "rdm_flash_fwd": [_P] * 4 + [_I] * 6 + [_F, _P],
     "rdm_flash_bwd": [_P] * 8 + [_I] * 6 + [_F, _F, _P],
-    "rdm_knn_partial": [_P] * 4 + [_I] * 6 + [_P],
+    "rdm_knn_search": [_P] * 4 + [_I] * 10 + [_P],
+    "rdm_knn_cluster_slots": [_I] * 5,
     "rdm_knn_merge": [_P] * 4 + [_I] * 4 + [_P],
 }
 

@@ -1,27 +1,30 @@
 """Exact top-k dot-product search: one hand-written CUDA kernel pair.
 
 Counterpart of `rdm_tpu/ops/knn_kernel.py` `_knn_kernel` /
-`knn_search_fused` (csrc/knn_topk.cu, two launches: per-slice top-k lists,
-then one merge per query). Queries [B, D] are cast to the table's dtype
-and scored against the normalised table [N, D] (the kernel sums the
-products in f32, the plain version in f64 rounded to f32); the k best come
-back as (scores [B, k] f32, ids [B, k] int64), ordered by score
-descending, ties to the lower id.
+`knn_search_fused` (csrc/knn_topk.cu, two launches: a TMA + wgmma search
+that gives each stripe's top-k lists, reading the table once per group of
+up to 256 queries, then one merge per query). Queries [B, D] are cast to
+the table's dtype and scored against the normalised table [N, D] (the
+kernel sums the products in f32, the plain version in f64 rounded to
+f32); the k best come back as (scores [B, k] f32, ids [B, k] int64),
+ordered by score descending, ties to the lower id.
 
 `knn_topk` runs the plain version `knn_search_reference` only for tensors
 on the CPU; for a CUDA table it launches the kernels or raises (a bf16
 table, D a multiple of 16). Both refuse k > N (the JAX engine pads the
 table and returns padding ids there, clamped to N - 1) and k > 128 (the
-Pallas kernel's scratch width). `plan` fixes the slice split the kernel
-runs, and `knn_search_reference(slice_rows=)` computes the same per-slice
-top-k followed by the merge, so the CPU tests hold the merge rule the
-kernel relies on. Each launch adds one to `launch_counts()["knn"]`: two
-per search.
+Pallas kernel's scratch width). `plan` fixes the query groups, the
+cluster, the ring and the stripe split the kernel runs, and
+`knn_search_reference(slice_rows=)` computes the same per-stripe top-k
+followed by the merge, so the CPU tests hold the merge rule the kernel
+relies on (tests/test_torch_port_knn_tiles.py also emulates its walk).
+Each launch adds one to `launch_counts()["knn"]`: two per search.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -29,11 +32,14 @@ import torch
 from rdm_tpu_torch.ops import _build
 
 MAX_K = 128           # the Pallas kernel's scratch width
-QUERY_TILE = 16       # queries per CTA (csrc/knn_topk.cu kQT)
-CHUNK_ROWS = 64       # table rows per streamed chunk (kRC); slices align
+QUERY_GROUPS = (8, 16, 32, 64)  # queries a CTA holds: wgmma's N
+MAX_CLUSTER = 4       # CTAs that share each table box by TMA multicast
+CHUNK_ROWS = 128      # table rows of a chunk and a stage: two wgmma M tiles
+CANDIDATES = 16       # candidate slots per query (kCand)
+MERGE_AT = 8          # a buffer this full is merged (kMergeAt)
+MIN_STAGES, MAX_STAGES = 3, 8  # ring stages of one box each
 MAX_MERGE = 16384     # candidates one merge CTA sorts (kMaxMerge)
 SMEM_LIMIT = 232448   # dynamic shared memory a block may use on sm_90
-CTAS_PER_SLOT = 2     # CTAs per resident slot: the grid fills the card twice
 _SCORE_CHUNK = 65536  # table rows per f64 product of the plain version
 KERNEL_NAMES = ("knn",)
 _launches = dict.fromkeys(KERNEL_NAMES, 0)
@@ -90,42 +96,91 @@ def knn_search_reference(db_norm: torch.Tensor, queries: torch.Tensor,
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """The kernel's split of one search: `n_slices` slices of `slice_rows`
-    rows (a multiple of CHUNK_ROWS; the last one ragged), merged over
+    """The kernel's split of one search. `groups` query groups of `cluster`
+    CTAs holding `queries` queries each; each group reads the table once,
+    as `n_slices` stripes of `slice_rows` rows (a multiple of CHUNK_ROWS;
+    the last one ragged), one per cluster, streamed in boxes of `panel`
+    columns through a ring of `stages` stages. The merge sorts
     `n_slices * k` candidates padded to `merge_pad`, a power of two."""
 
+    queries: int
+    cluster: int
+    groups: int
+    panel: int
+    stages: int
     slice_rows: int
     n_slices: int
     merge_pad: int
     smem: int
 
 
-def partial_smem(d: int, k: int) -> int:
-    """Dynamic shared memory of one knn_partial CTA (csrc partial_smem)."""
-    ld = d + 8
-    return (QUERY_TILE * ld * 2 + 2 * CHUNK_ROWS * ld * 2
-            + QUERY_TILE * k * 8 + QUERY_TILE * CHUNK_ROWS * 8
-            + QUERY_TILE * 4)
+def panel_cols(d: int) -> int:
+    """Columns of a TMA box (csrc panel_cols): 64 (128-byte swizzle) when D
+    allows, else 32 or 16."""
+    return 64 if d % 64 == 0 else 32 if d % 32 == 0 else 16
 
 
-def plan(b: int, n: int, d: int, k: int, sm_count: int) -> Plan:
-    """Slices so that the grid holds CTAS_PER_SLOT CTAs per resident slot
-    (B = 16 fills 132 SMs twice over), no more than the merge can hold at
-    this k, and no slice shorter than one chunk."""
+def search_smem(nq: int, d: int, k: int, stages: int) -> int:
+    """Dynamic shared memory of one knn_search CTA (csrc `layout`): the
+    queries, the ring, the lists, the candidate buffers, counts and
+    thresholds, the barriers and 1 KB to align the base."""
+    lists = nq * d * 2 + stages * CHUNK_ROWS * panel_cols(d) * 2 \
+        + nq * k * 8 + nq * CANDIDATES * 8 + nq * 12
+    return -(-lists // 8) * 8 + 8 * (2 * stages + 1) + 1024
+
+
+@functools.lru_cache(maxsize=256)
+def plan(b: int, n: int, d: int, k: int, sm_count: int,
+         cluster_slots: Optional[int] = None) -> Plan:
+    """Up to 64 queries in one CTA, up to 256 in a cluster of two or four
+    (every table box multicast to all of them), more in groups of 256; a
+    smaller query group where the queries, the lists and MIN_STAGES
+    stages do not fit the shared memory. The ring takes what is left, up
+    to MAX_STAGES. One stripe per cluster the card runs at once
+    (`cluster_slots`, by default sm_count // cluster), no more than the
+    merge can hold at this k, and none shorter than one chunk."""
     check_k(k, n)
-    smem = partial_smem(d, k)
-    if d % 16 or smem > SMEM_LIMIT:
-        raise ValueError(f"knn: D={d}; the kernel takes D a multiple of 16 "
-                         f"whose tiles fit {SMEM_LIMIT} bytes of shared "
-                         "memory")
-    slots = sm_count * max(1, SMEM_LIMIT // (smem + 1024))
-    tiles = -(-b // QUERY_TILE)
+    if d % 16 or d < 16:
+        raise ValueError(f"knn: D={d}; the kernel takes D a multiple of 16")
+    nq = next(s for s in QUERY_GROUPS if s >= min(b, QUERY_GROUPS[-1]))
+    while search_smem(nq, d, k, MIN_STAGES) > SMEM_LIMIT:
+        if nq == QUERY_GROUPS[0]:
+            raise ValueError(f"knn: D={d}, k={k}: {nq} queries and their "
+                             f"lists do not fit {SMEM_LIMIT} bytes of "
+                             "shared memory")
+        nq //= 2
+    cluster = 1
+    while cluster < MAX_CLUSTER and cluster * nq < b:
+        cluster *= 2
+    stages = MAX_STAGES
+    while search_smem(nq, d, k, stages) > SMEM_LIMIT:
+        stages -= 1
+    groups = -(-b // (cluster * nq))
     chunks = -(-n // CHUNK_ROWS)
-    want = max(1, min(CTAS_PER_SLOT * slots // tiles, MAX_MERGE // k, chunks))
+    slots = sm_count // cluster if cluster_slots is None else cluster_slots
+    want = max(1, min(slots // groups, MAX_MERGE // k, chunks))
     slice_rows = -(-chunks // want) * CHUNK_ROWS
     n_slices = -(-n // slice_rows)
     merge_pad = 1 << max(0, (n_slices * k - 1).bit_length())
-    return Plan(slice_rows, n_slices, merge_pad, smem)
+    return Plan(nq, cluster, groups, panel_cols(d), stages, slice_rows,
+                n_slices, merge_pad, search_smem(nq, d, k, stages))
+
+
+@functools.lru_cache(maxsize=256)
+def device_plan(b: int, n: int, d: int, k: int, index: int) -> Plan:
+    """`plan` for CUDA device `index`: its SM count and, for a cluster, how
+    many such clusters of the search kernel it runs at once (a cluster's
+    CTAs share a GPC, so that can be less than the SM count over the
+    cluster size; a stripe more than fit would wait for a second wave)."""
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    p = plan(b, n, d, k, sms)
+    if p.cluster == 1:
+        return p
+    with torch.cuda.device(index):
+        slots = _build.load().rdm_knn_cluster_slots(p.queries, d, k,
+                                                    p.stages, p.cluster)
+    _build.check(max(0, -slots), "knn_cluster_slots")
+    return plan(b, n, d, k, sms, max(1, slots))
 
 
 def knn_topk(db_norm: torch.Tensor, queries: torch.Tensor, k: int
@@ -151,9 +206,11 @@ def knn_topk(db_norm: torch.Tensor, queries: torch.Tensor, k: int
         raise ValueError("knn: the table must be 16-byte aligned")
     _build.refuse_grad("knn", db_norm, queries)
     dev = db_norm.device
-    p = plan(b, n, d, k, torch.cuda.get_device_properties(dev)
-             .multi_processor_count)
+    p = device_plan(b, n, d, k, dev.index if dev.index is not None
+                    else torch.cuda.current_device())
     q = queries.to(torch.bfloat16).contiguous()
+    if q.data_ptr() % 16:  # TMA reads 16-byte aligned rows
+        q = q.clone()
     part_s = torch.empty((b, p.n_slices, k), dtype=torch.float32,
                          device=dev)
     part_i = torch.empty((b, p.n_slices, k), dtype=torch.int32, device=dev)
@@ -162,10 +219,11 @@ def knn_topk(db_norm: torch.Tensor, queries: torch.Tensor, k: int
     lib = _build.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = lib.rdm_knn_partial(q.data_ptr(), db_norm.data_ptr(),
-                                 part_s.data_ptr(), part_i.data_ptr(), b, n,
-                                 d, k, p.slice_rows, p.n_slices, stream)
-        _build.check(rc, "knn_partial")
+        rc = lib.rdm_knn_search(q.data_ptr(), db_norm.data_ptr(),
+                                part_s.data_ptr(), part_i.data_ptr(), b, n,
+                                d, k, p.queries, p.cluster, p.groups,
+                                p.slice_rows, p.n_slices, p.stages, stream)
+        _build.check(rc, "knn_search")
         _launches["knn"] += 1
         rc = lib.rdm_knn_merge(part_s.data_ptr(), part_i.data_ptr(),
                                out_s.data_ptr(), out_i.data_ptr(), b,

@@ -679,12 +679,21 @@ def test_spatial_transformer_trains_through_flash_kernels(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n,d,k", [(1, 64, 16, 1), (17, 5000, 128, 7),
-                                     (3, 777, 512, 128), (40, 20000, 64, 20)])
+                                     (3, 777, 512, 128), (40, 20000, 64, 20),
+                                     (129, 50000, 512, 20),
+                                     (256, 50000, 512, 20),
+                                     (300, 50000, 512, 20)])
 def test_knn_kernel_matches_plain(cuda, b, n, d, k):
+    """B = 129 takes a cluster of four CTAs of 64 queries, the third
+    holding one query and the fourth none; 256 one full cluster; 300 two
+    query groups."""
     g = torch.Generator(device="cuda").manual_seed(n)
     db = torch.nn.functional.normalize(
         torch.randn(n, d, generator=g, device="cuda"), dim=1).bfloat16()
-    dup = [0, n // 3, n // 2, n - 1]  # one row in (up to) four slices
+    dup = [0, n // 3, n // 2, n - 1]  # one row in (up to) four stripes
+    if n >= 50000:
+        p = kk.device_plan(b, n, d, k, 0)
+        assert len({r // p.slice_rows for r in dup}) == 4
     db[dup] = db[n // 2].clone()
     q = torch.nn.functional.normalize(
         torch.randn(b, d, generator=g, device="cuda"), dim=1)

@@ -5,8 +5,9 @@ package on the CPU.
 - The plain version against JAX `knn_search_fused` (the Pallas kernel in
   interpret mode) on tests/test_retrieval.py's cases, and against JAX
   `knn_search` at several (B, N, k), in f32 and bf16 tables.
-- `slice_rows=` (the kernel's per-slice top-k, then the merge) against the
-  global sort, ties across slices included, and `plan`'s split.
+- `slice_rows=` (the kernel's per-stripe top-k, then the merge) against
+  the global sort, ties across slices included, and `plan`'s query
+  groups, cluster, ring and split.
 - A 10-row table whose top k holds negative scores against the numpy
   stable-argsort oracle: JAX's kernel returns padding ids there.
 - k > N and k > 128 raise.
@@ -170,10 +171,24 @@ def test_plan_splits_the_table(b, k):
     assert (p.n_slices - 1) * p.slice_rows < n <= p.n_slices * p.slice_rows
     assert p.n_slices * k <= p.merge_pad <= kk.MAX_MERGE
     assert p.merge_pad & (p.merge_pad - 1) == 0
-    assert p.smem == kk.partial_smem(d, k) <= kk.SMEM_LIMIT
-    ctas = -(-b // kk.QUERY_TILE) * p.n_slices
-    if (b, k) == (16, 4):  # the op point fills 132 SMs twice over
-        assert ctas >= 2 * sms
+    assert p.queries in kk.QUERY_GROUPS and p.cluster in (1, 2, 4)
+    group = p.cluster * p.queries  # queries that share one pass
+    assert (p.groups - 1) * group < b <= p.groups * group
+    assert p.panel == 64
+    assert kk.MIN_STAGES <= p.stages <= kk.MAX_STAGES
+    assert p.smem == kk.search_smem(p.queries, d, k, p.stages) \
+        <= kk.SMEM_LIMIT
+    assert p.n_slices * p.cluster * p.groups <= sms  # one CTA an SM
+    if b <= 256:  # the table is read once
+        assert p.groups == 1
+    if (b, k) in ((16, 4), (4, 4), (32, 4)):  # every SM streams a stripe
+        assert p.n_slices == sms and p.cluster == 1
+    if (b, k) == (256, 20):  # 4 x 64 queries, every box multicast
+        assert (p.cluster, p.queries) == (4, 64)
+        # a card that runs only 32 such clusters at once gets 32 stripes
+        assert kk.plan(b, n, d, k, sms, 32).n_slices == 32
+    if b == 1000:
+        assert p.groups == 4
     if k == 128:  # the merge still fits one CTA
         assert p.n_slices * k <= kk.MAX_MERGE
     # the plain version's split at this plan gives the global result
@@ -189,8 +204,9 @@ def test_plan_splits_the_table(b, k):
 def test_plan_refuses_unsupported_widths():
     with pytest.raises(ValueError, match="multiple of 16"):
         kk.plan(4, 1000, 120, 4, 132)
+    # 8 queries of 16384 bf16 columns are 256 KB, more than a CTA holds
     with pytest.raises(ValueError, match="shared"):
-        kk.plan(4, 1000, 4096, 4, 132)
+        kk.plan(4, 1000, 16384, 4, 132)
 
 
 def test_engine_search_without_gather():
