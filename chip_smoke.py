@@ -28,7 +28,13 @@ exits non-zero):
                the max SM clock)), its output equal bit for bit to
                flash_fwd's on the same memory (one core), and the host
                microseconds of one call (wrapper and bare launcher, beside
-               ln_qkv's launcher, which builds no tensor maps).
+               ln_qkv's launcher, which builds no tensor maps). post_cross
+               and geglu_ff (three and two launches of the block-GEMM core,
+               csrc/block_gemm_sm90.cuh) give each launch's device time in
+               a CUDA graph, the host us of a call and of the bare
+               launcher, and, as context only, the same products through
+               torch.matmul; both are also held and timed at 32 images
+               (bench.py's batch-16 op point under shared CFG).
   4. forward   one full-width U-Net forward, CUDA bf16 (kernel path)
                against CPU f32 (plain path), x batch 1 with a 2-row
                (cond, uncond) context; each kernel must launch 16 times.
@@ -191,9 +197,17 @@ KERNEL_INFO = {
                     "rdm_tpu/ops/block_kernel.py:154"),
     "post_cross": ("rdm_tpu_torch/csrc/post_cross.cu",
                    "rdm_tpu/ops/block_kernel.py:361"),
-    "geglu_ff": ("rdm_tpu_torch/csrc/geglu_ff.cu",
+    "geglu_ff": ("rdm_tpu_torch/csrc/geglu_ff_sm90.cu",
                  "rdm_tpu/ops/block_kernel.py:423"),
 }
+# the block-GEMM core that post_cross (three launches) and geglu_ff (two)
+# run, over the attention header's PTX pieces
+GEMM_CORE = ["rdm_tpu_torch/csrc/block_gemm_sm90.cuh",
+             "rdm_tpu_torch/csrc/attn_fwd_sm90.cuh"]
+GEMM_LAUNCHES = {"post_cross": ("x1", "cross", "xmid"),
+                 "geglu_ff": ("geglu_up", "ff_down")}
+# bench.py's batch-16 op point under shared CFG: 32 images at the sites
+OP_POINT_IMAGES = 32
 INT8_INFO = {
     "ln_qkv_q": ("rdm_tpu_torch/csrc/ln_qkv_q.cu",
                  "rdm_tpu/ops/block_kernel.py:140"),
@@ -379,10 +393,9 @@ def exp2_floor_ms(n_exp: float) -> float:
     return n_exp / (SMS * EX2_PER_SM_CLOCK * sm_clock_hz()) * 1e3
 
 
-def graph_ms(fn, calls: int = 20) -> float:
-    """Device time of one fn() call: `calls` calls captured in a CUDA graph
-    and replayed (median over TIMING_RUNS replays), so no host work sits
-    between them, as it does in median_ms for a short kernel."""
+def _capture(fn, calls: int) -> torch.cuda.CUDAGraph:
+    """A CUDA graph of `calls` fn() calls, after a warm-up on a side
+    stream."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -393,9 +406,43 @@ def graph_ms(fn, calls: int = 20) -> float:
     with torch.cuda.graph(graph):
         for _ in range(calls):
             fn()
+    return graph
+
+
+def graph_ms(fn, calls: int = 20) -> float:
+    """Device time of one fn() call: `calls` calls captured in a CUDA graph
+    and replayed (median over TIMING_RUNS replays), so no host work sits
+    between them, as it does in median_ms for a short kernel."""
+    graph = _capture(fn, calls)
     ms = median_ms(graph.replay) / calls
     del graph
     return ms
+
+
+def graph_launch_ms(fn, n_launches: int, match: str, calls: int = 20):
+    """Device ms of each of the n_launches kernels (names containing
+    `match`) of one fn() call, in launch order: torch.profiler's kernel
+    records over three replays of a CUDA graph of `calls` calls, averaged
+    by position in the call. None where the profiler saw another count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    graph = _capture(fn, calls)
+    graph.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            graph.replay()
+        torch.cuda.synchronize()
+    del graph
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and match in e.name),
+                 key=lambda e: e.time_range.start)
+    if len(evs) != 3 * calls * n_launches:
+        return None
+    us = [e.time_range.elapsed_us() for e in evs]
+    return [float(np.mean(us[i::n_launches])) / 1e3
+            for i in range(n_launches)]
 
 
 def host_us(fn, calls: int = HOST_CALLS) -> float:
@@ -526,7 +573,8 @@ def phase_build() -> None:
         f"({nvcc})")
 
 
-def _site_tensors(c: int, s: int, heads: int, g: torch.Generator):
+def _site_tensors(c: int, s: int, heads: int, g: torch.Generator,
+                  images: int = CFG_BATCH):
     dev, bf = "cuda", torch.bfloat16
     f = 4 * c
 
@@ -545,8 +593,8 @@ def _site_tensors(c: int, s: int, heads: int, g: torch.Generator):
     n2s, n2b = norm()
     n3s, n3b = norm()
     return dict(
-        x=rn(CFG_BATCH, s, c), ck=rn(CFG_BATCH, CONTEXT, c),
-        cv=rn(CFG_BATCH, CONTEXT, c),
+        x=rn(images, s, c), ck=rn(images, CONTEXT, c),
+        cv=rn(images, CONTEXT, c),
         n1s=n1s, n1b=n1b, wqkv=w(c, 3 * c), wo=w(c, c),
         bo=rn(c, scale=0.1, dtype=torch.float32), n2s=n2s, n2b=n2b,
         wq2=w(c, c), wo2=w(c, c),
@@ -611,6 +659,104 @@ def _attn_core_site(t: dict, q, k, v, heads: int, hd: int) -> dict:
     return out
 
 
+def _gemm_calls(t: dict, attn: torch.Tensor, heads: int):
+    """post_cross and geglu_ff on one site's tensors: {name: (kernel call,
+    plain call, bare launcher call, the same products through
+    torch.matmul)}. The bare launchers take the wrappers' plans and
+    outputs, computed once and kept alive by their lambdas."""
+    from rdm_tpu_torch.ops import _build
+    from rdm_tpu_torch.ops import block_kernel as bk
+
+    b, s, c = t["x"].shape
+    r, hd, f = b * s, c // heads, 4 * c
+    pc = (t["x"], attn, t["ck"], t["cv"], t["wo"], t["bo"], t["n2s"],
+          t["n2b"], t["wq2"], t["wo2"], t["bo2"])
+    xm2 = bk.post_cross_reference(*pc, heads=heads,
+                                  head_dim=hd).reshape(r, c)
+    ff = (xm2, t["n3s"], t["n3b"], t["wa"], t["wg"], t["ba"], t["bg"],
+          t["w2"], t["b2"])
+    lib, stream = _build.load(), torch.cuda.current_stream().cuda_stream
+    x1, o, out, y = (torch.empty_like(xm2) for _ in range(4))
+    hidden = torch.empty((r, f), dtype=xm2.dtype, device=xm2.device)
+    ptr = lambda *ts: [a.data_ptr() for a in ts]  # noqa: E731
+    sms = bk.sm_count(xm2.device.index)
+    pc_bare = ptr(*pc, x1, o, out) + [r, s, c, CONTEXT, hd ** -0.5] + [
+        *bk.gemm_plan("residual", r, c, c, sms).args,
+        *bk.gemm_plan("cross", r, c, c, sms).args, stream]
+    ff_bare = ptr(*ff, hidden, y) + [r, c, f] + [
+        *bk.gemm_plan("geglu", r, f, c, sms).args,
+        *bk.gemm_plan("residual", r, c, f, sms).args, stream]
+    a2, x2 = attn.reshape(r, c), t["x"].reshape(r, c)
+    return {
+        "post_cross": (
+            lambda: bk.post_cross(*pc, heads=heads, head_dim=hd),
+            lambda: bk.post_cross_reference(*pc, heads=heads, head_dim=hd),
+            lambda keep=(x1, o, out): lib.rdm_post_cross(*pc_bare),
+            lambda: (a2 @ t["wo"], x2 @ t["wq2"], x2 @ t["wo2"])),
+        "geglu_ff": (
+            lambda: bk.geglu_ff(*ff), lambda: bk.geglu_ff_reference(*ff),
+            lambda keep=(hidden, y): lib.rdm_geglu_ff_sm90(*ff_bare),
+            lambda: (xm2 @ t["wa"], xm2 @ t["wg"], hidden @ t["w2"])),
+    }
+
+
+def _gemm_site(name: str, calls: tuple) -> dict:
+    """Phase 3's extra numbers of a block-GEMM kernel at one site: each
+    launch's device time in a CUDA graph, the host us of a wrapper call
+    and of its bare launcher, and, as context only (no kernel of the port
+    calls it, and it is not the Library column), the device time of the
+    same products through torch.matmul, none of their epilogues."""
+    kern, _, bare, mm = calls
+    parts = graph_launch_ms(kern, len(GEMM_LAUNCHES[name]),
+                            "block_gemm_kernel")
+    out = {"launch_device_ms": None if parts is None else
+           dict(zip(GEMM_LAUNCHES[name], parts)),
+           "host_us": host_us(kern), "launcher_host_us": host_us(bare),
+           "matmul_context_device_ms": graph_ms(mm)}
+    launches = ("not seen by the profiler" if parts is None else ", ".join(
+        f"{k} {v:.4f}" for k, v in out["launch_device_ms"].items()))
+    say("kernels", f"  {name} launches (device ms, CUDA graph): {launches}; "
+        f"host per call {out['host_us']:.1f} us (bare launcher "
+        f"{out['launcher_host_us']:.1f}); context only, the same products "
+        f"through torch.matmul: {out['matmul_context_device_ms']:.4f} ms")
+    return out
+
+
+def _gemm_op_point(g: torch.Generator) -> dict:
+    """post_cross and geglu_ff at OP_POINT_IMAGES images of each site
+    against their plain versions (KERNEL_TOL), with their device times."""
+    out = {name: [] for name in GEMM_LAUNCHES}
+    for c, s, heads in SITES:
+        t = _site_tensors(c, s, heads, g, images=OP_POINT_IMAGES)
+        attn = 0.5 * torch.randn(t["x"].shape, generator=g, device="cuda",
+                                 dtype=torch.bfloat16)
+        for name, calls in _gemm_calls(t, attn, heads).items():
+            kern, plain = calls[:2]
+            got = _flat(kern())
+            torch.cuda.synchronize()
+            want = _flat(plain())
+            err = (got - want).abs().max().item()
+            rel = err / want.abs().max().item()
+            if not (torch.isfinite(got).all() and rel <= KERNEL_TOL):
+                raise RuntimeError(f"{name} at {OP_POINT_IMAGES} images, "
+                                   f"C={c}: relative error {rel}")
+            bound_ms, by = bound(*block_cost(name, c, s,
+                                             b=OP_POINT_IMAGES))
+            site = {"C": c, "S": s, "R": OP_POINT_IMAGES * s,
+                    "max_abs_err": err, "rel_err": rel,
+                    "kernel_device_ms": graph_ms(kern),
+                    "bound_ms": bound_ms, "bound_by": by}
+            say("kernels", f"{name:11s} C={c:4d} R={site['R']:5d} "
+                f"({OP_POINT_IMAGES} images): /max|ref| {rel:.3e} (limit "
+                f"{KERNEL_TOL:g}); device {site['kernel_device_ms']:.4f} ms, "
+                f"bound {bound_ms:.4f} ms ({by})")
+            site.update(_gemm_site(name, calls))
+            out[name].append(site)
+        del t, attn
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_kernels() -> dict:
     """Per kernel: {'max_abs_err', 'ms', 'plain_ms', 'sites': [...]}."""
     from rdm_tpu_torch.ops import block_kernel as bk
@@ -634,6 +780,7 @@ def phase_kernels() -> dict:
                    t["n2s"], t["n2b"], t["wq2"], t["wo2"], t["bo2"])
         ff_args = (xm2, t["n3s"], t["n3b"], t["wa"], t["wg"], t["ba"],
                    t["bg"], t["w2"], t["b2"])
+        gemm = _gemm_calls(t, attn, heads)
         calls = {
             "ln_qkv": (lambda: bk.ln_qkv(x2, t["n1s"], t["n1b"], t["wqkv"]),
                        lambda: bk.ln_qkv_reference(x2, t["n1s"], t["n1b"],
@@ -674,6 +821,8 @@ def phase_kernels() -> dict:
             site = {"C": c, "S": s, "heads": heads, "max_abs_err": err,
                     "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": by, **dev}
+            if name in GEMM_LAUNCHES:
+                site.update(_gemm_site(name, gemm[name]))
             if name == "packed_attn":
                 shp = (CFG_BATCH, s, heads, hd)
                 site["library_ms"] = _sdpa_ms(
@@ -685,6 +834,8 @@ def phase_kernels() -> dict:
         _sum_bound(res, [block_cost(name, c, s) for c, s, _ in SITES])
         res["kernel_device_ms"] = sum(x["kernel_device_ms"]
                                       for x in res["sites"])
+    for name, sites in _gemm_op_point(g).items():
+        results[name]["op_point_sites"] = sites
     return results
 
 
@@ -1827,6 +1978,13 @@ def phase_post_ff(rdm_sd: dict, vq_sd: dict, emb: torch.Tensor) -> dict:
         torch.cuda.synchronize()
         _, err, rel = _hold(f"post_ff at C={c}", [("y", got, plain())])[0]
         pair_err = (got.float() - pair.float()).abs().max().item()
+        # the split pair sums in the block-GEMM core's order, post_ff in the
+        # first version's, so the two agree within the kernel tolerance,
+        # not bit for bit
+        pair_rel = pair_err / pair.float().abs().max().item()
+        if not pair_rel <= KERNEL_TOL:
+            raise RuntimeError(f"post_ff at C={c}: {pair_rel} from the split "
+                               f"pair > {KERNEL_TOL}")
         ms, split_ms, plain_ms = (median_ms(fn) for fn in (kern, split,
                                                            plain))
         dev = wrapper_device(kern)
@@ -1834,7 +1992,8 @@ def phase_post_ff(rdm_sd: dict, vq_sd: dict, emb: torch.Tensor) -> dict:
         bound_ms, by = bound(*block_cost("post_ff", c, s))
         say("post_ff", f"C={c:4d} S={s:4d} heads={heads:2d}: max|err| "
             f"{err:.4g}, /max|ref| {rel:.3e} (limit {KERNEL_TOL:g}); against "
-            f"the split pair's kernels max|err| {pair_err:.4g}"
+            f"the split pair's kernels max|err| {pair_err:.4g} (/max "
+            f"{pair_rel:.3e}, limit {KERNEL_TOL:g})"
             f"{' (bit-equal)' if torch.equal(got, pair) else ''}; kernel "
             f"{ms:.4f} ms (device {dev['kernel_device_ms']:.4f}), split pair "
             f"{split_ms:.4f} ms (device {split_dev:.4f}), plain "
@@ -2649,6 +2808,9 @@ def main() -> int:
                                         ATTN_CORE]},
             "flash_fwd": {"sources": [FLASH_INFO["flash_fwd"][0],
                                       ATTN_CORE]}}
+    for n in GEMM_LAUNCHES:
+        core[n] = {"sources": [KERNEL_INFO[n][0]] + GEMM_CORE,
+                   "op_point_sites": kernels[n]["op_point_sites"]}
     rows = [row(n, KERNEL_INFO[n], launches, r, sites=r["sites"],
                 **core.get(n, {}))
             for n, r in kernels.items()]

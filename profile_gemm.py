@@ -1,0 +1,238 @@
+#!/usr/bin/env python3
+"""Where the block-GEMM core's time goes, on one NVIDIA GPU.
+
+    python3 profile_gemm.py [--out profile_gemm.json]
+    python3 profile_gemm.py --host TREE [TREE ...] [--out FILE]
+
+Builds the launchers of `post_cross` and `geglu_ff` (rdm_tpu_torch/csrc/
+post_cross.cu, geglu_ff_sm90.cu) over rdm_tpu_torch/csrc/
+block_gemm_sm90.cuh with nvcc five times: as they are, and with one part
+of the core cut each time: the wgmma products, the LayerNorm prologue's
+arithmetic (its rows still arrive by TMA), the epilogues, the GEGLU's erf.
+Each build runs in a process of its own and times both wrappers at
+chip_smoke.py phase 3's three U-Net sites (8 images, its tensors) in
+CUDA graphs, each launch by torch.profiler over the graph's replays
+(chip_smoke.py `graph_ms`, `graph_launch_ms`). The cut builds' outputs
+are wrong by design; only their time is read. Prints one JSON line per
+build and writes them all to --out, with the card's name and power limit.
+
+With --host, builds nothing of its own: for each TREE in the order given
+(a checkout of this repo, such as an older commit unpacked by `git
+archive`; `.` for this one), a process of its own imports that tree's
+`rdm_tpu_torch`, builds its kernels and times its `post_cross` and
+`geglu_ff` wrappers at the same sites on the same seeded tensors: host
+us a call (chip_smoke.py `host_us`) and device ms a call (`graph_ms`).
+Naming two trees in turns (A B B A) compares their host cost in one run.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+# (text of block_gemm_sm90.cuh, its replacement) of each cut
+CUTS = {
+    "kernel": None,
+    "no wgmma": ("            wgmma_ss_mn<BN>(",
+                 "            if (p.R < 0) wgmma_ss_mn<BN>("),
+    "no LayerNorm arithmetic": (
+        "  for (int r0 = warp; r0 < BM; r0 += 2 * kWarps) {",
+        "  for (int r0 = warp; r0 < 0; r0 += 2 * kWarps) {"),
+    "no epilogue": ("    const int n0 = t * BN;\n#pragma unroll\n",
+                    "    if (p.R > 0) continue;\n"
+                    "    const int n0 = t * BN;\n#pragma unroll\n"),
+    "no erf": ("          f[e] = av * (0.5f * gv * (1.0f + erff(gv * "
+               "0.7071067811865476f)));",
+               "          f[e] = av * gv;"),
+}
+LAUNCHERS = ("post_cross.cu", "geglu_ff_sm90.cu")
+HERE = os.path.dirname(os.path.abspath(__file__))
+HEADER = "block_gemm_sm90.cuh"
+
+
+def build_dir(variant: str) -> str:
+    return os.path.join(tempfile.gettempdir(), "profile_gemm",
+                        variant.replace(" ", "_"))
+
+
+def build(variant: str) -> subprocess.Popen:
+    """Starts nvcc on the two launchers over the cut header, in a
+    directory of the build's own (a quoted include finds the cut header
+    beside the launchers first)."""
+    from rdm_tpu_torch.ops import _build
+
+    out = build_dir(variant)
+    os.makedirs(out, exist_ok=True)
+    src = (_build.CSRC / HEADER).read_text()
+    if CUTS[variant] is not None:
+        old, new = CUTS[variant]
+        if src.count(old) != 1:
+            raise RuntimeError(f"{HEADER} changed; update profile_gemm.py's "
+                               f"cut {variant!r}")
+        src = src.replace(old, new)
+    with open(os.path.join(out, HEADER), "w") as f:
+        f.write(src)
+    for name in LAUNCHERS:
+        with open(os.path.join(out, name), "w") as f:
+            f.write((_build.CSRC / name).read_text())
+    return subprocess.Popen(
+        [_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+         "-shared", "-o", os.path.join(out, "lib.so"),
+         *(os.path.join(out, n) for n in LAUNCHERS),
+         str(_build.CSRC / "runtime.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def run_build(variant: str) -> dict:
+    """Times both wrappers through the variant's library."""
+    import torch
+
+    import chip_smoke as cs
+    from rdm_tpu_torch.ops import _build
+    from rdm_tpu_torch.ops import block_kernel as bk
+
+    lib = ctypes.CDLL(os.path.join(build_dir(variant), "lib.so"))
+    for name in ("rdm_post_cross", "rdm_geglu_ff_sm90"):
+        getattr(lib, name).argtypes = _build._SIGNATURES[name]
+        getattr(lib, name).restype = ctypes.c_int
+    lib.rdm_error_string.argtypes = [ctypes.c_int]
+    lib.rdm_error_string.restype = ctypes.c_char_p
+    _build._lib = lib  # the wrappers launch this build
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    out = {"build": variant, "sites": []}
+    for c, s, heads in cs.SITES:
+        t = cs._site_tensors(c, s, heads, g)
+        attn = 0.5 * torch.randn(t["x"].shape, generator=g, device="cuda",
+                                 dtype=torch.bfloat16)
+        for name, calls in cs._gemm_calls(t, attn, heads).items():
+            parts = cs.graph_launch_ms(calls[0], len(cs.GEMM_LAUNCHES[name]),
+                                       "block_gemm_kernel")
+            out["sites"].append({
+                "name": name, "C": c, "S": s,
+                "device_ms": cs.graph_ms(calls[0]),
+                "launch_device_ms": parts and dict(
+                    zip(cs.GEMM_LAUNCHES[name], parts))})
+        del t, attn
+    return out
+
+
+def run_host(tree: str) -> dict:
+    """Host us and device ms a wrapper call of the tree's `post_cross` and
+    `geglu_ff`. The tree's package comes first on the path; the timing
+    helpers and tensors are this script's chip_smoke.py."""
+    import importlib.util
+
+    sys.path.insert(0, os.path.abspath(tree))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    import torch
+
+    from rdm_tpu_torch.ops import block_kernel as bk
+
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    out = {"tree": tree, "module": bk.__file__, "sites": []}
+    for c, s, heads in cs.SITES:
+        t = cs._site_tensors(c, s, heads, g)
+        attn = 0.5 * torch.randn(t["x"].shape, generator=g, device="cuda",
+                                 dtype=torch.bfloat16)
+        pc = (t["x"], attn, t["ck"], t["cv"], t["wo"], t["bo"], t["n2s"],
+              t["n2b"], t["wq2"], t["wo2"], t["bo2"])
+        xm2 = bk.post_cross_reference(*pc, heads=heads,
+                                      head_dim=32).reshape(-1, c)
+        ff = (xm2, t["n3s"], t["n3b"], t["wa"], t["wg"], t["ba"], t["bg"],
+              t["w2"], t["b2"])
+        calls = {"post_cross": lambda: bk.post_cross(*pc, heads=heads,
+                                                     head_dim=32),
+                 "geglu_ff": lambda: bk.geglu_ff(*ff)}
+        with torch.inference_mode():
+            for name, fn in calls.items():
+                out["sites"].append({"name": name, "C": c, "S": s,
+                                     "host_us": cs.host_us(fn),
+                                     "device_ms": cs.graph_ms(fn)})
+        del t, attn, pc, ff, calls
+    return out
+
+
+def host_turns(trees, card: str, path: str) -> int:
+    """run_host for each tree in turn, one process each; prints a line a
+    site and wrapper, writes every run to `path`."""
+    results = {"card": card, "runs": []}
+    for i, tree in enumerate(trees):
+        proc = subprocess.run([sys.executable, __file__, "--host-tree", tree],
+                              capture_output=True, text=True)
+        if proc.returncode:
+            raise RuntimeError(f"{tree!r} failed:\n{proc.stderr[-3000:]}")
+        r = json.loads(proc.stdout.strip().splitlines()[-1])
+        for site in r["sites"]:
+            print(f"turn {i + 1} {tree:16s} {site['name']:10s} "
+                  f"C={site['C']:4d}: host {site['host_us']:.1f} us a call, "
+                  f"device {site['device_ms']:.4f} ms", flush=True)
+        results["runs"].append(r)
+    with open(path, "w") as f:
+        json.dump(results, f, indent=1)
+    print(f"wrote {path}", flush=True)
+    return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default="profile_gemm.json")
+    ap.add_argument("--host", nargs="+", metavar="TREE",
+                    help="time the wrappers' host cost of each tree in turn")
+    ap.add_argument("--build", help=argparse.SUPPRESS)
+    ap.add_argument("--host-tree", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_gemm: torch.cuda.is_available() is false; this needs "
+              "an NVIDIA GPU", file=sys.stderr)
+        return 1
+    if args.host_tree:
+        print(json.dumps(run_host(args.host_tree)), flush=True)
+        return 0
+    sys.path.insert(0, HERE)
+    if args.build:
+        print(json.dumps(run_build(args.build)), flush=True)
+        return 0
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(card, flush=True)
+    if args.host:
+        return host_turns(args.host, card, args.out)
+    procs = {v: build(v) for v in CUTS}  # every build at once
+    for v, p in procs.items():
+        log = p.communicate()[0]
+        if p.returncode:
+            raise RuntimeError(f"nvcc failed for {v!r}:\n{log}")
+    results = {"card": card, "builds": []}
+    for v in CUTS:  # one process a build, one at a time on the card
+        proc = subprocess.run([sys.executable, __file__, "--build", v],
+                              capture_output=True, text=True)
+        if proc.returncode:
+            raise RuntimeError(f"{v!r} failed:\n{proc.stderr[-3000:]}")
+        r = json.loads(proc.stdout.strip().splitlines()[-1])
+        for site in r["sites"]:
+            parts = site["launch_device_ms"]
+            print(f"{v:24s} {site['name']:26s} C={site['C']:4d}: device "
+                  f"{site['device_ms']:.4f} ms; launches "
+                  f"{parts if parts else 'not seen by the profiler'}",
+                  flush=True)
+        results["builds"].append(r)
+    with open(args.out, "w") as f:
+        json.dump(results, f, indent=1)
+    print(f"wrote {args.out}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -128,6 +128,10 @@ def profile_decode(decode, steps: int) -> dict:
             if "attn_fwd_kernel" in n and not is_bwd(n)]
     core_us = sum(t for t, _ in core)
     bwd_us = sum(t for t, _ in bwd)
+    # the block-GEMM core (csrc/block_gemm_sm90.cuh): post_cross's three
+    # launches and geglu_ff's two
+    gemm = [v for n, v in per_kernel.items() if "block_gemm_kernel" in n]
+    gemm_us = sum(t for t, _ in gemm)
     return {
         "wall_ms_per_step": wall_us / steps / 1e3,
         "device_ms_per_step": device_us / steps / 1e3,
@@ -141,7 +145,10 @@ def profile_decode(decode, steps: int) -> dict:
                       "per_step": sum(c for _, c in core) / steps},
         "attn_bwd": {"ms_per_step": bwd_us / steps / 1e3,
                      "share": bwd_us / device_us,
-                     "per_step": sum(c for _, c in bwd) / steps}}
+                     "per_step": sum(c for _, c in bwd) / steps},
+        "gemm_core": {"ms_per_step": gemm_us / steps / 1e3,
+                      "share": gemm_us / device_us,
+                      "per_step": sum(c for _, c in gemm) / steps}}
 
 
 def main() -> int:

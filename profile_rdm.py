@@ -26,7 +26,9 @@ first request. Then measures, in this order:
             host-clock wall time of the same synchronised forward, idle
             share (1 - the union of the device intervals / wall),
             launches, device time per kernel, and the attention core's
-            (packed_attn: csrc/attn_fwd_sm90.cuh) time and share.
+            (packed_attn: csrc/attn_fwd_sm90.cuh) and the block-GEMM
+            core's (post_cross, geglu_ff: csrc/block_gemm_sm90.cuh) time
+            and share.
 
 Prints one line per measurement, the card's name, power limit, SM clock
 and power draw first and last, and writes everything to --out as JSON.
@@ -160,10 +162,13 @@ def main() -> int:
                 for k in r["top"]:
                     print(f"    {k['ms_per_step']:.4f} ms {k['share']:7.2%} "
                           f"x{k['per_step']:g}  {k['name']}", flush=True)
-                a = r["attn_core"]
+                a, m = r["attn_core"], r["gemm_core"]
                 print(f"    attention core (packed_attn): "
                       f"{a['ms_per_step']:.4f} ms {a['share']:7.2%} "
                       f"x{a['per_step']:g}", flush=True)
+                print(f"    block-GEMM core (post_cross, geglu_ff): "
+                      f"{m['ms_per_step']:.4f} ms {m['share']:7.2%} "
+                      f"x{m['per_step']:g}", flush=True)
     os.environ.pop("RDM_TPU_INT8_ATTN")
     os.environ.pop("RDM_TPU_SPLIT_K3")
     out["card_after"] = card()

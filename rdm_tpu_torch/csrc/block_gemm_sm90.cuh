@@ -1,0 +1,735 @@
+// One block-GEMM core for Hopper (sm_90a): TMA copies into an mbarrier
+// ring fed by a producer warp, wgmma products, the accumulators in
+// registers, one prologue and three epilogues.
+//
+//   out[R, N] = epilogue(A[R, K] @ W[K, N])     bf16 in, f32 accumulation
+//
+// Replaces the bodies of two TPU kernels of the SpatialTransformer block:
+// rdm_tpu/ops/block_kernel.py:361 `_post_cross_kernel` (with the context
+// folding of make_cross_mats :500; csrc/post_cross.cu, three launches) and
+// :423 `_geglu_ff_kernel` (csrc/geglu_ff_sm90.cu, two launches):
+//
+//   kResidual  out = res + bf16(A @ W + bias)                 A streamed
+//              (post_cross's x1 and xmid, geglu_ff's y)
+//   kCross     q2 = bf16(LN(src)) @ W; per 32-column head the
+//              cross-attention over the row's image's T context tokens:
+//              out = bf16(sum_t bf16(softmax_t(bf16(q2) ck_t * scale)) cv_t)
+//   kGeglu     h = bf16(LN(src));
+//              out = bf16((h @ Wa + ba) * gelu(h @ Wg + bg))
+//              (two accumulators sharing each A descriptor; exact erf)
+//
+// The roundings are the JAX block's and the first CUDA version's: x1, the
+// LayerNorm output, q2, p, o and f are bf16 where they were bf16 there, so
+// splitting post_cross into three launches and geglu_ff into two changes
+// only the order of f32 sums. The TPU kernel's per-image block matrices,
+// row-global max, -1e9 pad columns and -75 clamp are TPU artifacts and are
+// not carried over (an exact per-head max instead).
+//
+// What bounds it on the H100 (SXM, 132 SMs): the products, 2 R N K (x2 for
+// kGeglu) at 989 TFLOP/s; the bytes (A, W, the residual, out once) are far
+// below at every main-path site. A CTA owns BM = 64 or 128 rows and BN =
+// 64 or 128 columns, so the tiles that fill the card come from both
+// dimensions: post_cross's C = 960 site (R = 512) runs 120 CTAs where the
+// first version ran 16. The host plan (ops/block_kernel.py `gemm_plan`)
+// takes the first of a launch kind's tiles that still gives every SM a
+// CTA, and a CTA may walk several column tiles of its row block
+// (`tiles_per_cta`) so the LayerNorm prologue is not redone per tile.
+// Measured on the H100 by profile_gemm.py's cut builds, the products are
+// not what bounds these launches: the LayerNorm, the cross-attention and
+// the GEGLU's erf are CUDA-core work, and the ping-pong tiles let one
+// warpgroup's epilogue run under the other's products.
+//
+// - Copies by TMA. W [K, N] stays row-major: boxes of 64 K-rows x 32
+//   columns, 64-byte swizzled, read by wgmma as an MN-major B operand
+//   (transpose bit), as the attention core reads V. A streamed [R, K] comes
+//   in boxes of BM rows x 32 columns, K-major, as the attention core's Q.
+//   One stage holds a K-step of 64: two A panels and BN / 32 W panels per
+//   weight. The producer warp (one lane a ring) keeps the ring full and
+//   waits only on the "empty" barriers; W panels wholly past N are not
+//   loaded (their columns are never stored), nor is an A panel wholly past
+//   K, whose stage slots are zeroed once where K % 64 != 0 (the W rows
+//   facing them are zero-filled by TMA, so stale rows of the same CTA add
+//   exactly 0).
+// - The LayerNorm prologue (kCross, kGeglu): the producer brings the CTA's
+//   BM rows of src [R, K] into shared memory by TMA first (K / 32 boxes of
+//   BM rows, all in flight at once, on one barrier), then the ring. The
+//   consumer warps normalise the panel in place, a warp two rows at a
+//   time, with the bf16x2 arithmetic of block_common.cuh
+//   `layer_norm_panel` (f32 statistics, each op rounded to bf16), and
+//   fence the generic proxy's writes before wgmma reads them. (Rows read
+//   by the warps themselves would wait on one global load after another.)
+//   The panel serves every column tile of the CTA: 120 KB at BM = 64,
+//   K = 960.
+// - Consumers: one or two warpgroups issue m64nBNk16 wgmma (A K-major, W
+//   MN-major, both from shared memory) per K-step, keep one commit group in
+//   flight and hand a stage back when the group after it is issued. A
+//   split tile gives each warpgroup 64 of its rows; a ping-pong tile gives
+//   two warpgroups alternate column tiles of all its 64 or 128 rows.
+//   Epilogues work on the accumulator fragments in registers: no shared
+//   staging tile. This thread holds rows 16 w + lane / 4 and + 8 of each
+//   64-row wgmma tile, columns 8 j + 2 (lane % 4) + {0, 1}; after the
+//   epilogue's arithmetic a 4 x 4 transpose of bf16x2 words inside each
+//   quad (three shuffles) gives every thread 8 contiguous columns, so out
+//   is written, and the residual read, in 16-byte rows. (Two columns a
+//   store fill half of each 32-byte sector, and the residual's loads are
+//   all issued before the first store, which they might alias.)
+// - The cross-attention epilogue: a head is 32 columns, four n8 blocks, so
+//   the four threads of a quad hold one row's head; a score is a quad sum
+//   of 8-term dot products. Rows of one tile may belong to two images
+//   (image = row / S), each row reads its own image's ck, cv.
+#pragma once
+
+#include <algorithm>
+#include <map>
+#include <mutex>
+#include <tuple>
+
+#include "attn_fwd_sm90.cuh"
+
+namespace rdmk {
+namespace gemm {
+
+using attn::bf16;
+
+enum Kind { kResidual = 0, kCross = 1, kGeglu = 2 };
+
+constexpr int kBK = 64;           // K of a ring stage
+constexpr int kPW = 32;           // columns of a TMA box (64 bytes)
+constexpr int kWPanel = kBK * 64;  // bytes of one W box
+constexpr int kMaxStages = 8;
+constexpr int kMaxCtx = 16;       // context tokens the epilogue holds
+constexpr int kSmemLimit = 232448;
+
+// Shared memory of one CTA of BM rows after its base is aligned to 1 KB:
+// the normalised A panel (kCross, kGeglu; ceil(K / 64) * 2 panels of BM
+// rows x 64 bytes) | the ring (stages x [two A panels (kResidual) | NW x
+// BN / 32 W panels]) | full[stages], empty[stages], the panel's barrier.
+// Mirrored by ops/block_kernel.py `gemm_smem`.
+__host__ __device__ constexpr int a_panel_bytes(int bm) { return bm * 64; }
+__host__ __device__ constexpr int n_weights(int kind) {
+  return kind == kGeglu ? 2 : 1;
+}
+__host__ __device__ constexpr int panel_region(int kind, int bm, int K) {
+  return kind == kResidual ? 0 : (K + kBK - 1) / kBK * 2 * a_panel_bytes(bm);
+}
+__host__ __device__ constexpr int a_stage_bytes(int kind, int bm) {
+  return kind == kResidual ? 2 * a_panel_bytes(bm) : 0;
+}
+__host__ __device__ constexpr int stage_bytes(int kind, int bm, int bn) {
+  return a_stage_bytes(kind, bm) + n_weights(kind) * (bn / kPW) * kWPanel;
+}
+__host__ __device__ constexpr int smem_bytes(int kind, int bm, int bn, int K,
+                                             int stages) {
+  return 1024 + panel_region(kind, bm, K) +
+         stages * stage_bytes(kind, bm, bn) + 8 * (2 * stages + 1);
+}
+
+// What the prologue and epilogues read and write. Unused fields are null.
+struct Args {
+  const float* ln_s;   // LayerNorm scale and bias [K] (kCross, kGeglu)
+  const float* ln_b;
+  const float* bias0;  // [N]: b (kResidual), ba (kGeglu)
+  const float* bias1;  // [N]: bg (kGeglu)
+  const bf16* res;     // [R, N] (kResidual)
+  const bf16* ck;      // [R / S, T, N] (kCross)
+  const bf16* cv;
+  bf16* out;           // [R, N]
+  int R, N, K, S, T, stages, tiles_per_cta;
+  float scale;
+};
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+__device__ __forceinline__ float2 ld_bf16x2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Byte offset of 16-byte vector v (columns 8v .. 8v + 7) of row r in a
+// panel region of BM-row, 64-byte-swizzled K-major panels: the layout a
+// {32, BM} TMA box with CU_TENSOR_MAP_SWIZZLE_64B gives (16-byte chunk
+// bits 4-5 XOR address bits 7-8).
+__device__ __forceinline__ int panel_offset(int r, int v, int bm) {
+  return (v >> 2) * a_panel_bytes(bm) + r * 64 +
+         (((v & 3) ^ ((r >> 1) & 3)) << 4);
+}
+
+// The LayerNorm prologue: the panel region holds rows row0 .. row0 + BM of
+// src once `pbar` completes (TMA; rows >= R zero-filled, their outputs
+// never stored); normalise it in place. A lane keeps its share of a row
+// (vectors lane + 32 i, i < kLNVec: K <= 1536) and of the scale and bias,
+// converted to bf16 once, in registers; a warp takes two rows at a time so
+// their reductions overlap. Consumer threads only; ends with the
+// consumers' barrier.
+constexpr int kLNVec = 6;
+constexpr int kMaxLNK = 32 * 8 * kLNVec;
+
+template <int CW, int BM>
+__device__ __forceinline__ void layer_norm_prologue(unsigned char* panel,
+                                                    uint32_t pbar,
+                                                    const Args& p) {
+  constexpr int kWarps = 4 * CW;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int K = p.K, nvec = K / 8;
+  const float inv_k = 1.0f / (float)K;
+  if (K % kBK)  // the zero panel past K of the last K-step
+    for (int i = threadIdx.x; i < a_panel_bytes(BM) / 16; i += 128 * CW)
+      *reinterpret_cast<uint4*>(panel + (K / kPW) * a_panel_bytes(BM) +
+                                16 * i) = make_uint4(0, 0, 0, 0);
+  __nv_bfloat162 gs[kLNVec][4], gb[kLNVec][4];
+#pragma unroll
+  for (int i = 0; i < kLNVec; ++i) {
+    const int v = lane + 32 * i;
+    if (v >= nvec) break;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 8 * v + 2 * e;
+      gs[i][e] = __float22bfloat162_rn(
+          __ldg(reinterpret_cast<const float2*>(p.ln_s + c)));
+      gb[i][e] = __float22bfloat162_rn(
+          __ldg(reinterpret_cast<const float2*>(p.ln_b + c)));
+    }
+  }
+  attn::mbar_wait(pbar, 0);
+  for (int r0 = warp; r0 < BM; r0 += 2 * kWarps) {
+    uint4 x[2][kLNVec];
+    float sum[2] = {0.f, 0.f}, sq[2] = {0.f, 0.f};
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+#pragma unroll
+      for (int i = 0; i < kLNVec; ++i) {
+        const int v = lane + 32 * i;
+        if (v >= nvec) break;
+        x[k][i] = *reinterpret_cast<const uint4*>(
+            panel + panel_offset(r0 + k * kWarps, v, BM));
+        const __nv_bfloat162* h =
+            reinterpret_cast<const __nv_bfloat162*>(&x[k][i]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(h[e]);
+          sum[k] += f.x + f.y;
+          sq[k] += f.x * f.x + f.y * f.y;
+        }
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        sum[k] += __shfl_xor_sync(0xffffffffu, sum[k], o);
+        sq[k] += __shfl_xor_sync(0xffffffffu, sq[k], o);
+      }
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const float mean = sum[k] * inv_k;
+      const float var = fmaxf(sq[k] * inv_k - mean * mean, 0.f);
+      // native bf16x2 ops, each rounding its exact result once (the _rn
+      // forms keep ptxas from contracting the mul and add into an fma)
+      const __nv_bfloat162 mean2 = __float2bfloat162_rn(mean);
+      const __nv_bfloat162 rstd2 = __float2bfloat162_rn(rsqrtf(var + 1e-5f));
+#pragma unroll
+      for (int i = 0; i < kLNVec; ++i) {
+        const int v = lane + 32 * i;
+        if (v >= nvec) break;
+        __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&x[k][i]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const __nv_bfloat162 y = __hsub2_rn(h[e], mean2);
+          h[e] = __hadd2_rn(__hmul2_rn(__hmul2_rn(y, rstd2), gs[i][e]),
+                            gb[i][e]);
+        }
+        *reinterpret_cast<uint4*>(
+            panel + panel_offset(r0 + k * kWarps, v, BM)) = x[k][i];
+      }
+    }
+  }
+  // the panel is read by wgmma (the async proxy) next
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync 1, %0;\n" ::"n"(128 * CW) : "memory");
+}
+
+__device__ __forceinline__ uint32_t pick(const uint32_t (&w)[4], int i) {
+  return i == 0 ? w[0] : i == 1 ? w[1] : i == 2 ? w[2] : w[3];
+}
+
+// A quad's 4 x 4 transpose of bf16x2 words: w[jj] holds this thread's two
+// columns (8 jj + 2 q, + 1; q = lane % 4) of n8 block jj of a 32-column
+// group; returns the 8 columns of block q, in order (one 16-byte store).
+// Every lane of the warp must call it.
+__device__ __forceinline__ uint4 quad_transpose(const uint32_t (&w)[4],
+                                                int q) {
+  uint32_t got[4];
+  got[0] = pick(w, q);
+#pragma unroll
+  for (int k = 1; k < 4; ++k)  // partner q ^ k sends its word of block q
+    got[k] = __shfl_xor_sync(0xffffffffu, pick(w, q ^ k), k);
+  return make_uint4(pick(got, q), pick(got, q ^ 1), pick(got, q ^ 2),
+                    pick(got, q ^ 3));
+}
+
+__device__ __forceinline__ uint4 add_bf16x8(uint4 a, uint4 b) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+  uint32_t o[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 u = __bfloat1622float2(x[e]), v = __bfloat1622float2(y[e]);
+    o[e] = attn::pack_bf16(u.x + v.x, u.y + v.y);
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// This thread's rows r0 + 8 h (h = 0, 1) and, after quad_transpose, the
+// 8 columns n0 + 32 m + 8 q of each 32-column group m of the tile. Groups
+// at or past N are skipped by the whole warp (N % 32 == 0).
+
+// out = res + bf16(acc + bias): the residual's 16-byte rows are all loaded
+// before the first store.
+template <int BN>
+__device__ __forceinline__ void residual_epilogue(const float (&acc)[BN / 2],
+                                                  const Args& p, int r0,
+                                                  int n0, int q) {
+  constexpr int G = BN / 32;
+  const int N = p.N;
+  uint4 res[G][2];
+#pragma unroll
+  for (int m = 0; m < G; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 8 * h, col = n0 + 32 * m + 8 * q;
+      if (col < N && row < p.R)
+        res[m][h] = __ldg(reinterpret_cast<const uint4*>(
+            p.res + (size_t)row * N + col));
+    }
+#pragma unroll
+  for (int m = 0; m < G; ++m) {
+    if (n0 + 32 * m >= N) break;
+    float2 b[4];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+      b[jj] = __ldg(reinterpret_cast<const float2*>(
+          p.bias0 + n0 + 32 * m + 8 * jj + 2 * q));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t w[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int i = 4 * (4 * m + jj) + 2 * h;
+        w[jj] = attn::pack_bf16(acc[i] + b[jj].x, acc[i + 1] + b[jj].y);
+      }
+      const uint4 y = quad_transpose(w, q);
+      const int row = r0 + 8 * h;
+      if (row < p.R)
+        *reinterpret_cast<uint4*>(p.out + (size_t)row * N + n0 + 32 * m +
+                                  8 * q) = add_bf16x8(res[m][h], y);
+    }
+  }
+}
+
+// out = bf16((acc_a + ba) * gelu(acc_g + bg)), exact erf.
+template <int BN>
+__device__ __forceinline__ void geglu_epilogue(const float (&a)[BN / 2],
+                                               const float (&g)[BN / 2],
+                                               const Args& p, int r0, int n0,
+                                               int q) {
+  const int N = p.N;
+#pragma unroll
+  for (int m = 0; m < BN / 32; ++m) {
+    if (n0 + 32 * m >= N) break;
+    float2 ba[4], bg[4];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int col = n0 + 32 * m + 8 * jj + 2 * q;
+      ba[jj] = __ldg(reinterpret_cast<const float2*>(p.bias0 + col));
+      bg[jj] = __ldg(reinterpret_cast<const float2*>(p.bias1 + col));
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t w[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        float f[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * (4 * m + jj) + 2 * h + e;
+          const float av = a[i] + (e ? ba[jj].y : ba[jj].x);
+          const float gv = g[i] + (e ? bg[jj].y : bg[jj].x);
+          f[e] = av * (0.5f * gv * (1.0f + erff(gv * 0.7071067811865476f)));
+        }
+        w[jj] = attn::pack_bf16(f[0], f[1]);
+      }
+      const uint4 y = quad_transpose(w, q);
+      const int row = r0 + 8 * h;
+      if (row < p.R)
+        *reinterpret_cast<uint4*>(p.out + (size_t)row * N + n0 + 32 * m +
+                                  8 * q) = y;
+    }
+  }
+}
+
+// Per 32-column head m of the tile: q2 = bf16(acc), scores against the
+// row's image's ck [T, 32] times scale with an exact max, p = bf16(exp /
+// sum), o = sum_t p cv_t in f32 -> bf16. Tokens go four at a time, so
+// their loads and quad sums overlap. Shuffles run on every lane (the head
+// and T are uniform over the warp); rows >= R compute on a clamped row and
+// store nothing.
+template <int BN>
+__device__ __forceinline__ void cross_epilogue(const float (&acc)[BN / 2],
+                                               const Args& p, int r0, int n0,
+                                               int q) {
+  constexpr int kChunk = 4;
+  const int N = p.N, T = p.T, cq = 2 * q;
+#pragma unroll
+  for (int m = 0; m < BN / 32; ++m) {
+    const int hcol = n0 + 32 * m;
+    if (hcol >= N) break;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 8 * h;
+      const int img = min(row, p.R - 1) / p.S;
+      const size_t cbase = (size_t)img * T * N + hcol + cq;
+      float qv[8];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        qv[2 * jj] = round_bf16(acc[4 * (4 * m + jj) + 2 * h]);
+        qv[2 * jj + 1] = round_bf16(acc[4 * (4 * m + jj) + 2 * h + 1]);
+      }
+      float sc[kMaxCtx];
+      float mx = -INFINITY;
+#pragma unroll
+      for (int t0 = 0; t0 < kMaxCtx; t0 += kChunk) {
+        if (t0 >= T) break;
+        float s[kChunk];
+#pragma unroll
+        for (int u = 0; u < kChunk; ++u) {
+          s[u] = 0.f;
+          if (t0 + u < T) {
+            const bf16* kr = p.ck + cbase + (size_t)(t0 + u) * N;
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) {
+              const float2 k = ld_bf16x2(kr + 8 * jj);
+              s[u] += qv[2 * jj] * k.x + qv[2 * jj + 1] * k.y;
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kChunk; ++u) {
+          sc[t0 + u] = quad_sum(s[u]) * p.scale;
+          if (t0 + u < T) mx = fmaxf(mx, sc[t0 + u]);
+        }
+      }
+      float den = 0.f;
+#pragma unroll
+      for (int t = 0; t < kMaxCtx; ++t) {
+        if (t >= T) break;
+        sc[t] = __expf(sc[t] - mx);
+        den += sc[t];
+      }
+      const float inv = 1.0f / den;
+      float o[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) o[i] = 0.f;
+#pragma unroll
+      for (int t = 0; t < kMaxCtx; ++t) {
+        if (t >= T) break;
+        const float pt = round_bf16(sc[t] * inv);
+        const bf16* vr = p.cv + cbase + (size_t)t * N;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const float2 v = ld_bf16x2(vr + 8 * jj);
+          o[2 * jj] += pt * v.x;
+          o[2 * jj + 1] += pt * v.y;
+        }
+      }
+      uint32_t w[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        w[jj] = attn::pack_bf16(o[2 * jj], o[2 * jj + 1]);
+      const uint4 y = quad_transpose(w, q);
+      if (row < p.R)
+        *reinterpret_cast<uint4*>(p.out + (size_t)row * N + hcol + 8 * q) =
+            y;
+    }
+  }
+}
+
+// One CTA: rows [BM by, + BM) and column tiles [tiles_per_cta bx,
+// + tiles_per_cta) of out; warps 0 .. 4 CW - 1 the consumers, warp 4 CW the
+// producer. Split (PP false): warpgroup g owns rows 64 g .. 64 g + 63 of
+// every column tile, BM = 64 CW. Ping-pong (PP true, CW = 2): warpgroup g
+// owns the CTA's column tiles g, g + 2, ... with all BM rows (BM / 64 wgmma
+// tiles), so one warpgroup's epilogue runs while the other's products do.
+// Each ping-pong warpgroup then has a ring of its own, half the stages,
+// filled by a producer lane of its own: one ring read by two warpgroups
+// out of step would let a parity wait pass a phase early.
+// ta: the streamed A (kResidual) or the LayerNorm's src (kCross, kGeglu),
+// [R, K], box {32, BM}; tw0, tw1: the weights (box {32, 64}; tw1 only for
+// kGeglu).
+template <int CW, int BM, int BN, bool PP, int KIND>
+__global__ void __launch_bounds__(128 * CW + 32,
+                                  CW == 2 ? 1 : BN == 64 ? 3 : 2)
+    block_gemm_kernel(const __grid_constant__ CUtensorMap ta,
+                      const __grid_constant__ CUtensorMap tw0,
+                      const __grid_constant__ CUtensorMap tw1,
+                      const Args p) {
+  using namespace attn;
+  static_assert(PP ? CW == 2 && (BM == 64 || BM == 128) : BM == 64 * CW,
+                "a split tile gives each warpgroup 64 rows");
+  constexpr int kCons = 128 * CW;
+  constexpr int MT = PP ? BM / 64 : 1;  // wgmma row tiles a warpgroup
+  constexpr int NW = n_weights(KIND);
+  constexpr bool kLN = KIND != kResidual;
+  constexpr int kAPanel = a_panel_bytes(BM);
+  constexpr int kAStage = a_stage_bytes(KIND, BM);
+  constexpr int kStage = stage_bytes(KIND, BM, BN);
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  const int ST = p.stages;
+  const uint32_t panel = base;
+  const uint32_t ring = base + panel_region(KIND, BM, p.K);
+  const uint32_t full = ring + ST * kStage, empty = full + 8 * ST;
+  const uint32_t pbar = empty + 8 * ST;  // the LayerNorm panel's arrival
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = blockIdx.y * BM;
+  const int ntiles = (p.N + BN - 1) / BN;
+  const int t_begin = blockIdx.x * p.tiles_per_cta;
+  const int t_end = min(ntiles, t_begin + p.tiles_per_cta);
+  const int nkb = (p.K + kBK - 1) / kBK;
+  const bool k_tail = p.K % kBK != 0;  // the last K-step has one A panel
+  const int RS = PP ? ST / 2 : ST;     // stages of a ring
+  const int t_step = PP ? 2 : 1;       // a ring's column tiles
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, PP ? 4 : kCons / 32);  // its reader's warps
+    }
+    mbar_init(pbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (!kLN && k_tail) {  // stage slots an A panel past K leaves unwritten
+    for (int s = 0; s < ST; ++s)
+      for (int i = threadIdx.x; i < kAStage / 16; i += blockDim.x)
+        *reinterpret_cast<uint4*>(gbase + (ring - base) + s * kStage +
+                                  16 * i) = make_uint4(0, 0, 0, 0);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kCons / 32) {
+    // ------------------------------------------------------ the producer
+    if (lane < (PP ? 2 : 1)) {  // lane r fills ring r
+      if (kLN && lane == 0) {  // the LayerNorm's rows, every panel at once
+        mbar_expect_tx(pbar, (p.K / kPW) * kAPanel);
+        for (int q = 0; q < p.K / kPW; ++q)
+          tma_load_2d(&ta, panel + q * kAPanel, pbar, q * kPW, row0);
+      }
+      const int r0s = lane * RS;  // the ring's first stage
+      int s = 0, phase = 0, it = 0;
+      for (int t = t_begin + lane; t < t_end; t += t_step) {
+        const int n0 = t * BN;
+        const int npan = min(BN / kPW, (p.N - n0 + kPW - 1) / kPW);
+        for (int kb = 0; kb < nkb; ++kb, ++it) {
+          const int apan = kLN ? 0 : (k_tail && kb == nkb - 1 ? 1 : 2);
+          if (it >= RS) mbar_wait(empty + 8 * (r0s + s), phase ^ 1);
+          const uint32_t st = ring + (r0s + s) * kStage;
+          const uint32_t bar = full + 8 * (r0s + s);
+          mbar_expect_tx(bar, apan * kAPanel + NW * npan * kWPanel);
+          for (int a = 0; a < apan; ++a)
+            tma_load_2d(&ta, st + a * kAPanel, bar, kb * kBK + a * kPW, row0);
+#pragma unroll
+          for (int w = 0; w < NW; ++w)
+            for (int q = 0; q < npan; ++q)
+              tma_load_2d(w ? &tw1 : &tw0,
+                          st + kAStage + (w * (BN / kPW) + q) * kWPanel, bar,
+                          n0 + q * kPW, kb * kBK);
+          if (++s == RS) {
+            s = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------- the consumers
+  if (kLN) layer_norm_prologue<CW, BM>(gbase, pbar, p);
+  const int g = warp >> 2;  // consumer warpgroup
+  const int q = lane & 3;
+  // the first of this thread's rows in wgmma row tile m: 64 m (ping-pong)
+  // or 64 g (split) into the block, then 16 (warp % 4) + lane / 4
+  const int r_in = 16 * (warp & 3) + (lane >> 2) + (PP ? 0 : 64 * g);
+  const int r0s = PP ? g * RS : 0;  // this warpgroup's ring
+  int s = 0, phase = 0, prev = 0;
+  float acc[NW][MT][BN / 2];
+  for (int t = t_begin + (PP ? g : 0); t < t_end; t += t_step) {
+    for (int kb = 0; kb < nkb; ++kb) {
+      mbar_wait(full + 8 * (r0s + s), phase);
+      const uint32_t st = ring + (r0s + s) * kStage;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        const uint32_t a_k =
+            (kLN ? panel + (2 * kb + (kk >> 1)) * kAPanel
+                 : st + (kk >> 1) * kAPanel) +
+            (PP ? 0 : 64 * g * 64) + (kk & 1) * 32;
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const uint64_t da = sw64_desc(a_k + m * 64 * 64, 16, 512);
+#pragma unroll
+          for (int w = 0; w < NW; ++w)
+            wgmma_ss_mn<BN>(
+                acc[w][m], da,
+                sw64_desc(st + kAStage + w * (BN / kPW) * kWPanel + kk * 1024,
+                          kWPanel, 512),
+                (kb | kk) != 0);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (kb > 0) {  // the group before this one is done with its stage
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * (r0s + prev));
+      }
+      prev = s;
+      if (++s == RS) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * (r0s + prev));
+    const int n0 = t * BN;
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+#pragma unroll
+      for (int w = 0; w < NW; ++w) fence_regs(acc[w][m]);
+      const int r0 = row0 + 64 * m + r_in;
+      if constexpr (KIND == kResidual)
+        residual_epilogue<BN>(acc[0][m], p, r0, n0, q);
+      else if constexpr (KIND == kCross)
+        cross_epilogue<BN>(acc[0][m], p, r0, n0, q);
+      else
+        geglu_epilogue<BN>(acc[0][m], acc[1][m], p, r0, n0, q);
+    }
+  }
+}
+
+// ------------------------------------------------------------------- host
+
+// A launch's plan (ops/block_kernel.py `gemm_plan`): rows BM and columns
+// BN of a tile, ping-pong or split warpgroups, column tiles a CTA walks,
+// ring stages. The tiles built are those of `GEMM_TILES` there: split
+// (BM, BN) = (128, 128), (64, 128), (64, 64) for kResidual; split
+// (64, 64) for kCross; ping-pong (128, 64) and (64, 64) for kGeglu.
+struct Plan {
+  int bm, bn, pp, tiles_per_cta, stages;
+};
+
+inline bool plan_ok(const Plan& pl, int kind, int K) {
+  const bool built =
+      kind == kResidual
+          ? !pl.pp && ((pl.bm == 128 && pl.bn == 128) ||
+                       (pl.bm == 64 && (pl.bn == 64 || pl.bn == 128)))
+      : kind == kCross
+          ? !pl.pp && pl.bm == 64 && pl.bn == 64
+          : pl.pp && pl.bn == 64 && (pl.bm == 64 || pl.bm == 128);
+  return built && (pl.pp == 0 || pl.pp == 1) && pl.tiles_per_cta >= 1 &&
+         pl.stages >= (pl.pp ? 4 : 2) && pl.stages % (pl.pp ? 2 : 1) == 0 &&
+         pl.stages <= kMaxStages &&
+         smem_bytes(kind, pl.bm, pl.bn, K, pl.stages) <= kSmemLimit;
+}
+
+// The tensor map of a weight [rows, cols] (boxes {32, 64}), built once per
+// (device, pointer, shape) and kept: the weights live across calls, and a
+// map holds only the address, shape and box, so a new tensor at the same
+// address with the same shape is described by the same map.
+inline bool weight_map(CUtensorMap* map, int dev, const void* w, int rows,
+                       int cols) {
+  typedef std::tuple<int, uintptr_t, int, int> Key;
+  static std::mutex mu;
+  static std::map<Key, CUtensorMap> cache;
+  const Key key(dev, reinterpret_cast<uintptr_t>(w), rows, cols);
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = cache.find(key);
+  if (it == cache.end()) {
+    CUtensorMap m;
+    if (!attn::make_map_2d(&m, w, rows, cols, kPW, kBK)) return false;
+    if (cache.size() >= 4096) cache.clear();
+    it = cache.emplace(key, m).first;
+  }
+  *map = it->second;
+  return true;
+}
+
+template <int CW, int BM, int BN, bool PP, int KIND>
+cudaError_t launch_tile(const CUtensorMap& ta, const CUtensorMap& tw0,
+                        const CUtensorMap& tw1, const Args& a, int dev,
+                        cudaStream_t stream) {
+  static unsigned long long smem_set = 0;  // the opt-in, once per device
+  static std::mutex mu;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    const cudaError_t e =
+        attn::allow_smem(block_gemm_kernel<CW, BM, BN, PP, KIND>, kSmemLimit,
+                         dev, smem_set);
+    if (e != cudaSuccess) return e;
+  }
+  const int ntiles = (a.N + BN - 1) / BN;
+  const dim3 grid((ntiles + a.tiles_per_cta - 1) / a.tiles_per_cta,
+                  (a.R + BM - 1) / BM);
+  block_gemm_kernel<CW, BM, BN, PP, KIND>
+      <<<grid, 128 * CW + 32, smem_bytes(KIND, BM, BN, a.K, a.stages),
+         stream>>>(ta, tw0, tw1, a);
+  return cudaGetLastError();
+}
+
+// One launch of the core: out = epilogue(A @ W). A is `a_src` [R, K],
+// streamed (kResidual) or normalised (kCross, kGeglu); w0 (and w1 for
+// kGeglu) [K, N]. Returns a cudaError_t.
+template <int KIND>
+int launch(const Plan& pl, const void* a_src, const void* w0, const void* w1,
+           Args a, cudaStream_t stream) {
+  if (!plan_ok(pl, KIND, a.K) || a.R < 1 || a.N % kPW || a.K % kPW ||
+      (KIND != kResidual && a.K > kMaxLNK))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t e = attn::bind_device(&dev);
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap ta, tw0, tw1;
+  if (!weight_map(&tw0, dev, w0, a.K, a.N) ||
+      !weight_map(&tw1, dev, KIND == kGeglu ? w1 : w0, a.K, a.N) ||
+      !attn::make_map_2d(&ta, a_src, a.R, a.K, kPW, pl.bm))
+    return (int)cudaErrorInvalidValue;
+  a.stages = pl.stages;
+  a.tiles_per_cta = pl.tiles_per_cta;
+  if constexpr (KIND == kGeglu)
+    e = pl.bm == 128
+            ? launch_tile<2, 128, 64, true, KIND>(ta, tw0, tw1, a, dev,
+                                                  stream)
+            : launch_tile<2, 64, 64, true, KIND>(ta, tw0, tw1, a, dev,
+                                                 stream);
+  else if (pl.bm == 64 && pl.bn == 64)
+    e = launch_tile<1, 64, 64, false, KIND>(ta, tw0, tw1, a, dev, stream);
+  else if constexpr (KIND == kResidual)
+    e = pl.bm == 128
+            ? launch_tile<2, 128, 128, false, KIND>(ta, tw0, tw1, a, dev,
+                                                    stream)
+            : launch_tile<1, 64, 128, false, KIND>(ta, tw0, tw1, a, dev,
+                                                   stream);
+  return (int)e;
+}
+
+}  // namespace gemm
+}  // namespace rdmk

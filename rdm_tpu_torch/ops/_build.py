@@ -48,8 +48,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "rdm_ln_qkv": [_P] * 7 + [_I, _I, _I, _P],
     "rdm_packed_attn": [_P] * 4 + [_I, _I, _I, _F, _P],
-    "rdm_post_cross": [_P] * 12 + [_I, _I, _I, _I, _F, _P],
-    "rdm_geglu_ff": [_P] * 11 + [_I, _I, _I, _I, _P],
+    "rdm_post_cross": [_P] * 14 + [_I] * 4 + [_F] + [_I] * 10 + [_P],
+    "rdm_geglu_ff_sm90": [_P] * 11 + [_I] * 3 + [_I] * 10 + [_P],
     "rdm_ln_qkv_q": [_P] * 8 + [_I, _I, _I, _F, _P],
     "rdm_packed_attn_q8": [_P] * 5 + [_I, _I, _I, _I, _F, _P],
     "rdm_post_cross_q": [_P] * 15 + [_I] * 4 + [_F] * 4 + [_P],

@@ -13,9 +13,12 @@ each residual; reference attention.py:77-96) runs as four kernels:
                      (csrc/attn_fwd_sm90.cuh), so the two are bit-equal
   3. `post_cross`  - out-proj + residual + LN2 + cross-attention over the
                      pre-projected context + out-proj + residual
-                     (csrc/post_cross.cu; replaces `_post_cross_kernel`)
+                     (csrc/post_cross.cu; replaces `_post_cross_kernel`):
+                     three launches of the block-GEMM core
+                     (csrc/block_gemm_sm90.cuh, TMA + wgmma)
   4. `geglu_ff`    - LN3 + GEGLU FF + residual
-                     (csrc/geglu_ff.cu; replaces `_geglu_ff_kernel`)
+                     (csrc/geglu_ff_sm90.cu; replaces `_geglu_ff_kernel`):
+                     two launches of the same core
 
 With RDM_TPU_SPLIT_K3=0 (or `split_k3=False`) kernels 3 and 4 run as one,
 as the JAX package's single kernel 3 does:
@@ -52,8 +55,9 @@ int8 CUDA kernels take C (and F) as multiples of 64.
 
 from __future__ import annotations
 
+import functools
 import os
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -67,6 +71,20 @@ MAX_CONTEXT = 16   # post_cross keeps the context scores in registers
 _BM, _BN = 32, 64  # output tile of the kernels (csrc/block_common.cuh)
 _TARGET_BLOCKS = 528  # ~4 resident thread blocks per SM on 132 SMs
 _LOG2E = 1.4426950408889634
+# The block-GEMM core (csrc/block_gemm_sm90.cuh): per launch kind, the
+# tiles it may take as (rows, columns, ping-pong), the preferred first;
+# ring stages, a K-step, shared memory a CTA may use. A split tile gives
+# each of its rows / 64 warpgroups 64 rows; a ping-pong tile gives two
+# warpgroups alternate column tiles of all its rows. The cross-attention
+# epilogue is CUDA-core work per column, so that launch takes the narrow
+# tile: two heads a tile and three CTAs an SM.
+GEMM_TILES = {"residual": ((128, 128, 0), (64, 128, 0), (64, 64, 0)),
+              "cross": ((64, 64, 0),),
+              "geglu": ((128, 64, 1), (64, 64, 1))}
+_GEMM_STAGES = 8  # csrc/block_gemm_sm90.cuh kMaxStages
+_GEMM_BK = 64
+_SMEM_LIMIT = 232448  # a CTA's opt-in maximum
+_SMEM_SM = 233472     # an SM's, each resident CTA taking 1 KB more
 
 
 # ------------------------------------------------------------ plain math
@@ -150,6 +168,97 @@ def _tiles_per_block(n: int, rows: int) -> int:
     want = max(1, (ntiles * row_tiles) // _TARGET_BLOCKS)
     chunks = -(-ntiles // min(want, ntiles))
     return -(-ntiles // chunks)
+
+
+class GemmPlan(NamedTuple):
+    """One launch of the block-GEMM core: a tile of `bm` rows and `bn`
+    columns, `pp` 1 for two ping-pong warpgroups (else bm / 64 split
+    ones), `tiles_per_cta` column tiles a CTA walks, `stages` of the ring,
+    `smem` bytes a CTA."""
+    bm: int
+    bn: int
+    pp: int
+    tiles_per_cta: int
+    stages: int
+    smem: int
+
+    @property
+    def args(self):
+        return (self.bm, self.bn, self.pp, self.tiles_per_cta, self.stages)
+
+
+def _threads(bm: int, pp: int) -> int:
+    """Consumer warpgroups' threads and the producer warp of a CTA."""
+    return 128 * (2 if pp else bm // 64) + 32
+
+
+def gemm_smem(kind: str, bm: int, bn: int, k: int, stages: int) -> int:
+    """Shared bytes of a CTA (csrc/block_gemm_sm90.cuh `smem_bytes`): the
+    normalised A panel (LayerNorm kinds; K rounded up to a 64-wide K-step,
+    bm rows x 2 bytes), then `stages` x (two streamed A panels of 32
+    columns for "residual" + bn columns x 64 K-rows of each weight), then
+    the ring's and the panel's barriers, after up to 1 KB of alignment."""
+    panel = 0 if kind == "residual" else -(-k // _GEMM_BK) * 2 * bm * 64
+    a_stage = 2 * bm * 64 if kind == "residual" else 0
+    nw = 2 if kind == "geglu" else 1
+    stage = a_stage + nw * (bn // 32) * _GEMM_BK * 64
+    return 1024 + panel + stages * stage + 8 * (2 * stages + 1)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device `index`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def gemm_plan(kind: str, r: int, n: int, k: int, sms: int) -> GemmPlan:
+    """The tile of one launch on a card of `sms` SMs: the first of the
+    kind's GEMM_TILES whose ring keeps 3 or more stages (a ping-pong
+    tile's two rings 2 each) in shared memory and whose grid still gives
+    every SM a CTA; else the last that fits. Of the ring depths that fit,
+    the one that runs the grid in the fewest waves (CTAs resident per SM by
+    shared memory and threads), the deeper on a tie. The LayerNorm kinds,
+    whose prologue and epilogues are CUDA-core work that wants warps, take
+    the ring depth that keeps the most CTAs resident, up to what the grid
+    can use (the deeper on a tie), and let a CTA walk several column tiles
+    of its row block, normalising its rows once: the fewest tiles a CTA
+    that still fit the grid in one wave (W's traffic is the same for any
+    split)."""
+    if kind not in GEMM_TILES:
+        raise ValueError(f"gemm_plan: kind {kind!r} not in "
+                         f"{tuple(GEMM_TILES)}")
+    fits = []
+    for bm, bn, pp in GEMM_TILES[kind]:
+        depths = [st for st in range(3 + pp, _GEMM_STAGES + 1, 1 + pp)
+                  if gemm_smem(kind, bm, bn, k, st) <= _SMEM_LIMIT]
+        if depths:
+            fits.append((bm, bn, pp, depths))
+    if not fits:
+        raise ValueError(f"gemm_plan: K={k} leaves no room in shared memory "
+                         f"for the {kind} launch")
+    for bm, bn, pp, depths in fits:
+        row_blocks, ntiles = -(-r // bm), -(-n // bn)
+        if row_blocks * ntiles >= sms or (bm, bn, pp) == fits[-1][:3]:
+            break
+
+    def per_sm(st):
+        return min(_SMEM_SM // (gemm_smem(kind, bm, bn, k, st) + 1024),
+                   2048 // _threads(bm, pp))
+
+    if kind == "residual":
+        tpc = 1
+        stages = min(reversed(depths), key=lambda st: -(
+            -row_blocks * ntiles // (sms * per_sm(st))))
+    else:
+        need = -(-row_blocks * ntiles // sms)  # residency worth having
+        stages = max(depths, key=lambda st: (min(per_sm(st), need), st))
+        slots = sms * per_sm(stages)
+        tpc = next((n for n in range(1, ntiles + 1)
+                    if row_blocks * -(-ntiles // n) <= slots), ntiles)
+        tpc = -(-ntiles // -(-ntiles // tpc))  # the same CTAs, evened out
+    return GemmPlan(bm, bn, pp, tpc, stages,
+                    gemm_smem(kind, bm, bn, k, stages))
 
 
 def _on_cpu(*ts: torch.Tensor) -> bool:
@@ -276,13 +385,16 @@ def post_cross(x, attn, ck, cv, wo, bo, n2s, n2b, wq2, wo2, bo2, *,
     if not 1 <= t <= MAX_CONTEXT:
         raise ValueError(f"post_cross: context length {t} not in "
                          f"[1, {MAX_CONTEXT}]")
-    out = torch.empty_like(x)
+    r, sms = b * s, sm_count(x.device.index)
+    x1, o, out = (torch.empty_like(x) for _ in range(3))
     lib = _build.load()
     with torch.cuda.device(x.device):
         rc = lib.rdm_post_cross(
             _p(x), _p(attn), _p(ck), _p(cv), _p(wo), _p(bo), _p(n2s),
-            _p(n2b), _p(wq2), _p(wo2), _p(bo2), _p(out), b * s, s, c, t,
-            head_dim ** -0.5, _stream(x))
+            _p(n2b), _p(wq2), _p(wo2), _p(bo2), _p(x1), _p(o), _p(out), r,
+            s, c, t, head_dim ** -0.5,
+            *gemm_plan("residual", r, c, c, sms).args,
+            *gemm_plan("cross", r, c, c, sms).args, _stream(x))
     _build.check(rc, "post_cross")
     post_cross.launches += 1
     return out
@@ -293,8 +405,9 @@ post_cross.launches = 0
 
 def geglu_ff(xm2, n3s, n3b, wa, wg, ba, bg, w2, b2):
     """LN3 + GEGLU FF + residual: xm2 [R, C] -> [R, C]. On CUDA this is
-    two launches (gated up-projection, then down-projection + residual),
-    counted as one call."""
+    two launches of the block-GEMM core (gated up-projection into a bf16
+    [R, F] hidden, then down-projection + residual), counted as one
+    call."""
     r, c = xm2.shape
     f = wa.shape[1]
     if wa.shape != (c, f) or wg.shape != (c, f) or w2.shape != (f, c):
@@ -310,12 +423,14 @@ def geglu_ff(xm2, n3s, n3b, wa, wg, ba, bg, w2, b2):
                          f"{HEAD_DIM}")
     hidden = torch.empty((r, f), dtype=xm2.dtype, device=xm2.device)
     y = torch.empty_like(xm2)
+    sms = sm_count(xm2.device.index)
     lib = _build.load()
     with torch.cuda.device(xm2.device):
-        rc = lib.rdm_geglu_ff(
+        rc = lib.rdm_geglu_ff_sm90(
             _p(xm2), _p(n3s), _p(n3b), _p(wa), _p(wg), _p(ba), _p(bg),
             _p(w2), _p(b2), _p(hidden), _p(y), r, c, f,
-            _tiles_per_block(f, r), _stream(xm2))
+            *gemm_plan("geglu", r, f, c, sms).args,
+            *gemm_plan("residual", r, c, f, sms).args, _stream(xm2))
     _build.check(rc, "geglu_ff")
     geglu_ff.launches += 1
     return y

@@ -11,6 +11,8 @@ Every test is marked `cuda` and skips where torch.cuda is unavailable.
 Shapes include the ragged cases the main path never gives the kernels (S
 not a multiple of the 64-key tile, R not a multiple of the 32-row tile,
 C = 96 not a multiple of the 64-column tile, 16 context tokens; for the
+block-GEMM core (post_cross, geglu_ff) C = 96 and 960 at R = 80 / 48 / 80 /
+80 / 80 rows and at 32 images of 64 rows, T = 1 and 16; for the
 decode kernels B = 3, C = 192 (3 heads of 64), pos 0 and T - 1, 1 and 16
 context rows, also in the int8_weights / int8_kv variants; for the int8
 kernels R = 80 rows, a half-filled last 128-channel scale group and two
@@ -181,6 +183,92 @@ def test_post_ff_matches_plain(cuda, heads, b, s, t, monkeypatch):
     split = bk.fused_transformer_block(x, ctx, w, heads=heads, head_dim=HD,
                                        split_k3=True)
     assert _rel_err(single, split) <= TOL
+
+
+# ------------------------------------------------- the block-GEMM core
+
+def _gemm_inputs(c: int, b: int, s: int, t: int, seed: int):
+    """post_cross and geglu_ff arguments at C = c, b images of s rows, t
+    context tokens: seeded bf16 weights [in, out], f32 norms and biases."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shape, scale=1.0, loc=0.0):
+        return loc + scale * torch.randn(shape, generator=g, device="cuda")
+
+    w = lambda k, n: rn(k, n, scale=k ** -0.5).bfloat16()  # noqa: E731
+    x, attn = rn(b, s, c).bfloat16(), rn(b, s, c).bfloat16()
+    ck, cv = rn(b, t, c).bfloat16(), rn(b, t, c).bfloat16()
+    norm = lambda: rn(c, scale=0.1, loc=1.0)  # noqa: E731
+    bias = lambda n: rn(n, scale=0.1)  # noqa: E731
+    pc = (x, attn, ck, cv, w(c, c), bias(c), norm(), bias(c), w(c, c),
+          w(c, c), bias(c))
+    ff = (norm(), bias(c), w(c, 4 * c), w(c, 4 * c), bias(4 * c),
+          bias(4 * c), w(4 * c, c), bias(c))
+    return pc, ff
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,b,s,t", [(96, 2, 40, 1), (96, 3, 16, 16),
+                                     (960, 2, 40, 16), (960, 5, 16, 1),
+                                     (192, 1, 80, 4), (960, 32, 64, 4)])
+def test_block_gemm_kernels_match_plain(cuda, c, b, s, t):
+    """post_cross (three launches of the block-GEMM core) and geglu_ff
+    (two) against their plain versions: R = b s not a multiple of the 64-
+    or 128-row tile, tiles spanning images (S = 16, 40), C = 96 (a ragged
+    column tile) and 960, T = 1 and 16, and the C = 960 site at 32 images;
+    one count per wrapper call, and two calls equal bit for bit (no
+    atomics)."""
+    pc, ff = _gemm_inputs(c, b, s, t, seed=c + s + t)
+    heads = c // HD
+    bk.reset_launch_counts()
+    got = bk.post_cross(*pc, heads=heads, head_dim=HD)
+    xm2 = got.reshape(b * s, c)
+    y = bk.geglu_ff(xm2, *ff)
+    torch.cuda.synchronize()
+    counts = bk.launch_counts()
+    assert (counts["post_cross"], counts["geglu_ff"]) == (1, 1)
+    assert sum(counts.values()) == 2
+    want = bk.post_cross_reference(*pc, heads=heads, head_dim=HD)
+    assert torch.isfinite(got).all() and torch.isfinite(y).all()
+    assert _rel_err(got, want) <= TOL
+    assert _rel_err(y, bk.geglu_ff_reference(xm2, *ff)) <= TOL
+    assert torch.equal(bk.post_cross(*pc, heads=heads, head_dim=HD), got)
+    assert torch.equal(bk.geglu_ff(xm2, *ff), y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,b,s,t", [(12, 2, 64, 4), (4, 2, 40, 16),
+                                         (30, 1, 64, 4)])
+def test_post_ff_matches_split_pair(cuda, heads, b, s, t):
+    """The single post_ff kernel (#9, unchanged) against geglu_ff(post_cross)
+    on the same inputs. The pair sums in the block-GEMM core's order, so
+    the two agree within TOL, no longer bit for bit."""
+    c = heads * HD
+    pc, ff = _gemm_inputs(c, b, s, t, seed=heads)
+    single = bk.post_ff(*pc, *ff, heads=heads, head_dim=HD)
+    pair = bk.geglu_ff(bk.post_cross(*pc, heads=heads,
+                                     head_dim=HD).reshape(b * s, c), *ff)
+    torch.cuda.synchronize()
+    assert _rel_err(single, pair.reshape(b, s, c)) <= TOL
+
+
+@pytest.mark.cuda
+def test_block_gemm_wrappers_refuse(cuda):
+    """geglu_ff's checks on the card (post_cross's context length and
+    shapes: test_wrappers_raise_instead_of_falling_back), and no launch
+    counted for a refused call."""
+    pc, ff = _gemm_inputs(64, 1, 16, 4, seed=0)
+    x2 = pc[0].reshape(16, 64)
+    bk.reset_launch_counts()
+    with pytest.raises(TypeError, match="bf16"):
+        bk.geglu_ff(x2.float(), *ff)
+    with pytest.raises(ValueError, match="contiguous"):
+        bk.geglu_ff(x2.t().contiguous().t(), *ff)
+    with pytest.raises(ValueError, match="expected shape"):
+        bk.geglu_ff(x2, ff[0][:32], *ff[1:])
+    with pytest.raises(ValueError, match="head_dim"):
+        bk.post_cross(*pc, heads=1, head_dim=64)
+    assert sum(bk.launch_counts().values()) == 0
 
 
 # ---------------------------------------------------------- int8 kernels
