@@ -27,14 +27,19 @@ exits non-zero):
                SDPA's, its exp2 floor (ex2 count / (132 SMs x 16 a clock x
                the max SM clock)), its output equal bit for bit to
                flash_fwd's on the same memory (one core), and the host
-               microseconds of one call (wrapper and bare launcher, beside
-               ln_qkv's launcher, which builds no tensor maps). post_cross
-               and geglu_ff (three and two launches of the block-GEMM core,
-               csrc/block_gemm_sm90.cuh) give each launch's device time in
-               a CUDA graph, the host us of a call and of the bare
-               launcher, and, as context only, the same products through
-               torch.matmul; both are also held and timed at 32 images
-               (bench.py's batch-16 op point under shared CFG).
+               microseconds of one call (wrapper and bare launcher).
+               ln_qkv, post_cross and geglu_ff (one, three and two
+               launches of the block-GEMM core, csrc/block_gemm_sm90.cuh)
+               give each launch's device time in a CUDA graph, the host us
+               of a call and of the bare launcher, and, as context only,
+               the same products through torch.matmul; all three are also
+               held and timed at 32 images (bench.py's batch-16 op point
+               under shared CFG). Then a SpatialTransformer at the C = 384
+               site with a 20-token context (past one 16-token chunk of
+               the cross-attention epilogue): it must launch each block
+               kernel once and agree with the same module's unfused
+               blocks in f32 on the CPU within FORWARD_TOL (relative L2,
+               as phase 4 holds the forward).
   4. forward   one full-width U-Net forward, CUDA bf16 (kernel path)
                against CPU f32 (plain path), x batch 1 with a 2-row
                (cond, uncond) context; each kernel must launch 16 times.
@@ -200,12 +205,14 @@ KERNEL_INFO = {
     "geglu_ff": ("rdm_tpu_torch/csrc/geglu_ff_sm90.cu",
                  "rdm_tpu/ops/block_kernel.py:423"),
 }
-# the block-GEMM core that post_cross (three launches) and geglu_ff (two)
-# run, over the attention header's PTX pieces
+# the block-GEMM core that ln_qkv (one launch), post_cross (three) and
+# geglu_ff (two) run, over the attention header's PTX pieces
 GEMM_CORE = ["rdm_tpu_torch/csrc/block_gemm_sm90.cuh",
              "rdm_tpu_torch/csrc/attn_fwd_sm90.cuh"]
-GEMM_LAUNCHES = {"post_cross": ("x1", "cross", "xmid"),
+GEMM_LAUNCHES = {"ln_qkv": ("qkv",),
+                 "post_cross": ("x1", "cross", "xmid"),
                  "geglu_ff": ("geglu_up", "ff_down")}
+LONG_CONTEXT = 20  # past one 16-token chunk of the cross epilogue
 # bench.py's batch-16 op point under shared CFG: 32 images at the sites
 OP_POINT_IMAGES = 32
 INT8_INFO = {
@@ -610,7 +617,7 @@ def _flat(out) -> torch.Tensor:
     return torch.cat([o.reshape(-1).float() for o in outs])
 
 
-def _attn_core_site(t: dict, q, k, v, heads: int, hd: int) -> dict:
+def _attn_core_site(q, k, v, heads: int, hd: int) -> dict:
     """Phase 3's extra numbers of the attention core at one site: device
     time beside SDPA's, the exp2 floor, the host cost of one call, and
     packed_attn equal bit for bit to flash_fwd on the same memory."""
@@ -631,8 +638,6 @@ def _attn_core_site(t: dict, q, k, v, heads: int, hd: int) -> dict:
     bhsd = [a.view(shp).transpose(1, 2).contiguous() for a in (q, k, v)]
     lib, stream = _build.load(), torch.cuda.current_stream().cuda_stream
     o = torch.empty_like(q)
-    x2, r = t["x"].reshape(b * s, c), b * s
-    qkv = [torch.empty_like(x2) for _ in range(3)]
     out = {
         "device_ms": graph_ms(
             lambda: bk.packed_attn(q, k, v, heads=heads, head_dim=hd)),
@@ -644,24 +649,19 @@ def _attn_core_site(t: dict, q, k, v, heads: int, hd: int) -> dict:
             lambda: bk.packed_attn(q, k, v, heads=heads, head_dim=hd)),
         "launcher_host_us": host_us(lambda: lib.rdm_packed_attn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s,
-            heads, hd ** -0.5 * 1.4426950408889634, stream)),
-        "ln_qkv_launcher_host_us": host_us(lambda: lib.rdm_ln_qkv(
-            x2.data_ptr(), t["n1s"].data_ptr(), t["n1b"].data_ptr(),
-            t["wqkv"].data_ptr(), *(a.data_ptr() for a in qkv), r, c,
-            bk._tiles_per_block(3 * c, r), stream)),
+            heads, hd, hd ** -0.5 * 1.4426950408889634, stream)),
     }
     say("kernels", f"attention core C={c:4d} S={s:4d}: device "
         f"{out['device_ms']:.4f} ms (SDPA {out['library_device_ms']:.4f}), "
         f"exp2 floor {out['exp2_floor_ms']:.4f} ms, equal to flash_fwd; "
         f"host per call {out['host_us']:.1f} us (bare launcher "
-        f"{out['launcher_host_us']:.1f}, ln_qkv's without tensor maps "
-        f"{out['ln_qkv_launcher_host_us']:.1f})")
+        f"{out['launcher_host_us']:.1f})")
     return out
 
 
 def _gemm_calls(t: dict, attn: torch.Tensor, heads: int):
-    """post_cross and geglu_ff on one site's tensors: {name: (kernel call,
-    plain call, bare launcher call, the same products through
+    """ln_qkv, post_cross and geglu_ff on one site's tensors: {name:
+    (kernel call, plain call, bare launcher call, the same products through
     torch.matmul)}. The bare launchers take the wrappers' plans and
     outputs, computed once and kept alive by their lambdas."""
     from rdm_tpu_torch.ops import _build
@@ -676,18 +676,25 @@ def _gemm_calls(t: dict, attn: torch.Tensor, heads: int):
     ff = (xm2, t["n3s"], t["n3b"], t["wa"], t["wg"], t["ba"], t["bg"],
           t["w2"], t["b2"])
     lib, stream = _build.load(), torch.cuda.current_stream().cuda_stream
-    x1, o, out, y = (torch.empty_like(xm2) for _ in range(4))
+    x1, o, out, y, q, k, v = (torch.empty_like(xm2) for _ in range(7))
     hidden = torch.empty((r, f), dtype=xm2.dtype, device=xm2.device)
     ptr = lambda *ts: [a.data_ptr() for a in ts]  # noqa: E731
     sms = bk.sm_count(xm2.device.index)
-    pc_bare = ptr(*pc, x1, o, out) + [r, s, c, CONTEXT, hd ** -0.5] + [
+    pc_bare = ptr(*pc, x1, o, out) + [r, s, c, CONTEXT, hd, hd ** -0.5] + [
         *bk.gemm_plan("residual", r, c, c, sms).args,
         *bk.gemm_plan("cross", r, c, c, sms).args, stream]
     ff_bare = ptr(*ff, hidden, y) + [r, c, f] + [
         *bk.gemm_plan("geglu", r, f, c, sms).args,
         *bk.gemm_plan("residual", r, c, f, sms).args, stream]
     a2, x2 = attn.reshape(r, c), t["x"].reshape(r, c)
+    qkv = (x2, t["n1s"], t["n1b"], t["wqkv"])
+    qkv_bare = ptr(*qkv, q, k, v) + [r, c] + [
+        *bk.gemm_plan("qkv", r, 3 * c, c, sms).args, stream]
     return {
+        "ln_qkv": (
+            lambda: bk.ln_qkv(*qkv), lambda: bk.ln_qkv_reference(*qkv),
+            lambda keep=(q, k, v): lib.rdm_ln_qkv(*qkv_bare),
+            lambda: x2 @ t["wqkv"]),
         "post_cross": (
             lambda: bk.post_cross(*pc, heads=heads, head_dim=hd),
             lambda: bk.post_cross_reference(*pc, heads=heads, head_dim=hd),
@@ -723,8 +730,9 @@ def _gemm_site(name: str, calls: tuple) -> dict:
 
 
 def _gemm_op_point(g: torch.Generator) -> dict:
-    """post_cross and geglu_ff at OP_POINT_IMAGES images of each site
-    against their plain versions (KERNEL_TOL), with their device times."""
+    """ln_qkv, post_cross and geglu_ff at OP_POINT_IMAGES images of each
+    site against their plain versions (KERNEL_TOL), with their device
+    times."""
     out = {name: [] for name in GEMM_LAUNCHES}
     for c, s, heads in SITES:
         t = _site_tensors(c, s, heads, g, images=OP_POINT_IMAGES)
@@ -782,9 +790,7 @@ def phase_kernels() -> dict:
                    t["bg"], t["w2"], t["b2"])
         gemm = _gemm_calls(t, attn, heads)
         calls = {
-            "ln_qkv": (lambda: bk.ln_qkv(x2, t["n1s"], t["n1b"], t["wqkv"]),
-                       lambda: bk.ln_qkv_reference(x2, t["n1s"], t["n1b"],
-                                                   t["wqkv"])),
+            "ln_qkv": gemm["ln_qkv"][:2],
             "packed_attn": (
                 lambda: bk.packed_attn(q, k, v, heads=heads, head_dim=hd),
                 lambda: bk.packed_attn_reference(q, k, v, heads=heads,
@@ -828,7 +834,7 @@ def phase_kernels() -> dict:
                 site["library_ms"] = _sdpa_ms(
                     *(a.reshape(shp).transpose(1, 2) for a in (q, k, v)))
                 res["library_ms"] += site["library_ms"]
-                site.update(_attn_core_site(t, q, k, v, heads, hd))
+                site.update(_attn_core_site(q, k, v, heads, hd))
             res["sites"].append(site)
     for name, res in results.items():
         _sum_bound(res, [block_cost(name, c, s) for c, s, _ in SITES])
@@ -836,7 +842,44 @@ def phase_kernels() -> dict:
                                       for x in res["sites"])
     for name, sites in _gemm_op_point(g).items():
         results[name]["op_point_sites"] = sites
+    _long_context_on_card()
     return results
+
+
+def _long_context_on_card() -> None:
+    """A SpatialTransformer at phase 3's first site (C = 384, S = 1024,
+    8 images) with a LONG_CONTEXT-token context, in eval mode on the card:
+    its block must run the four block kernels, once each, and its output
+    must agree with the same module's unfused blocks in f32 on the CPU
+    (relative L2 within FORWARD_TOL, as phase 4 holds the forward)."""
+    import copy
+
+    from rdm_tpu_torch.models.layers import SpatialTransformer
+    from rdm_tpu_torch.ops import block_kernel as bk
+
+    c, s, heads = SITES[0]
+    side = int(math.isqrt(s))
+    ref = SpatialTransformer(c, 512, heads, c // heads)
+    ref.load_state_dict(seeded_state_dict(ref, SEED + 30))
+    g = torch.Generator().manual_seed(SEED + 31)
+    x = torch.randn((CFG_BATCH, c, side, side), generator=g)
+    ctx = torch.randn((CFG_BATCH, LONG_CONTEXT, 512), generator=g)
+    with torch.inference_mode():
+        want = ref.train()(x, ctx)  # the unfused blocks, f32, CPU
+    st = copy.deepcopy(ref).to("cuda", torch.bfloat16).eval()
+    bk.reset_launch_counts()
+    with torch.inference_mode():
+        got = st(x.to("cuda", torch.bfloat16),
+                 ctx.to("cuda", torch.bfloat16)).float().cpu()
+    counts = bk.launch_counts()
+    rel = ((got - want).norm() / want.norm()).item()
+    say("kernels", f"SpatialTransformer C={c} S={s} T={LONG_CONTEXT}: "
+        f"block kernel launches {counts}; rel L2 err CUDA bf16 vs CPU f32 "
+        f"unfused {rel:.3e} (limit {FORWARD_TOL:g})")
+    if (any(n != (1 if k in KERNEL_INFO else 0) for k, n in counts.items())
+            or not torch.isfinite(got).all() or not rel <= FORWARD_TOL):
+        raise RuntimeError(f"T={LONG_CONTEXT}: launches {counts}, relative "
+                           f"error {rel}")
 
 
 def phase_forward(rdm_sd: dict) -> None:

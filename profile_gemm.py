@@ -3,26 +3,36 @@
 
     python3 profile_gemm.py [--out profile_gemm.json]
     python3 profile_gemm.py --host TREE [TREE ...] [--out FILE]
+    python3 profile_gemm.py --tiles [--out FILE]
 
-Builds the launchers of `post_cross` and `geglu_ff` (rdm_tpu_torch/csrc/
-post_cross.cu, geglu_ff_sm90.cu) over rdm_tpu_torch/csrc/
-block_gemm_sm90.cuh with nvcc five times: as they are, and with one part
-of the core cut each time: the wgmma products, the LayerNorm prologue's
-arithmetic (its rows still arrive by TMA), the epilogues, the GEGLU's erf.
-Each build runs in a process of its own and times both wrappers at
-chip_smoke.py phase 3's three U-Net sites (8 images, its tensors) in
-CUDA graphs, each launch by torch.profiler over the graph's replays
-(chip_smoke.py `graph_ms`, `graph_launch_ms`). The cut builds' outputs
-are wrong by design; only their time is read. Prints one JSON line per
-build and writes them all to --out, with the card's name and power limit.
+Builds the launchers of `ln_qkv`, `post_cross` and `geglu_ff`
+(rdm_tpu_torch/csrc/ln_qkv.cu, post_cross.cu, geglu_ff_sm90.cu) over
+rdm_tpu_torch/csrc/block_gemm_sm90.cuh with nvcc five times: as they are,
+and with one part of the core cut each time: the wgmma products, the
+LayerNorm prologue's arithmetic (its rows still arrive by TMA), the
+epilogues, the GEGLU's erf. Each build runs in a process of its own and
+times the three wrappers at chip_smoke.py phase 3's three U-Net sites (8
+images, its tensors) in CUDA graphs, each launch by torch.profiler over
+the graph's replays (chip_smoke.py `graph_ms`, `graph_launch_ms`). The
+cut builds' outputs are wrong by design; only their time is read. Prints
+one JSON line per build and writes them all to --out, with the card's
+name and power limit.
 
 With --host, builds nothing of its own: for each TREE in the order given
 (a checkout of this repo, such as an older commit unpacked by `git
 archive`; `.` for this one), a process of its own imports that tree's
-`rdm_tpu_torch`, builds its kernels and times its `post_cross` and
-`geglu_ff` wrappers at the same sites on the same seeded tensors: host
-us a call (chip_smoke.py `host_us`) and device ms a call (`graph_ms`).
-Naming two trees in turns (A B B A) compares their host cost in one run.
+`rdm_tpu_torch`, builds its kernels and times its `ln_qkv`, `post_cross`
+and `geglu_ff` wrappers at the same sites on the same seeded tensors:
+host us a call (chip_smoke.py `host_us`) and device ms a call
+(`graph_ms`). Naming two trees in turns (A B B A) compares their host
+cost in one run.
+
+With --tiles, times `ln_qkv` through each tile that
+`block_kernel.GEMM_TILES["qkv"]` lists, forced alone (the ring depth and
+column tiles a CTA as `gemm_plan` sets them for it), at the three sites at
+2, 8 and 32 images, each output held against the plain version
+(chip_smoke.py KERNEL_TOL), beside the plan `gemm_plan` picks: device ms
+a call in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -50,7 +60,8 @@ CUTS = {
                "0.7071067811865476f)));",
                "          f[e] = av * gv;"),
 }
-LAUNCHERS = ("post_cross.cu", "geglu_ff_sm90.cu")
+LAUNCHERS = ("ln_qkv.cu", "post_cross.cu", "geglu_ff_sm90.cu")
+TILE_IMAGES = (2, 8, 32)
 HERE = os.path.dirname(os.path.abspath(__file__))
 HEADER = "block_gemm_sm90.cuh"
 
@@ -61,7 +72,7 @@ def build_dir(variant: str) -> str:
 
 
 def build(variant: str) -> subprocess.Popen:
-    """Starts nvcc on the two launchers over the cut header, in a
+    """Starts nvcc on the three launchers over the cut header, in a
     directory of the build's own (a quoted include finds the cut header
     beside the launchers first)."""
     from rdm_tpu_torch.ops import _build
@@ -89,7 +100,7 @@ def build(variant: str) -> subprocess.Popen:
 
 
 def run_build(variant: str) -> dict:
-    """Times both wrappers through the variant's library."""
+    """Times the three wrappers through the variant's library."""
     import torch
 
     import chip_smoke as cs
@@ -97,7 +108,7 @@ def run_build(variant: str) -> dict:
     from rdm_tpu_torch.ops import block_kernel as bk
 
     lib = ctypes.CDLL(os.path.join(build_dir(variant), "lib.so"))
-    for name in ("rdm_post_cross", "rdm_geglu_ff_sm90"):
+    for name in ("rdm_ln_qkv", "rdm_post_cross", "rdm_geglu_ff_sm90"):
         getattr(lib, name).argtypes = _build._SIGNATURES[name]
         getattr(lib, name).restype = ctypes.c_int
     lib.rdm_error_string.argtypes = [ctypes.c_int]
@@ -121,10 +132,58 @@ def run_build(variant: str) -> dict:
     return out
 
 
+def run_tiles() -> dict:
+    """ln_qkv's device ms a call through each "qkv" tile forced alone, and
+    through gemm_plan's pick, at the sites at TILE_IMAGES images."""
+    import torch
+
+    import chip_smoke as cs
+    from rdm_tpu_torch.ops import block_kernel as bk
+
+    tiles = bk.GEMM_TILES["qkv"]
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    out = {"tiles": tiles, "sites": []}
+    for c, s, heads in cs.SITES:
+        for images in TILE_IMAGES:
+            t = cs._site_tensors(c, s, heads, g, images=images)
+            r = images * s
+            args = (t["x"].reshape(r, c), t["n1s"], t["n1b"], t["wqkv"])
+            want = cs._flat(bk.ln_qkv_reference(*args))
+            site = {"C": c, "S": s, "images": images, "R": r,
+                    "plan": bk.gemm_plan("qkv", r, 3 * c, c,
+                                         bk.sm_count(0)),
+                    "plan_ms": cs.graph_ms(lambda: bk.ln_qkv(*args)),
+                    "tile_ms": {}}
+            for tile in tiles:
+                bk.GEMM_TILES["qkv"] = (tile,)
+                bk.gemm_plan.cache_clear()
+                bk.kernel_refusal.cache_clear()
+                if bk.kernel_refusal("ln_qkv", c) is not None:
+                    continue  # the tile does not fit at this C
+                got = cs._flat(bk.ln_qkv(*args))
+                rel = ((got - want).abs().max() / want.abs().max()).item()
+                if not rel <= cs.KERNEL_TOL:
+                    raise RuntimeError(f"tile {tile} at C={c}, R={r}: "
+                                       f"relative error {rel}")
+                site["tile_ms"][str(tile)] = cs.graph_ms(
+                    lambda: bk.ln_qkv(*args))
+            bk.GEMM_TILES["qkv"] = tiles
+            bk.gemm_plan.cache_clear()
+            bk.kernel_refusal.cache_clear()
+            print(f"C={c:4d} R={r:5d}: plan {tuple(site['plan'])} "
+                  f"{site['plan_ms']:.4f} ms; " + ", ".join(
+                      f"{k} {v:.4f}" for k, v in site["tile_ms"].items()),
+                  flush=True)
+            out["sites"].append(site)
+            del t, args
+    return out
+
+
 def run_host(tree: str) -> dict:
-    """Host us and device ms a wrapper call of the tree's `post_cross` and
-    `geglu_ff`. The tree's package comes first on the path; the timing
-    helpers and tensors are this script's chip_smoke.py."""
+    """Host us and device ms a wrapper call of the tree's `ln_qkv`,
+    `post_cross` and `geglu_ff`. The tree's package comes first on the
+    path; the timing helpers and tensors are this script's
+    chip_smoke.py."""
     import importlib.util
 
     sys.path.insert(0, os.path.abspath(tree))
@@ -148,7 +207,9 @@ def run_host(tree: str) -> dict:
                                       head_dim=32).reshape(-1, c)
         ff = (xm2, t["n3s"], t["n3b"], t["wa"], t["wg"], t["ba"], t["bg"],
               t["w2"], t["b2"])
-        calls = {"post_cross": lambda: bk.post_cross(*pc, heads=heads,
+        qkv = (t["x"].reshape(-1, c), t["n1s"], t["n1b"], t["wqkv"])
+        calls = {"ln_qkv": lambda: bk.ln_qkv(*qkv),
+                 "post_cross": lambda: bk.post_cross(*pc, heads=heads,
                                                      head_dim=32),
                  "geglu_ff": lambda: bk.geglu_ff(*ff)}
         with torch.inference_mode():
@@ -156,7 +217,7 @@ def run_host(tree: str) -> dict:
                 out["sites"].append({"name": name, "C": c, "S": s,
                                      "host_us": cs.host_us(fn),
                                      "device_ms": cs.graph_ms(fn)})
-        del t, attn, pc, ff, calls
+        del t, attn, pc, ff, qkv, calls
     return out
 
 
@@ -186,6 +247,8 @@ def main() -> int:
     ap.add_argument("--out", default="profile_gemm.json")
     ap.add_argument("--host", nargs="+", metavar="TREE",
                     help="time the wrappers' host cost of each tree in turn")
+    ap.add_argument("--tiles", action="store_true",
+                    help="time ln_qkv through each of its tiles")
     ap.add_argument("--build", help=argparse.SUPPRESS)
     ap.add_argument("--host-tree", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -209,6 +272,11 @@ def main() -> int:
     print(card, flush=True)
     if args.host:
         return host_turns(args.host, card, args.out)
+    if args.tiles:
+        with open(args.out, "w") as f:
+            json.dump({"card": card, **run_tiles()}, f, indent=1)
+        print(f"wrote {args.out}", flush=True)
+        return 0
     procs = {v: build(v) for v in CUTS}  # every build at once
     for v, p in procs.items():
         log = p.communicate()[0]

@@ -128,8 +128,8 @@ def profile_decode(decode, steps: int) -> dict:
             if "attn_fwd_kernel" in n and not is_bwd(n)]
     core_us = sum(t for t, _ in core)
     bwd_us = sum(t for t, _ in bwd)
-    # the block-GEMM core (csrc/block_gemm_sm90.cuh): post_cross's three
-    # launches and geglu_ff's two
+    # the block-GEMM core (csrc/block_gemm_sm90.cuh): ln_qkv's launch,
+    # post_cross's three and geglu_ff's two
     gemm = [v for n, v in per_kernel.items() if "block_gemm_kernel" in n]
     gemm_us = sum(t for t, _ in gemm)
     return {

@@ -27,8 +27,8 @@ first request. Then measures, in this order:
             share (1 - the union of the device intervals / wall),
             launches, device time per kernel, and the attention core's
             (packed_attn: csrc/attn_fwd_sm90.cuh) and the block-GEMM
-            core's (post_cross, geglu_ff: csrc/block_gemm_sm90.cuh) time
-            and share.
+            core's (ln_qkv, post_cross, geglu_ff:
+            csrc/block_gemm_sm90.cuh) time and share.
 
 Prints one line per measurement, the card's name, power limit, SM clock
 and power draw first and last, and writes everything to --out as JSON.
@@ -166,7 +166,7 @@ def main() -> int:
                 print(f"    attention core (packed_attn): "
                       f"{a['ms_per_step']:.4f} ms {a['share']:7.2%} "
                       f"x{a['per_step']:g}", flush=True)
-                print(f"    block-GEMM core (post_cross, geglu_ff): "
+                print(f"    block-GEMM core (ln_qkv, post_cross, geglu_ff): "
                       f"{m['ms_per_step']:.4f} ms {m['share']:7.2%} "
                       f"x{m['per_step']:g}", flush=True)
     os.environ.pop("RDM_TPU_INT8_ATTN")

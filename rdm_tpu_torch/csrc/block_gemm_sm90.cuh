@@ -1,29 +1,34 @@
 // One block-GEMM core for Hopper (sm_90a): TMA copies into an mbarrier
 // ring fed by a producer warp, wgmma products, the accumulators in
-// registers, one prologue and three epilogues.
+// registers, one prologue and four epilogues.
 //
 //   out[R, N] = epilogue(A[R, K] @ W[K, N])     bf16 in, f32 accumulation
 //
-// Replaces the bodies of two TPU kernels of the SpatialTransformer block:
-// rdm_tpu/ops/block_kernel.py:361 `_post_cross_kernel` (with the context
-// folding of make_cross_mats :500; csrc/post_cross.cu, three launches) and
-// :423 `_geglu_ff_kernel` (csrc/geglu_ff_sm90.cu, two launches):
+// Replaces the bodies of three TPU kernels of the SpatialTransformer block:
+// rdm_tpu/ops/block_kernel.py:127 `_ln_qkv_kernel` (csrc/ln_qkv.cu, one
+// launch), :361 `_post_cross_kernel` (with the context folding of
+// make_cross_mats :500; csrc/post_cross.cu, three launches) and :423
+// `_geglu_ff_kernel` (csrc/geglu_ff_sm90.cu, two launches):
 //
 //   kResidual  out = res + bf16(A @ W + bias)                 A streamed
 //              (post_cross's x1 and xmid, geglu_ff's y)
-//   kCross     q2 = bf16(LN(src)) @ W; per 32-column head the
-//              cross-attention over the row's image's T context tokens:
+//   kCross     q2 = bf16(LN(src)) @ W; per 32-column head (64 for
+//              kCross64) the cross-attention over the row's image's T
+//              context tokens, T <= 16 (any T for kCrossLong, kCross64):
 //              out = bf16(sum_t bf16(softmax_t(bf16(q2) ck_t * scale)) cv_t)
 //   kGeglu     h = bf16(LN(src));
 //              out = bf16((h @ Wa + ba) * gelu(h @ Wg + bg))
 //              (two accumulators sharing each A descriptor; exact erf)
+//   kQkv       h = bf16(LN(src)); [q | k | v] = bf16(h @ Wqkv), N = 3C:
+//              each 8-column group goes to q, k or v (ln_qkv)
 //
 // The roundings are the JAX block's and the first CUDA version's: x1, the
-// LayerNorm output, q2, p, o and f are bf16 where they were bf16 there, so
-// splitting post_cross into three launches and geglu_ff into two changes
-// only the order of f32 sums. The TPU kernel's per-image block matrices,
-// row-global max, -1e9 pad columns and -75 clamp are TPU artifacts and are
-// not carried over (an exact per-head max instead).
+// LayerNorm output, q2, p, o, f and q, k, v are bf16 where they were bf16
+// there, so splitting post_cross into three launches and geglu_ff into two
+// (and ln_qkv's tiles) changes only the order of f32 sums. The TPU
+// kernel's per-image block matrices, row-global max, -1e9 pad columns and
+// -75 clamp are TPU artifacts and are not carried over (an exact per-head
+// max instead).
 //
 // What bounds it on the H100 (SXM, 132 SMs): the products, 2 R N K (x2 for
 // kGeglu) at 989 TFLOP/s; the bytes (A, W, the residual, out once) are far
@@ -50,11 +55,11 @@
 //   K, whose stage slots are zeroed once where K % 64 != 0 (the W rows
 //   facing them are zero-filled by TMA, so stale rows of the same CTA add
 //   exactly 0).
-// - The LayerNorm prologue (kCross, kGeglu): the producer brings the CTA's
-//   BM rows of src [R, K] into shared memory by TMA first (K / 32 boxes of
-//   BM rows, all in flight at once, on one barrier), then the ring. The
-//   consumer warps normalise the panel in place, a warp two rows at a
-//   time, with the bf16x2 arithmetic of block_common.cuh
+// - The LayerNorm prologue (kCross, kGeglu, kQkv): the producer brings the
+//   CTA's BM rows of src [R, K] into shared memory by TMA first (K / 32
+//   boxes of BM rows, all in flight at once, on one barrier), then the
+//   ring. The consumer warps normalise the panel in place, a warp two rows
+//   at a time, with the bf16x2 arithmetic of block_common.cuh
 //   `layer_norm_panel` (f32 statistics, each op rounded to bf16), and
 //   fence the generic proxy's writes before wgmma reads them. (Rows read
 //   by the warps themselves would wait on one global load after another.)
@@ -73,10 +78,12 @@
 //   is written, and the residual read, in 16-byte rows. (Two columns a
 //   store fill half of each 32-byte sector, and the residual's loads are
 //   all issued before the first store, which they might alias.)
-// - The cross-attention epilogue: a head is 32 columns, four n8 blocks, so
-//   the four threads of a quad hold one row's head; a score is a quad sum
-//   of 8-term dot products. Rows of one tile may belong to two images
-//   (image = row / S), each row reads its own image's ck, cv.
+// - The cross-attention epilogue: a head is 32 or 64 columns, four or
+//   eight n8 blocks, so the four threads of a quad hold one row's head; a
+//   score is a quad sum of 8- or 16-term dot products. Rows of one tile may
+//   belong to two images (image = row / S), each row reads its own image's
+//   ck, cv. Past 16 tokens the context is walked in chunks of 16, twice
+//   (cross_epilogue; kCrossLong, kCross64), so T has no limit.
 #pragma once
 
 #include <algorithm>
@@ -91,17 +98,25 @@ namespace gemm {
 
 using attn::bf16;
 
-enum Kind { kResidual = 0, kCross = 1, kGeglu = 2 };
+// kCross takes 32-column heads and up to kCtx context tokens; kCrossLong
+// any number of tokens; kCross64 64-column heads and any number of tokens
+// (cross_epilogue).
+enum Kind {
+  kResidual = 0, kCross = 1, kGeglu = 2, kQkv = 3, kCross64 = 4,
+  kCrossLong = 5
+};
+__host__ __device__ constexpr bool is_cross(int kind) {
+  return kind == kCross || kind == kCross64 || kind == kCrossLong;
+}
 
 constexpr int kBK = 64;           // K of a ring stage
 constexpr int kPW = 32;           // columns of a TMA box (64 bytes)
 constexpr int kWPanel = kBK * 64;  // bytes of one W box
 constexpr int kMaxStages = 8;
-constexpr int kMaxCtx = 16;       // context tokens the epilogue holds
 constexpr int kSmemLimit = 232448;
 
 // Shared memory of one CTA of BM rows after its base is aligned to 1 KB:
-// the normalised A panel (kCross, kGeglu; ceil(K / 64) * 2 panels of BM
+// the normalised A panel (all but kResidual; ceil(K / 64) * 2 panels of BM
 // rows x 64 bytes) | the ring (stages x [two A panels (kResidual) | NW x
 // BN / 32 W panels]) | full[stages], empty[stages], the panel's barrier.
 // Mirrored by ops/block_kernel.py `gemm_smem`.
@@ -126,16 +141,18 @@ __host__ __device__ constexpr int smem_bytes(int kind, int bm, int bn, int K,
 
 // What the prologue and epilogues read and write. Unused fields are null.
 struct Args {
-  const float* ln_s;   // LayerNorm scale and bias [K] (kCross, kGeglu)
+  const float* ln_s;   // LayerNorm scale and bias [K] (all but kResidual)
   const float* ln_b;
   const float* bias0;  // [N]: b (kResidual), ba (kGeglu)
   const float* bias1;  // [N]: bg (kGeglu)
   const bf16* res;     // [R, N] (kResidual)
   const bf16* ck;      // [R / S, T, N] (kCross)
   const bf16* cv;
-  bf16* out;           // [R, N]
+  bf16* out;           // [R, N]; q [R, N / 3] (kQkv)
   int R, N, K, S, T, stages, tiles_per_cta;
   float scale;
+  bf16* out1;          // k, v [R, N / 3] (kQkv)
+  bf16* out2;
 };
 
 __device__ __forceinline__ float round_bf16(float v) {
@@ -373,88 +390,170 @@ __device__ __forceinline__ void geglu_epilogue(const float (&a)[BN / 2],
   }
 }
 
-// Per 32-column head m of the tile: q2 = bf16(acc), scores against the
-// row's image's ck [T, 32] times scale with an exact max, p = bf16(exp /
-// sum), o = sum_t p cv_t in f32 -> bf16. Tokens go four at a time, so
-// their loads and quad sums overlap. Shuffles run on every lane (the head
-// and T are uniform over the warp); rows >= R compute on a clamped row and
-// store nothing.
+// [q | k | v] = bf16(acc): a 32-column group lies in one of the three
+// (N / 3 % 32 == 0), so the warp picks the output once a group.
 template <int BN>
+__device__ __forceinline__ void qkv_epilogue(const float (&acc)[BN / 2],
+                                             const Args& p, int r0, int n0,
+                                             int q) {
+  const int N = p.N, C = N / 3;
+#pragma unroll
+  for (int m = 0; m < BN / 32; ++m) {
+    const int gc = n0 + 32 * m;
+    if (gc >= N) break;
+    const int which = gc / C;
+    bf16* out = which == 0 ? p.out : which == 1 ? p.out1 : p.out2;
+    const int col = gc - which * C + 8 * q;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t w[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int i = 4 * (4 * m + jj) + 2 * h;
+        w[jj] = attn::pack_bf16(acc[i], acc[i + 1]);
+      }
+      const uint4 y = quad_transpose(w, q);
+      const int row = r0 + 8 * h;
+      if (row < p.R)
+        *reinterpret_cast<uint4*>(out + (size_t)row * C + col) = y;
+    }
+  }
+}
+
+// Per head of HD columns (32 or 64) of the tile: q2 = bf16(acc), scores
+// against the row's image's ck [T, HD] times scale, p = bf16(exp(s - max) /
+// sum) with the exact max and sum over all T, o = sum_t p cv_t in f32 ->
+// bf16. Without CHUNKS (kCross, T <= kCtx: the main path's T = 4) this is
+// one pass with the scores in registers. With CHUNKS the tokens go in
+// chunks of kCtx: a first pass walks the chunks for the running max and
+// sum (the sum rescaled when the max grows), a second recomputes each
+// chunk's scores for p and o. Two instantiations, so the main path's code
+// is the one pass alone (with the walk beside it in one kernel the T = 4
+// launch ran ~20% longer in the RDM forward, profile_rdm.py).
+// Within a chunk tokens go four at a time, so their loads and quad sums
+// overlap. Shuffles run on every lane (the head and T are uniform over the
+// warp); rows >= R compute on a clamped row and store nothing.
+constexpr int kCtx = 16;
+
+template <int BN, int HD, bool CHUNKS>
 __device__ __forceinline__ void cross_epilogue(const float (&acc)[BN / 2],
                                                const Args& p, int r0, int n0,
                                                int q) {
+  static_assert(HD == 32 || HD == 64, "a head is one or two 32-column groups");
   constexpr int kChunk = 4;
+  constexpr int NB = HD / 8;  // n8 blocks of a head
   const int N = p.N, T = p.T, cq = 2 * q;
 #pragma unroll
-  for (int m = 0; m < BN / 32; ++m) {
-    const int hcol = n0 + 32 * m;
+  for (int hh = 0; hh < BN / HD; ++hh) {
+    const int hcol = n0 + hh * HD;
     if (hcol >= N) break;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = r0 + 8 * h;
       const int img = min(row, p.R - 1) / p.S;
       const size_t cbase = (size_t)img * T * N + hcol + cq;
-      float qv[8];
+      float qv[2 * NB];
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        qv[2 * jj] = round_bf16(acc[4 * (4 * m + jj) + 2 * h]);
-        qv[2 * jj + 1] = round_bf16(acc[4 * (4 * m + jj) + 2 * h + 1]);
+      for (int j = 0; j < NB; ++j) {
+        qv[2 * j] = round_bf16(acc[4 * (NB * hh + j) + 2 * h]);
+        qv[2 * j + 1] = round_bf16(acc[4 * (NB * hh + j) + 2 * h + 1]);
       }
-      float sc[kMaxCtx];
-      float mx = -INFINITY;
+      float sc[kCtx];
+      // the scores of tokens t0 .. t0 + kCtx - 1 (those < T) into sc; their max
+      auto scores = [&](int t0) {
+        float cm = -INFINITY;
 #pragma unroll
-      for (int t0 = 0; t0 < kMaxCtx; t0 += kChunk) {
-        if (t0 >= T) break;
-        float s[kChunk];
+        for (int tt = 0; tt < kCtx; tt += kChunk) {
+          if (t0 + tt >= T) break;
+          float s[kChunk];
 #pragma unroll
-        for (int u = 0; u < kChunk; ++u) {
-          s[u] = 0.f;
-          if (t0 + u < T) {
-            const bf16* kr = p.ck + cbase + (size_t)(t0 + u) * N;
+          for (int u = 0; u < kChunk; ++u) {
+            s[u] = 0.f;
+            if (t0 + tt + u < T) {
+              const bf16* kr = p.ck + cbase + (size_t)(t0 + tt + u) * N;
 #pragma unroll
-            for (int jj = 0; jj < 4; ++jj) {
-              const float2 k = ld_bf16x2(kr + 8 * jj);
-              s[u] += qv[2 * jj] * k.x + qv[2 * jj + 1] * k.y;
+              for (int j = 0; j < NB; ++j) {
+                const float2 k = ld_bf16x2(kr + 8 * j);
+                s[u] += qv[2 * j] * k.x + qv[2 * j + 1] * k.y;
+              }
             }
           }
-        }
 #pragma unroll
-        for (int u = 0; u < kChunk; ++u) {
-          sc[t0 + u] = quad_sum(s[u]) * p.scale;
-          if (t0 + u < T) mx = fmaxf(mx, sc[t0 + u]);
+          for (int u = 0; u < kChunk; ++u) {
+            sc[tt + u] = quad_sum(s[u]) * p.scale;
+            if (t0 + tt + u < T) cm = fmaxf(cm, sc[tt + u]);
+          }
+        }
+        return cm;
+      };
+      // sc = exp(s - m) for the chunk's tokens
+      auto exps = [&](int t0, float m) {
+#pragma unroll
+        for (int u = 0; u < kCtx; ++u) {
+          if (t0 + u >= T) break;
+          sc[u] = __expf(sc[u] - m);
+        }
+      };
+      float o[2 * NB];
+#pragma unroll
+      for (int i = 0; i < 2 * NB; ++i) o[i] = 0.f;
+      float den = 0.f, inv = 0.f;
+      // o += p v over the chunk's tokens, p = bf16(sc * inv)
+      auto pv = [&](int t0) {
+#pragma unroll
+        for (int u = 0; u < kCtx; ++u) {
+          if (t0 + u >= T) break;
+          const float pt = round_bf16(sc[u] * inv);
+          const bf16* vr = p.cv + cbase + (size_t)(t0 + u) * N;
+#pragma unroll
+          for (int j = 0; j < NB; ++j) {
+            const float2 v = ld_bf16x2(vr + 8 * j);
+            o[2 * j] += pt * v.x;
+            o[2 * j + 1] += pt * v.y;
+          }
+        }
+      };
+      if constexpr (!CHUNKS) {  // one exact pass, the scores in registers
+        const float mx = scores(0);
+#pragma unroll
+        for (int u = 0; u < kCtx; ++u) {
+          if (u >= T) break;
+          sc[u] = __expf(sc[u] - mx);
+          den += sc[u];
+        }
+        inv = 1.0f / den;
+        pv(0);
+      } else {  // the running max and sum, then p and o chunk by chunk
+        float mx = -INFINITY;
+        for (int t0 = 0; t0 < T; t0 += kCtx) {
+          const float nm = fmaxf(mx, scores(t0));
+          den *= __expf(mx - nm);  // 0 on the first chunk
+          exps(t0, nm);
+#pragma unroll
+          for (int u = 0; u < kCtx; ++u) {
+            if (t0 + u >= T) break;
+            den += sc[u];
+          }
+          mx = nm;
+        }
+        inv = 1.0f / den;
+        for (int t0 = 0; t0 < T; t0 += kCtx) {
+          scores(t0);
+          exps(t0, mx);
+          pv(t0);
         }
       }
-      float den = 0.f;
 #pragma unroll
-      for (int t = 0; t < kMaxCtx; ++t) {
-        if (t >= T) break;
-        sc[t] = __expf(sc[t] - mx);
-        den += sc[t];
+      for (int m = 0; m < HD / 32; ++m) {
+        uint32_t w[4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          w[jj] = attn::pack_bf16(o[2 * (4 * m + jj)], o[2 * (4 * m + jj) + 1]);
+        const uint4 y = quad_transpose(w, q);
+        if (row < p.R)
+          *reinterpret_cast<uint4*>(p.out + (size_t)row * N + hcol + 32 * m +
+                                    8 * q) = y;
       }
-      const float inv = 1.0f / den;
-      float o[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) o[i] = 0.f;
-#pragma unroll
-      for (int t = 0; t < kMaxCtx; ++t) {
-        if (t >= T) break;
-        const float pt = round_bf16(sc[t] * inv);
-        const bf16* vr = p.cv + cbase + (size_t)t * N;
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const float2 v = ld_bf16x2(vr + 8 * jj);
-          o[2 * jj] += pt * v.x;
-          o[2 * jj + 1] += pt * v.y;
-        }
-      }
-      uint32_t w[4];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-        w[jj] = attn::pack_bf16(o[2 * jj], o[2 * jj + 1]);
-      const uint4 y = quad_transpose(w, q);
-      if (row < p.R)
-        *reinterpret_cast<uint4*>(p.out + (size_t)row * N + hcol + 8 * q) =
-            y;
     }
   }
 }
@@ -468,7 +567,7 @@ __device__ __forceinline__ void cross_epilogue(const float (&acc)[BN / 2],
 // Each ping-pong warpgroup then has a ring of its own, half the stages,
 // filled by a producer lane of its own: one ring read by two warpgroups
 // out of step would let a parity wait pass a phase early.
-// ta: the streamed A (kResidual) or the LayerNorm's src (kCross, kGeglu),
+// ta: the streamed A (kResidual) or the LayerNorm's src (the others),
 // [R, K], box {32, BM}; tw0, tw1: the weights (box {32, 64}; tw1 only for
 // kGeglu).
 template <int CW, int BM, int BN, bool PP, int KIND>
@@ -618,10 +717,13 @@ __global__ void __launch_bounds__(128 * CW + 32,
       const int r0 = row0 + 64 * m + r_in;
       if constexpr (KIND == kResidual)
         residual_epilogue<BN>(acc[0][m], p, r0, n0, q);
-      else if constexpr (KIND == kCross)
-        cross_epilogue<BN>(acc[0][m], p, r0, n0, q);
-      else
+      else if constexpr (is_cross(KIND))
+        cross_epilogue<BN, KIND == kCross64 ? 64 : 32, KIND != kCross>(
+            acc[0][m], p, r0, n0, q);
+      else if constexpr (KIND == kGeglu)
         geglu_epilogue<BN>(acc[0][m], acc[1][m], p, r0, n0, q);
+      else
+        qkv_epilogue<BN>(acc[0][m], p, r0, n0, q);
     }
   }
 }
@@ -632,7 +734,8 @@ __global__ void __launch_bounds__(128 * CW + 32,
 // BN of a tile, ping-pong or split warpgroups, column tiles a CTA walks,
 // ring stages. The tiles built are those of `GEMM_TILES` there: split
 // (BM, BN) = (128, 128), (64, 128), (64, 64) for kResidual; split
-// (64, 64) for kCross; ping-pong (128, 64) and (64, 64) for kGeglu.
+// (64, 64) for the cross kinds; ping-pong (128, 64) and (64, 64) for
+// kGeglu; split (128, 128) and ping-pong (64, 128) for kQkv.
 struct Plan {
   int bm, bn, pp, tiles_per_cta, stages;
 };
@@ -642,9 +745,10 @@ inline bool plan_ok(const Plan& pl, int kind, int K) {
       kind == kResidual
           ? !pl.pp && ((pl.bm == 128 && pl.bn == 128) ||
                        (pl.bm == 64 && (pl.bn == 64 || pl.bn == 128)))
-      : kind == kCross
-          ? !pl.pp && pl.bm == 64 && pl.bn == 64
-          : pl.pp && pl.bn == 64 && (pl.bm == 64 || pl.bm == 128);
+      : is_cross(kind) ? !pl.pp && pl.bm == 64 && pl.bn == 64
+      : kind == kGeglu
+          ? pl.pp && pl.bn == 64 && (pl.bm == 64 || pl.bm == 128)
+          : pl.bn == 128 && pl.bm == (pl.pp ? 64 : 128);
   return built && (pl.pp == 0 || pl.pp == 1) && pl.tiles_per_cta >= 1 &&
          pl.stages >= (pl.pp ? 4 : 2) && pl.stages % (pl.pp ? 2 : 1) == 0 &&
          pl.stages <= kMaxStages &&
@@ -696,8 +800,8 @@ cudaError_t launch_tile(const CUtensorMap& ta, const CUtensorMap& tw0,
 }
 
 // One launch of the core: out = epilogue(A @ W). A is `a_src` [R, K],
-// streamed (kResidual) or normalised (kCross, kGeglu); w0 (and w1 for
-// kGeglu) [K, N]. Returns a cudaError_t.
+// streamed (kResidual) or normalised (the others); w0 (and w1 for kGeglu)
+// [K, N]. Returns a cudaError_t.
 template <int KIND>
 int launch(const Plan& pl, const void* a_src, const void* w0, const void* w1,
            Args a, cudaStream_t stream) {
@@ -714,7 +818,12 @@ int launch(const Plan& pl, const void* a_src, const void* w0, const void* w1,
     return (int)cudaErrorInvalidValue;
   a.stages = pl.stages;
   a.tiles_per_cta = pl.tiles_per_cta;
-  if constexpr (KIND == kGeglu)
+  if constexpr (KIND == kQkv)
+    e = pl.pp ? launch_tile<2, 64, 128, true, KIND>(ta, tw0, tw1, a, dev,
+                                                    stream)
+              : launch_tile<2, 128, 128, false, KIND>(ta, tw0, tw1, a, dev,
+                                                      stream);
+  else if constexpr (KIND == kGeglu)
     e = pl.bm == 128
             ? launch_tile<2, 128, 64, true, KIND>(ta, tw0, tw1, a, dev,
                                                   stream)

@@ -134,7 +134,7 @@ extern "C" int rdm_geglu_ff_q(const void* xm, const void* n3s,
                               int tiles_per_block, float a3, float ah,
                               void* stream) {
   using namespace rdmk;
-  if (C % BK8 || F % BK8) return (int)cudaErrorInvalidValue;
+  if (C % 32 || F % 32) return (int)cudaErrorInvalidValue;
   const size_t smem = panel_bytes(C) + panel8_bytes(C) + bchunk8_bytes(2) +
                       staging_bytes(2);
   cudaError_t e = allow_smem(geglu_up_q_kernel, smem);

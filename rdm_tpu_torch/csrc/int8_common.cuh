@@ -12,7 +12,8 @@
 // column; int8 activation panels are [BM, K] row-major with row stride
 // K + 16 bytes (16-byte aligned rows, and the eight rows a fragment load
 // touches fall in distinct bank quads). Weight chunks are [BN, BK8] with
-// the same padding. K must be a multiple of BK8 = 64.
+// the same padding. K must be a multiple of 32: where K % BK8 = 32 the last
+// chunk's second half is neither loaded nor read (the TAIL instantiations).
 //
 // Quantization follows rdm_tpu/ops/block_kernel.py `_quantize_act`: the
 // activation is MULTIPLIED by 1 / a (a the static scale), rounded half to
@@ -104,16 +105,20 @@ __device__ __forceinline__ void quantize_panel(int8_t* dst, const bf16* src,
 }
 
 // Async copy of rows [n0, n0 + BN) x bytes [k0, k0 + BK8) of W ([N, K]
-// int8) into a [BN, BK8] chunk; rows >= N are zero-filled.
+// int8) into a [BN, BK8] chunk; rows >= N, and with TAIL bytes >= K, are
+// zero-filled.
+template <bool TAIL>
 __device__ __forceinline__ void load_bchunk8_async(int8_t* bs,
                                                    const int8_t* W, int N,
                                                    int K, int k0, int n0) {
   for (int i = threadIdx.x; i < BN * BK8 / 16; i += kThreads) {
     const int r = i / (BK8 / 16), v = i - r * (BK8 / 16);
     const int gn = n0 + r;
-    const bool ok = gn < N;
+    const bool ok = gn < N && (!TAIL || k0 + v * 16 < K);
     cp_async16(bs + r * kLdB8 + v * 16,
-               W + (size_t)(ok ? gn : 0) * K + k0 + v * 16, ok);
+               W + (TAIL ? (ok ? (size_t)gn * K + k0 + v * 16 : 0)
+                         : (size_t)(ok ? gn : 0) * K + k0 + v * 16),
+               ok);
   }
 }
 
@@ -126,29 +131,31 @@ __device__ __forceinline__ void zero_acc(Acc8& acc) {
 
 // acc[w] = panel[BM, K] @ W_w[n0:n0+BN, :K]^T for NW int8 weights that share
 // the A fragments. The panel must be complete and visible, and no cp.async
-// group may be pending. bs holds bchunk8_bytes(NW).
-template <int NW>
-__device__ __forceinline__ void panel_gemm8(Acc8 (&acc)[NW],
-                                            const int8_t* panel, int K,
-                                            const int8_t* const* W, int N,
-                                            int n0, int8_t* bs) {
+// group may be pending. bs holds bchunk8_bytes(NW). TAIL: K % BK8 = 32,
+// the last chunk half loaded and half read; a separate instantiation, so
+// K % BK8 = 0 runs without the tail's checks (panel_gemm8).
+template <int NW, bool TAIL>
+__device__ __forceinline__ void panel_gemm8_k(Acc8 (&acc)[NW],
+                                              const int8_t* panel, int K,
+                                              const int8_t* const* W, int N,
+                                              int n0, int8_t* bs) {
   const int ld8 = panel8_ld(K);
   const int wm = warp_row(), wn = warp_col();
 #pragma unroll
   for (int w = 0; w < NW; ++w) zero_acc(acc[w]);
-  const int nk = K / BK8;
+  const int nk = TAIL ? (K + BK8 - 1) / BK8 : K / BK8;
   const int stage = NW * BN * kLdB8;
 #pragma unroll
   for (int w = 0; w < NW; ++w)
-    load_bchunk8_async(bs + w * BN * kLdB8, W[w], N, K, 0, n0);
+    load_bchunk8_async<TAIL>(bs + w * BN * kLdB8, W[w], N, K, 0, n0);
   cp_async_commit();
   for (int kc = 0; kc < nk; ++kc) {
     if (kc + 1 < nk) {
       int8_t* nxt = bs + ((kc + 1) & 1) * stage;
 #pragma unroll
       for (int w = 0; w < NW; ++w)
-        load_bchunk8_async(nxt + w * BN * kLdB8, W[w], N, K, (kc + 1) * BK8,
-                           n0);
+        load_bchunk8_async<TAIL>(nxt + w * BN * kLdB8, W[w], N, K,
+                                 (kc + 1) * BK8, n0);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -156,6 +163,7 @@ __device__ __forceinline__ void panel_gemm8(Acc8 (&acc)[NW],
     const int8_t* cur = bs + (kc & 1) * stage;
 #pragma unroll
     for (int kk = 0; kk < BK8; kk += 32) {
+      if (TAIL && kc * BK8 + kk >= K) break;
       unsigned a[4];
       frag_a8(a, panel, ld8, wm * 16, kc * BK8 + kk);
 #pragma unroll
@@ -173,34 +181,49 @@ __device__ __forceinline__ void panel_gemm8(Acc8 (&acc)[NW],
   cp_async_wait<0>();
 }
 
+template <int NW>
+__device__ __forceinline__ void panel_gemm8(Acc8 (&acc)[NW],
+                                            const int8_t* panel, int K,
+                                            const int8_t* const* W, int N,
+                                            int n0, int8_t* bs) {
+  if (K % BK8)
+    panel_gemm8_k<NW, true>(acc, panel, K, W, N, n0, bs);
+  else
+    panel_gemm8_k<NW, false>(acc, panel, K, W, N, n0, bs);
+}
+
 // acc = A[r0:r0+BM, :K] @ W[n0:n0+BN, :K]^T with both int8 operands streamed
 // from global memory (A [R, K] row-major, rows >= R read as zero). as
-// holds 2 * BM * kLdA8 bytes, bs bchunk8_bytes(1).
-__device__ __forceinline__ void streamed_gemm8(Acc8& acc, const int8_t* A,
-                                               int R, int K, const int8_t* W,
-                                               int N, int r0, int n0,
-                                               int8_t* as, int8_t* bs) {
+// holds 2 * BM * kLdA8 bytes, bs bchunk8_bytes(1). TAIL as panel_gemm8_k.
+template <bool TAIL>
+__device__ __forceinline__ void streamed_gemm8_k(Acc8& acc, const int8_t* A,
+                                                 int R, int K,
+                                                 const int8_t* W, int N,
+                                                 int r0, int n0, int8_t* as,
+                                                 int8_t* bs) {
   const int wm = warp_row(), wn = warp_col();
   zero_acc(acc);
-  const int nk = K / BK8;
+  const int nk = TAIL ? (K + BK8 - 1) / BK8 : K / BK8;
   auto load_a = [&](int8_t* dst, int k0) {
     // [BM, BK8] = 32 x 64 bytes = 128 16-byte vectors, one per thread
     for (int i = threadIdx.x; i < BM * BK8 / 16; i += kThreads) {
       const int r = i / (BK8 / 16), v = i - r * (BK8 / 16);
       const int gr = r0 + r;
-      const bool ok = gr < R;
+      const bool ok = gr < R && (!TAIL || k0 + v * 16 < K);
       cp_async16(dst + r * kLdA8 + v * 16,
-                 A + (size_t)(ok ? gr : 0) * K + k0 + v * 16, ok);
+                 A + (TAIL ? (ok ? (size_t)gr * K + k0 + v * 16 : 0)
+                           : (size_t)(ok ? gr : 0) * K + k0 + v * 16),
+                 ok);
     }
   };
   load_a(as, 0);
-  load_bchunk8_async(bs, W, N, K, 0, n0);
+  load_bchunk8_async<TAIL>(bs, W, N, K, 0, n0);
   cp_async_commit();
   for (int kc = 0; kc < nk; ++kc) {
     if (kc + 1 < nk) {
       load_a(as + ((kc + 1) & 1) * BM * kLdA8, (kc + 1) * BK8);
-      load_bchunk8_async(bs + ((kc + 1) & 1) * BN * kLdB8, W, N, K,
-                         (kc + 1) * BK8, n0);
+      load_bchunk8_async<TAIL>(bs + ((kc + 1) & 1) * BN * kLdB8, W, N, K,
+                               (kc + 1) * BK8, n0);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -209,6 +232,7 @@ __device__ __forceinline__ void streamed_gemm8(Acc8& acc, const int8_t* A,
     const int8_t* cb = bs + (kc & 1) * BN * kLdB8;
 #pragma unroll
     for (int kk = 0; kk < BK8; kk += 32) {
+      if (TAIL && kc * BK8 + kk >= K) break;
       unsigned a[4];
       frag_a8(a, ca, kLdA8, wm * 16, kk);
 #pragma unroll
@@ -221,6 +245,16 @@ __device__ __forceinline__ void streamed_gemm8(Acc8& acc, const int8_t* A,
     __syncthreads();
   }
   cp_async_wait<0>();
+}
+
+__device__ __forceinline__ void streamed_gemm8(Acc8& acc, const int8_t* A,
+                                               int R, int K, const int8_t* W,
+                                               int N, int r0, int n0,
+                                               int8_t* as, int8_t* bs) {
+  if (K % BK8)
+    streamed_gemm8_k<true>(acc, A, R, K, W, N, r0, n0, as, bs);
+  else
+    streamed_gemm8_k<false>(acc, A, R, K, W, N, r0, n0, as, bs);
 }
 
 // Dequantize a warp's accumulators into the [BM, BN] f32 staging tile:

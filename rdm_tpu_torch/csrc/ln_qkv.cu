@@ -1,81 +1,46 @@
-// LN1 + fused q/k/v projection of a SpatialTransformer block.
+// LN1 + fused q/k/v projection of a SpatialTransformer block: one launch of
+// the block-GEMM core.
 //
-// Replaces rdm_tpu/ops/block_kernel.py:_ln_qkv_kernel (driven from
-// fused_transformer_block). Computes, for x [R, C] bf16:
-//   h = LayerNorm(x; n1s, n1b)   (f32 row statistics, eps 1e-5)
-//   [q | k | v] = h @ wqkv        (wqkv [C, 3C] bf16, f32 accumulation)
-// and writes q, k, v as three [R, C] bf16 tensors with head h at channels
-// [32h, 32h + 32). The TPU kernel's 128-lane head padding (Cp) is not
-// carried over: the GPU layout needs none.
+// Replaces rdm_tpu/ops/block_kernel.py:127 _ln_qkv_kernel (driven from
+// fused_transformer_block). For x [R, C] bf16:
+//   h = bf16(LN1(x; n1s, n1b))     (f32 row statistics, eps 1e-5)
+//   [q | k | v] = bf16(h @ wqkv)   (wqkv [C, 3C] bf16, f32 accumulation)
+// written as three [R, C] bf16 tensors with head h at channels
+// [32h, 32h + 32) (kQkv: the core's LayerNorm prologue, one weight, an
+// epilogue that sends each 8-column group of the [R, 3C] product to q, k
+// or v). The TPU kernel's 128-lane head padding (Cp) is not carried over:
+// the GPU layout needs none.
 //
 // What bounds it on the H100: at the main-path sites (R = 8192/2048/512,
 // C = 384/576/960) the product is 2*R*C*3C = 7.2/4.1/2.8 GFLOP against
-// 2*(R*C + 3*C*C + 3*R*C) bytes = 26/11/9.4 MB, i.e. 280/360/300 FLOP per
-// byte - near the bf16 ridge point (~295), so tensor-core throughput and
-// the weight re-reads from L2 decide it. Design: each thread block
-// normalises its [32, C] row panel once into shared memory and then sweeps
-// a run of 64-column output tiles over it (tiles_per_block, chosen by the
-// wrapper so that the grid still fills the card), so the LayerNorm is never
-// recomputed per tile and h never goes to device memory.
-#include "block_common.cuh"
-
-namespace rdmk {
-
-__global__ void __launch_bounds__(kThreads)
-    ln_qkv_kernel(const bf16* __restrict__ x, const float* __restrict__ g,
-                  const float* __restrict__ b, const bf16* __restrict__ w,
-                  bf16* __restrict__ q, bf16* __restrict__ k,
-                  bf16* __restrict__ v, int R, int C, int tiles_per_block) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* panel = reinterpret_cast<bf16*>(smem);
-  bf16* bs = reinterpret_cast<bf16*>(smem + panel_bytes(C));
-  float* cs = reinterpret_cast<float*>(smem + panel_bytes(C) + bchunk_bytes(1));
-
-  const int r0 = blockIdx.y * BM;
-  load_panel_async(panel, x, C, r0, R, C);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  layer_norm_panel(panel, panel, C, g, b);
-  __syncthreads();
-
-  const int N = 3 * C;
-  const int ntiles = (N + BN - 1) / BN;
-  const int t_end = min(ntiles, (int)(blockIdx.x + 1) * tiles_per_block);
-  const bf16* ws[1] = {w};
-  for (int t = blockIdx.x * tiles_per_block; t < t_end; ++t) {
-    const int n0 = t * BN;
-    FragC acc[1][2];
-    panel_gemm<1>(acc, panel, C, ws, N, n0, bs);
-    store_acc(cs, acc[0]);
-    __syncthreads();
-    for (int i = threadIdx.x; i < BM * BN / 8; i += kThreads) {
-      const int r = i / (BN / 8), c8 = (i - r * (BN / 8)) * 8;
-      const int gr = r0 + r, gc = n0 + c8;
-      if (gr >= R || gc >= N) continue;
-      const int which = gc / C;  // 8-column groups never straddle q/k/v
-      bf16* out = which == 0 ? q : (which == 1 ? k : v);
-      store8(out + (size_t)gr * C + (gc - which * C), cs + r * kLdC + c8);
-    }
-    __syncthreads();
-  }
-}
-
-}  // namespace rdmk
+// 2*(R*C + 3*C*C + 3*R*C) bytes = 26/11/9.5 MB: 7.8/4.1/2.9 us of bytes or
+// operations, whichever is larger, near the bf16 ridge point. The first
+// version (wmma, 32-row panels, W through cp.async, accumulators staged in
+// shared memory) ran the C = 384 site as 256 row blocks that each read
+// all of W from L2. Here a CTA normalises 64 or 128 rows once into a
+// swizzled panel, a producer warp streams W's [64, 32] boxes by TMA into
+// an mbarrier ring, wgmma keeps the products in registers, and a CTA walks
+// several column tiles of its rows (ops/block_kernel.py `gemm_plan`, kind
+// "qkv"); csrc/block_gemm_sm90.cuh says how the core is built.
+#include "block_gemm_sm90.cuh"
 
 extern "C" int rdm_ln_qkv(const void* x, const void* n1s, const void* n1b,
                           const void* wqkv, void* q, void* k, void* v, int R,
-                          int C, int tiles_per_block, void* stream) {
-  using namespace rdmk;
-  const size_t smem = panel_bytes(C) + bchunk_bytes(1) + staging_bytes(1);
-  cudaError_t e = allow_smem(ln_qkv_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  const int ntiles = (3 * C + BN - 1) / BN;
-  dim3 grid((ntiles + tiles_per_block - 1) / tiles_per_block,
-            (R + BM - 1) / BM);
-  ln_qkv_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const float*)n1s, (const float*)n1b,
-      (const bf16*)wqkv, (bf16*)q, (bf16*)k, (bf16*)v, R, C,
-      tiles_per_block);
-  return (int)cudaGetLastError();
+                          int C, int bm, int bn, int pp, int tiles_per_cta,
+                          int stages, void* stream) {
+  using namespace rdmk::gemm;
+  if (C % kPW) return (int)cudaErrorInvalidValue;
+  Args a{};
+  a.R = R;
+  a.N = 3 * C;
+  a.K = C;
+  a.S = 1;
+  a.T = 1;
+  a.ln_s = (const float*)n1s;
+  a.ln_b = (const float*)n1b;
+  a.out = (bf16*)q;
+  a.out1 = (bf16*)k;
+  a.out2 = (bf16*)v;
+  return launch<kQkv>(Plan{bm, bn, pp, tiles_per_cta, stages}, x, wqkv,
+                      nullptr, a, (cudaStream_t)stream);
 }

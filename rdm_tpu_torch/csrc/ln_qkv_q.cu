@@ -69,7 +69,7 @@ extern "C" int rdm_ln_qkv_q(const void* x, const void* n1s, const void* n1b,
                             void* k, void* v, int R, int C,
                             int tiles_per_block, float a, void* stream) {
   using namespace rdmk;
-  if (C % BK8) return (int)cudaErrorInvalidValue;
+  if (C % 32) return (int)cudaErrorInvalidValue;
   const size_t smem = panel_bytes(C) + panel8_bytes(C) + bchunk8_bytes(1) +
                       staging_bytes(1);
   cudaError_t e = allow_smem(ln_qkv_q_kernel, smem);

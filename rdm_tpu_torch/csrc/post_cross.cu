@@ -9,7 +9,8 @@
 //   1. x1   = x + bf16(attn @ wo + bo)                         (kResidual)
 //   2. q2   = bf16(LN2(x1; n2s, n2b)) @ wq2, and in the epilogue per head
 //      o_h  = bf16(sum_t bf16(softmax_t(bf16(q2_h) . ck[img, t, h] d^-1/2))
-//                  cv[img, t, h])                              (kCross)
+//                  cv[img, t, h])      (kCross; kCrossLong past 16 tokens,
+//                                           kCross64 at head_dim 64)
 //   3. xmid = x1 + bf16(o @ wo2 + bo2)                         (kResidual)
 // x1 and o go through device memory (scratch the wrapper allocates), in
 // bf16, where the first version and the JAX block round them anyway, so
@@ -24,12 +25,14 @@ extern "C" int rdm_post_cross(const void* x, const void* attn, const void* ck,
                               const void* n2s, const void* n2b,
                               const void* wq2, const void* wo2,
                               const void* bo2, void* x1, void* o, void* out,
-                              int R, int S, int C, int T, float scale,
+                              int R, int S, int C, int T, int head_dim,
+                              float scale,
                               int bm_r, int bn_r, int pp_r, int tpc_r,
                               int st_r, int bm_c, int bn_c, int pp_c,
                               int tpc_c, int st_c, void* stream) {
   using namespace rdmk::gemm;
-  if (T < 1 || T > kMaxCtx || S < 1 || C % kPW)
+  if (T < 1 || S < 1 || C % kPW || (head_dim != 32 && head_dim != 64) ||
+      C % head_dim)
     return (int)cudaErrorInvalidValue;
   const Plan res{bm_r, bn_r, pp_r, tpc_r, st_r},
       cross{bm_c, bn_c, pp_c, tpc_c, st_c};
@@ -53,7 +56,9 @@ extern "C" int rdm_post_cross(const void* x, const void* attn, const void* ck,
   a.ck = (const bf16*)ck;
   a.cv = (const bf16*)cv;
   a.out = (bf16*)o;
-  e = launch<kCross>(cross, x1, wq2, nullptr, a, st);
+  e = head_dim == 64 ? launch<kCross64>(cross, x1, wq2, nullptr, a, st)
+      : T > kCtx       ? launch<kCrossLong>(cross, x1, wq2, nullptr, a, st)
+                       : launch<kCross>(cross, x1, wq2, nullptr, a, st);
   if (e) return e;
   // 3. xmid = x1 + bf16(o @ wo2 + bo2)
   a.res = (const bf16*)x1;

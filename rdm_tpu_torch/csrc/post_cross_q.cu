@@ -24,12 +24,11 @@
 // panel beside the two bf16 panels; the LN2 panel, once quantized, holds
 // the int8 cross-attention output.
 #include "int8_common.cuh"
+#include "post_cross_common.cuh"
 
 namespace rdmk {
 
-constexpr int kHeadDimQ = 32;
-constexpr int kMaxCtxQ = 16;
-
+template <int kHeadDimQ, bool LONG>
 __global__ void __launch_bounds__(kThreads)
     post_cross_q_kernel(const bf16* __restrict__ x,
                         const bf16* __restrict__ attn,
@@ -102,8 +101,9 @@ __global__ void __launch_bounds__(kThreads)
   quantize_panel(p8, pa, C, __fdiv_rn(1.0f, a2));
   __syncthreads();
 
-  // 3. q2 tile by tile; each 64-column tile holds two whole heads, whose
-  //    cross-attention runs in the epilogue (one thread per (row, head))
+  // 3. q2 tile by tile; each 64-column tile holds two whole heads of 32
+  //    (one of 64), whose cross-attention runs in the epilogue (one thread
+  //    per (row, head), post_cross_common.cuh `cross_head`)
   //    and writes its f32 output quantized with a3 into po8 (over pa, free
   //    once h2 is quantized).
   const float inv3 = __fdiv_rn(1.0f, a3);
@@ -121,54 +121,22 @@ __global__ void __launch_bounds__(kThreads)
       if (col >= C) continue;
       const int gr = r0 + r;
       float o[kHeadDimQ];
-#pragma unroll
-      for (int d = 0; d < kHeadDimQ; ++d) o[d] = 0.f;
       if (gr < R) {
         const int img = gr / S;
-        const bf16* kb = ck + (size_t)img * T * C + col;
-        const bf16* vb = cv + (size_t)img * T * C + col;
-        const float* qrow = cs + r * kLdC + hh * kHeadDimQ;
-        float qv[kHeadDimQ];
+        cross_head<kHeadDimQ, LONG>(
+            cs + r * kLdC + hh * kHeadDimQ, ck + (size_t)img * T * C + col,
+            cv + (size_t)img * T * C + col, C, T, scale, o);
+      } else {
 #pragma unroll
-        for (int d = 0; d < kHeadDimQ; ++d) qv[d] = round_bf16(qrow[d]);
-        float sc[kMaxCtxQ];
-        float mx = -INFINITY;
-        for (int tc = 0; tc < T; ++tc) {
-          float s = 0.f;
-#pragma unroll
-          for (int d8 = 0; d8 < kHeadDimQ; d8 += 8) {
-            float kv[8];
-            load8(kv, kb + (size_t)tc * C + d8);
-#pragma unroll
-            for (int j = 0; j < 8; ++j) s += qv[d8 + j] * kv[j];
-          }
-          s *= scale;
-          sc[tc] = s;
-          mx = fmaxf(mx, s);
-        }
-        float den = 0.f;
-        for (int tc = 0; tc < T; ++tc) {
-          sc[tc] = __expf(sc[tc] - mx);
-          den += sc[tc];
-        }
-        const float inv = 1.0f / den;
-        for (int tc = 0; tc < T; ++tc) {
-          const float pt = round_bf16(sc[tc] * inv);
-#pragma unroll
-          for (int d8 = 0; d8 < kHeadDimQ; d8 += 8) {
-            float vv[8];
-            load8(vv, vb + (size_t)tc * C + d8);
-#pragma unroll
-            for (int j = 0; j < 8; ++j) o[d8 + j] += pt * vv[j];
-          }
-        }
+        for (int d = 0; d < kHeadDimQ; ++d) o[d] = 0.f;
       }
       __align__(16) char q[kHeadDimQ];
 #pragma unroll
       for (int d = 0; d < kHeadDimQ; ++d) q[d] = quantize8(o[d], inv3);
       uint4* dst = reinterpret_cast<uint4*>(po8 + r * ld8 + col);
-      dst[0] = reinterpret_cast<const uint4*>(q)[0];
-      dst[1] = reinterpret_cast<const uint4*>(q)[1];
+#pragma unroll
+      for (int i = 0; i < kHeadDimQ / 16; ++i)
+        dst[i] = reinterpret_cast<const uint4*>(q)[i];
     }
     __syncthreads();
   }
@@ -206,17 +174,23 @@ extern "C" int rdm_post_cross_q(const void* x, const void* attn,
                                 const void* n2b, const void* wq2,
                                 const void* wsq2, const void* wo2,
                                 const void* wso2, const void* bo2, void* out,
-                                int R, int S, int C, int T, float a1,
-                                float a2, float a3, float scale,
+                                int R, int S, int C, int T, int head_dim,
+                                float a1, float a2, float a3, float scale,
                                 void* stream) {
   using namespace rdmk;
-  if (T < 1 || T > kMaxCtxQ || C % BK8) return (int)cudaErrorInvalidValue;
+  if (T < 1 || C % 32 || (head_dim != 32 && head_dim != 64) || C % head_dim)
+    return (int)cudaErrorInvalidValue;
   const size_t smem = 2 * panel_bytes(C) + panel8_bytes(C) +
                       bchunk8_bytes(1) + staging_bytes(1);
-  cudaError_t e = allow_smem(post_cross_q_kernel, smem);
+  const bool long_ctx = T > kMaxCtx;  // cross_head
+  auto kernel = head_dim == 32 ? (long_ctx ? post_cross_q_kernel<32, true>
+                                           : post_cross_q_kernel<32, false>)
+                               : (long_ctx ? post_cross_q_kernel<64, true>
+                                           : post_cross_q_kernel<64, false>);
+  cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((R + BM - 1) / BM);
-  post_cross_q_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const bf16*)x, (const bf16*)attn, (const bf16*)ck, (const bf16*)cv,
       (const int8_t*)wo, (const float*)wso, (const float*)bo,
       (const float*)n2s, (const float*)n2b, (const int8_t*)wq2,

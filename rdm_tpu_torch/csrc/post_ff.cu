@@ -33,8 +33,10 @@
 // `out` (this block's own rows, read back by the final epilogue) and to the
 // first panel, where LN3 normalises it in place; the accumulator then takes
 // the bytes of the other two panels. Rows stay at 32 (the wmma tiling of
-// block_common.cuh); C must be a multiple of 64. The SEG/SEG^T matmuls of
-// the TPU kernel are not carried over (a per-head dot is plain here).
+// block_common.cuh); C is a multiple of 32 and F of 64, heads 32 or 64
+// wide, any T (post_ff_kernel<HD, LONG>: LONG past 16 tokens). The
+// SEG/SEG^T matmuls of the TPU kernel are not carried over (a per-head dot
+// is plain here).
 //
 // What bounds it on the H100: 2*R*C*(3C + 3F) FLOP (36/20/14 GFLOP at
 // C = 384/576/960, R = 8192/2048/512, 2B = 8 images) on the tensor cores:
@@ -47,7 +49,10 @@
 
 namespace rdmk {
 
-__host__ __device__ constexpr int acc_ld(int C) { return C + 4; }
+// the accumulator's row: C rounded up to whole 64-column tiles, + 4
+__host__ __device__ constexpr int acc_ld(int C) {
+  return (C + BN - 1) / BN * BN + 4;
+}
 
 __host__ __device__ constexpr size_t acc_bytes(int C) {
   return align128((size_t)BM * acc_ld(C) * sizeof(float));
@@ -66,13 +71,14 @@ __host__ __device__ constexpr size_t post_ff_smem(int C) {
 // accs[BM, N] (f32, row stride ldacc) += a[BM, BN] (bf16, row stride kLdB)
 // @ W[k0:k0+BN, 0:N] (bf16 [K, N] row-major), one 64-column tile of the
 // accumulator at a time; W streamed in [BK, BN] chunks through bs
-// (bchunk_bytes(1)) by double-buffered cp.async. N a multiple of BN.
+// (bchunk_bytes(1)) by double-buffered cp.async. N a multiple of 32: the
+// last tile's columns past N add zeros into the accumulator's padding.
 __device__ __forceinline__ void acc_gemm(float* accs, int ldacc,
                                          const bf16* a, const bf16* W, int N,
                                          int k0, bf16* bs) {
   constexpr int nk = BN / BK;
   const int wm = warp_row(), wn = warp_col();
-  const int total = (N / BN) * nk;
+  const int total = (N + BN - 1) / BN * nk;
   FragC acc[2];
   load_bchunk_async(bs, W, N, k0, 0);
   cp_async_commit();
@@ -115,6 +121,7 @@ __device__ __forceinline__ void acc_gemm(float* accs, int ldacc,
   cp_async_wait<0>();
 }
 
+template <int HD, bool LONG>
 __global__ void __launch_bounds__(kThreads)
     post_ff_kernel(const bf16* __restrict__ x, const bf16* __restrict__ attn,
                    const bf16* __restrict__ ck, const bf16* __restrict__ cv,
@@ -142,12 +149,12 @@ __global__ void __launch_bounds__(kThreads)
     bf16* po = reinterpret_cast<bf16*>(smem + 2 * pb);
     bf16* bs = reinterpret_cast<bf16*>(smem + 3 * pb);
     float* cs = reinterpret_cast<float*>(smem + 3 * pb + bchunk_bytes(1));
-    post_cross_rows(x, attn, ck, cv, wo, bo, n2s, n2b, wq2, wo2, bo2, R, S,
-                    C, T, scale, r0, pa, px1, po, bs, cs,
-                    [&](int r, int gr, int gc, const float* res) {
-                      store8(out + (size_t)gr * C + gc, res);
-                      store8(pa + r * ldp + gc, res);
-                    });
+    post_cross_rows<HD, LONG>(
+        x, attn, ck, cv, wo, bo, n2s, n2b, wq2, wo2, bo2, R, S, C, T, scale,
+        r0, pa, px1, po, bs, cs, [&](int r, int gr, int gc, const float* res) {
+          store8(out + (size_t)gr * C + gc, res);
+          store8(pa + r * ldp + gc, res);
+        });
   }
 
   // 2. LN3 in place; the accumulator over the dead x1 / o panels
@@ -210,15 +217,22 @@ extern "C" int rdm_post_ff(const void* x, const void* attn, const void* ck,
                            const void* n3b, const void* wa, const void* wg,
                            const void* ba, const void* bg, const void* w2,
                            const void* b2, void* out, int R, int S, int C,
-                           int T, int F, float scale, void* stream) {
+                           int T, int F, int head_dim, float scale,
+                           void* stream) {
   using namespace rdmk;
-  if (T < 1 || T > kMaxCtx || C % BN || F % BN || R < 1)
+  if (T < 1 || C % 32 || F % BN || R < 1 ||
+      (head_dim != 32 && head_dim != 64) || C % head_dim)
     return (int)cudaErrorInvalidValue;
   const size_t smem = post_ff_smem(C);
-  cudaError_t e = allow_smem(post_ff_kernel, smem);
+  const bool long_ctx = T > kMaxCtx;  // cross_head
+  auto kernel = head_dim == 32 ? (long_ctx ? post_ff_kernel<32, true>
+                                           : post_ff_kernel<32, false>)
+                               : (long_ctx ? post_ff_kernel<64, true>
+                                           : post_ff_kernel<64, false>);
+  cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((R + BM - 1) / BM);
-  post_ff_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const bf16*)x, (const bf16*)attn, (const bf16*)ck, (const bf16*)cv,
       (const bf16*)wo, (const float*)bo, (const float*)n2s,
       (const float*)n2b, (const bf16*)wq2, (const bf16*)wo2,

@@ -11,10 +11,14 @@ statistics with dtype-native arithmetic, as the JAX modules do.
 
 SpatialTransformer routes its blocks through the fused block kernels
 (`ops/block_kernel.fused_transformer_block`) in eval mode whenever a
-context is given, except while calibrating for int8 (`ops/quant.py`); in
-train mode it runs `TransformerBlock.forward`, the unfused differentiable
-math the kernels are held against, whose self-attention takes the flash
-kernels (`ops/attention.py`) where their gate admits it.
+context is given, as the JAX package routes them: except while calibrating
+for int8 (`ops/quant.py`), under RDM_TPU_FUSED_BLOCK=0 and for heads whose
+width does not divide 128. A fused block whose shapes the kernels do not
+take raises on the card before its first launch (`block_refusal`). Every
+other block, and every block in train mode, runs
+`TransformerBlock.forward`, the unfused differentiable math the kernels
+are held against, whose self-attention takes the flash kernels
+(`ops/attention.py`) where their gate admits it.
 `Conv2d`, `CrossAttention` and `GEGLUFeedForward` record activation
 absmax for that calibration, and `Conv2d` and `TransformerBlock` carry the
 int8 serving state (`layers.QuantizableConv` and the "quant" collection of
@@ -392,6 +396,13 @@ class TransformerBlock(nn.Module):
             qscales=self.qscales())
 
 
+def use_fused_block() -> bool:
+    """RDM_TPU_FUSED_BLOCK=0 turns the fused blocks off: the JAX
+    package's documented switch (`use_fused_spatial_block`), kept so that
+    a deployment's setting means the same in both; default on."""
+    return os.environ.get("RDM_TPU_FUSED_BLOCK", "1") != "0"
+
+
 def fused_block_train() -> bool:
     """RDM_TPU_FUSED_BLOCK_TRAIN=1 asks for the fused blocks in training,
     as in the JAX package; the port refuses it until their backward is
@@ -408,6 +419,7 @@ class SpatialTransformer(nn.Module):
                  dropout: float = 0.0):
         super().__init__()
         inner = heads * head_dim
+        self.head_dim = head_dim
         self.norm = GroupNorm32(channels, eps=1e-6)
         self.proj_in = Conv2d(channels, inner, 1)
         self.transformer_blocks = nn.ModuleList([
@@ -428,8 +440,11 @@ class SpatialTransformer(nn.Module):
             raise NotImplementedError(
                 "RDM_TPU_FUSED_BLOCK_TRAIN=1: the fused block's backward "
                 "(fused_transformer_block_ad) is not ported")
+        # The JAX package's gate (rdm_tpu/models/layers.py
+        # SpatialTransformer): heads whose width divides 128.
         fused = (context is not None and not self.training
-                 and not quant.CALIBRATE)
+                 and not quant.CALIBRATE and use_fused_block()
+                 and 128 % self.head_dim == 0)
         for blk in self.transformer_blocks:
             x = blk.forward_fused(x, context) if fused else blk(x, context)
         x = x.reshape(b, h, w, inner).permute(0, 3, 1, 2)

@@ -5,10 +5,11 @@ pre-LN transformer block (self-attention -> cross-attention -> GEGLU FF,
 each residual; reference attention.py:77-96) runs as four kernels:
 
   1. `ln_qkv`      - LN1 + the [C, 3C] q/k/v projection
-                     (csrc/ln_qkv.cu; replaces `_ln_qkv_kernel`)
+                     (csrc/ln_qkv.cu; replaces `_ln_qkv_kernel`): one
+                     launch of the block-GEMM core (kernel 3's)
   2. `packed_attn` - softmax(q k^T d^-1/2) v per head
                      (csrc/packed_attn.cu; replaces `_packed_attn_kernel`):
-                     [B, S, C] read as BSHD [B, S, heads, 32] by the
+                     [B, S, C] read as BSHD [B, S, heads, head_dim] by the
                      attention core that `flash_fwd` also launches
                      (csrc/attn_fwd_sm90.cuh), so the two are bit-equal
   3. `post_cross`  - out-proj + residual + LN2 + cross-attention over the
@@ -42,15 +43,21 @@ scales (`quantize_cols`):
 
 Each wrapper has its plain PyTorch version beside it, `<name>_reference`.
 A wrapper runs the plain version only for tensors on the CPU; for a CUDA
-tensor it launches its kernel or raises (bf16 activations, head_dim 32,
-contiguous tensors). Each wrapper counts its launches in `<name>.launches`.
+tensor it launches its kernel or raises: `_check` refuses other dtypes,
+devices and layouts, `kernel_refusal` the shapes the kernel does not take
+(heads other than 32 or 64 wide, 32 only for `packed_attn_q8`; C off a
+multiple of 32, F off 32 or post_ff's 64; a block-GEMM launch that
+`gemm_plan` cannot fit). Any number of context tokens is taken.
+`fused_transformer_block` asks the same of every kernel the block will
+launch (`block_refusal`) and raises before the first launch. Each wrapper
+counts its launches in `<name>.launches`.
 
 Layouts: activations [rows, C] or [B, S, C] with head h at channels
-[32h, 32h + 32); weights [in, out] (x @ W) in the activation dtype; norm
-scales and biases f32 [C] or [F]. `pack_block_weights` builds that dict
-once from a reference-layout TransformerBlock; `quantize_block_weights`
-adds the int8 weights once, [out, in] with f32 per-output scales. The
-int8 CUDA kernels take C (and F) as multiples of 64.
+[dh, dh + d), d = head_dim; weights [in, out] (x @ W) in the activation
+dtype; norm scales and biases f32 [C] or [F]. `pack_block_weights` builds
+that dict once from a reference-layout TransformerBlock;
+`quantize_block_weights` adds the int8 weights once, [out, in] with f32
+per-output scales.
 """
 
 from __future__ import annotations
@@ -66,9 +73,8 @@ import torch.nn.functional as F
 from rdm_tpu_torch.ops import _build
 from rdm_tpu_torch.ops.attention import dot_product_attention
 
-HEAD_DIM = 32      # the only head width the kernels take
-MAX_CONTEXT = 16   # post_cross keeps the context scores in registers
-_BM, _BN = 32, 64  # output tile of the kernels (csrc/block_common.cuh)
+HEAD_DIMS = (32, 64)  # the head widths the attention kernels take
+_BM, _BN = 32, 64  # output tile of the first versions (csrc/block_common.cuh)
 _TARGET_BLOCKS = 528  # ~4 resident thread blocks per SM on 132 SMs
 _LOG2E = 1.4426950408889634
 # The block-GEMM core (csrc/block_gemm_sm90.cuh): per launch kind, the
@@ -77,10 +83,14 @@ _LOG2E = 1.4426950408889634
 # each of its rows / 64 warpgroups 64 rows; a ping-pong tile gives two
 # warpgroups alternate column tiles of all its rows. The cross-attention
 # epilogue is CUDA-core work per column, so that launch takes the narrow
-# tile: two heads a tile and three CTAs an SM.
+# tile: two heads a tile and three CTAs an SM. ln_qkv's tiles were picked
+# by `profile_gemm.py --tiles` at the U-Net's sites at 2, 8 and 32 images
+# from five: the 128-row split tile where its grid fills the card, else
+# the ping-pong one (the 128-row LayerNorm panel does not fit at C = 960).
 GEMM_TILES = {"residual": ((128, 128, 0), (64, 128, 0), (64, 64, 0)),
               "cross": ((64, 64, 0),),
-              "geglu": ((128, 64, 1), (64, 64, 1))}
+              "geglu": ((128, 64, 1), (64, 64, 1)),
+              "qkv": ((128, 128, 0), (64, 128, 1))}
 _GEMM_STAGES = 8  # csrc/block_gemm_sm90.cuh kMaxStages
 _GEMM_BK = 64
 _SMEM_LIMIT = 232448  # a CTA's opt-in maximum
@@ -211,6 +221,30 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _gemm_fits(kind: str, k: int) -> list:
+    """(bm, bn, pp, the ring depths that fit) of each of the kind's tiles
+    with room in shared memory for 3 or more stages (a ping-pong tile's
+    two rings 2 each) at K = k."""
+    if kind not in GEMM_TILES:
+        raise ValueError(f"gemm_plan: kind {kind!r} not in "
+                         f"{tuple(GEMM_TILES)}")
+    fits = []
+    for bm, bn, pp in GEMM_TILES[kind]:
+        depths = [st for st in range(3 + pp, _GEMM_STAGES + 1, 1 + pp)
+                  if gemm_smem(kind, bm, bn, k, st) <= _SMEM_LIMIT]
+        if depths:
+            fits.append((bm, bn, pp, depths))
+    return fits
+
+
+def _gemm_refusal(kind: str, k: int) -> Optional[str]:
+    """gemm_plan's refusal of a launch of `kind` at K = k, or None."""
+    if _gemm_fits(kind, k):
+        return None
+    return (f"gemm_plan: K={k} leaves no room in shared memory for the "
+            f"{kind} launch")
+
+
 @functools.lru_cache(maxsize=None)
 def gemm_plan(kind: str, r: int, n: int, k: int, sms: int) -> GemmPlan:
     """The tile of one launch on a card of `sms` SMs: the first of the
@@ -225,18 +259,9 @@ def gemm_plan(kind: str, r: int, n: int, k: int, sms: int) -> GemmPlan:
     of its row block, normalising its rows once: the fewest tiles a CTA
     that still fit the grid in one wave (W's traffic is the same for any
     split)."""
-    if kind not in GEMM_TILES:
-        raise ValueError(f"gemm_plan: kind {kind!r} not in "
-                         f"{tuple(GEMM_TILES)}")
-    fits = []
-    for bm, bn, pp in GEMM_TILES[kind]:
-        depths = [st for st in range(3 + pp, _GEMM_STAGES + 1, 1 + pp)
-                  if gemm_smem(kind, bm, bn, k, st) <= _SMEM_LIMIT]
-        if depths:
-            fits.append((bm, bn, pp, depths))
+    fits = _gemm_fits(kind, k)
     if not fits:
-        raise ValueError(f"gemm_plan: K={k} leaves no room in shared memory "
-                         f"for the {kind} launch")
+        raise ValueError(_gemm_refusal(kind, k))
     for bm, bn, pp, depths in fits:
         row_blocks, ntiles = -(-r // bm), -(-n // bn)
         if row_blocks * ntiles >= sms or (bm, bn, pp) == fits[-1][:3]:
@@ -275,8 +300,7 @@ _KINDS = {torch.bfloat16: "bf16 activations and weights",
           torch.int8: "int8 weights"}
 
 
-def _check(name: str, bf16, f32=(), *, i8=(),
-           head_dim: int = HEAD_DIM) -> None:
+def _check(name: str, bf16, f32=(), *, i8=()) -> None:
     """Raise unless the CUDA kernel takes these (tensor, shape) pairs: bf16
     activations and weights, f32 norms, biases and scales, int8 weights,
     each of its shape, on one device, contiguous and 16-byte aligned (the
@@ -284,9 +308,6 @@ def _check(name: str, bf16, f32=(), *, i8=(),
     (`_build.refuse_grad`)."""
     _build.refuse_grad(name, *(t for group in (bf16, f32, i8)
                                for t, _ in group))
-    if head_dim != HEAD_DIM:
-        raise ValueError(f"{name}: the CUDA kernel takes head_dim "
-                         f"{HEAD_DIM}, got {head_dim}")
     dev = bf16[0][0].device
     for dtype, group in ((torch.bfloat16, bf16), (torch.float32, f32),
                          (torch.int8, i8)):
@@ -304,6 +325,75 @@ def _check(name: str, bf16, f32=(), *, i8=(),
                                  "16-byte aligned")
 
 
+# ------------------------------------------------------- the shape gate
+
+_ATTENTION = ("packed_attn", "post_cross", "post_ff", "packed_attn_q8",
+              "post_cross_q")  # the kernels that split C into heads
+_CONTEXT = ("post_cross", "post_ff", "post_cross_q")
+_FF = ("geglu_ff", "post_ff", "geglu_ff_q")  # the kernels that take F
+# the block-GEMM core's launches of a wrapper: (kind, K is C or F)
+_GEMM_KINDS = {"ln_qkv": (("qkv", "C"),),
+               "post_cross": (("residual", "C"), ("cross", "C")),
+               "geglu_ff": (("geglu", "C"), ("residual", "F"))}
+
+
+def _refuse(why: Optional[str]) -> None:
+    if why is not None:
+        raise ValueError(why)
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_refusal(name: str, c: int, *, t: int = 1, head_dim: int = 32,
+                   f: int = 0) -> Optional[str]:
+    """Why the CUDA kernel `name` does not take a block of width `c`, `t`
+    context tokens, heads of `head_dim` and FF width `f` (each where the
+    kernel reads it), or None. The wrappers raise ValueError with it, and
+    `block_refusal` asks it of every kernel a block would launch."""
+    if name in _ATTENTION:
+        dims = (32,) if name == "packed_attn_q8" else HEAD_DIMS
+        if head_dim not in dims:
+            return (f"{name}: the CUDA kernel takes head_dim in {dims}, got "
+                    f"{head_dim}")
+    if name in _CONTEXT and t < 1:
+        return f"{name}: context length {t} < 1"
+    if name in ("packed_attn", "packed_attn_q8"):
+        return None  # any S
+    fm = _BN if name == "post_ff" else 32
+    for dim, v, m in (("C", c, 32), ("F", f, fm))[:2 if name in _FF else 1]:
+        if v % m:
+            return (f"{name}: the CUDA kernel takes {dim} as a multiple of "
+                    f"{m}, got {v}")
+    for kind, dim in _GEMM_KINDS.get(name, ()):
+        why = _gemm_refusal(kind, c if dim == "C" else f)
+        if why is not None:
+            return f"{name}: {why}"
+    return None
+
+
+def block_refusal(c: int, t: int, heads: int, head_dim: int, f: int, *,
+                  int8: bool, split_k3: bool) -> Optional[str]:
+    """Why `fused_transformer_block` cannot run a block of width c = heads
+    x head_dim, t context tokens and FF width f on the card (int8: the
+    serving mode's kernels, which always split kernels 3 and 4, with
+    `packed_attn_q8` under RDM_TPU_INT8_ATTN=1; else split_k3 picks the
+    pair or `post_ff`): the first `kernel_refusal` of a kernel it would
+    launch, or None when every one takes the shapes. The block raises
+    with it on the card before its first launch."""
+    if heads * head_dim != c:
+        return f"block: {heads} heads of {head_dim} for C={c}"
+    if int8:
+        names = ("ln_qkv_q", "packed_attn_q8" if use_int8_attn_core()
+                 else "packed_attn", "post_cross_q", "geglu_ff_q")
+    else:
+        names = ("ln_qkv", "packed_attn") + (
+            ("post_cross", "geglu_ff") if split_k3 else ("post_ff",))
+    for name in names:
+        why = kernel_refusal(name, c, t=t, head_dim=head_dim, f=f)
+        if why is not None:
+            return why
+    return None
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -313,7 +403,8 @@ def _p(t: torch.Tensor) -> int:
 
 
 def ln_qkv(x2, n1s, n1b, wqkv):
-    """LN1 + q/k/v projection: x2 [R, C] -> (q, k, v) each [R, C]."""
+    """LN1 + q/k/v projection: x2 [R, C] -> (q, k, v) each [R, C]. On CUDA
+    one launch of the block-GEMM core."""
     r, c = x2.shape
     if wqkv.shape != (c, 3 * c):
         raise ValueError(f"wqkv {tuple(wqkv.shape)} for C={c}")
@@ -321,14 +412,13 @@ def ln_qkv(x2, n1s, n1b, wqkv):
         return ln_qkv_reference(x2, n1s, n1b, wqkv)
     _check("ln_qkv", [(x2, (r, c)), (wqkv, (c, 3 * c))],
            [(n1s, (c,)), (n1b, (c,))])
-    if c % HEAD_DIM:
-        raise ValueError(f"ln_qkv: C={c} is not a multiple of {HEAD_DIM}")
+    _refuse(kernel_refusal("ln_qkv", c))
     q, k, v = (torch.empty_like(x2) for _ in range(3))
+    plan = gemm_plan("qkv", r, 3 * c, c, sm_count(x2.device.index))
     lib = _build.load()
     with torch.cuda.device(x2.device):
         rc = lib.rdm_ln_qkv(_p(x2), _p(n1s), _p(n1b), _p(wqkv), _p(q),
-                            _p(k), _p(v), r, c,
-                            _tiles_per_block(3 * c, r), _stream(x2))
+                            _p(k), _p(v), r, c, *plan.args, _stream(x2))
     _build.check(rc, "ln_qkv")
     ln_qkv.launches += 1
     return q, k, v
@@ -347,14 +437,14 @@ def packed_attn(q, k, v, *, heads: int, head_dim: int):
     if _on_cpu(q, k, v):
         return packed_attn_reference(q, k, v, heads=heads,
                                      head_dim=head_dim)
-    _check("packed_attn", [(a, (b, s, c)) for a in (q, k, v)],
-           head_dim=head_dim)
+    _check("packed_attn", [(a, (b, s, c)) for a in (q, k, v)])
+    _refuse(kernel_refusal("packed_attn", c, head_dim=head_dim))
     o = torch.empty_like(q)
     scale_log2 = head_dim ** -0.5 * _LOG2E
     lib = _build.load()
     with torch.cuda.device(q.device):
         rc = lib.rdm_packed_attn(_p(q), _p(k), _p(v), _p(o), b, s, heads,
-                                 scale_log2, _stream(q))
+                                 head_dim, scale_log2, _stream(q))
     _build.check(rc, "packed_attn")
     packed_attn.launches += 1
     return o
@@ -381,10 +471,8 @@ def post_cross(x, attn, ck, cv, wo, bo, n2s, n2b, wq2, wo2, bo2, *,
     _check("post_cross",
            [(x, (b, s, c)), (attn, (b, s, c)), (ck, (b, t, c)),
             (cv, (b, t, c)), (wo, (c, c)), (wq2, (c, c)), (wo2, (c, c))],
-           [(v, (c,)) for v in (bo, n2s, n2b, bo2)], head_dim=head_dim)
-    if not 1 <= t <= MAX_CONTEXT:
-        raise ValueError(f"post_cross: context length {t} not in "
-                         f"[1, {MAX_CONTEXT}]")
+           [(v, (c,)) for v in (bo, n2s, n2b, bo2)])
+    _refuse(kernel_refusal("post_cross", c, t=t, head_dim=head_dim))
     r, sms = b * s, sm_count(x.device.index)
     x1, o, out = (torch.empty_like(x) for _ in range(3))
     lib = _build.load()
@@ -392,7 +480,7 @@ def post_cross(x, attn, ck, cv, wo, bo, n2s, n2b, wq2, wo2, bo2, *,
         rc = lib.rdm_post_cross(
             _p(x), _p(attn), _p(ck), _p(cv), _p(wo), _p(bo), _p(n2s),
             _p(n2b), _p(wq2), _p(wo2), _p(bo2), _p(x1), _p(o), _p(out), r,
-            s, c, t, head_dim ** -0.5,
+            s, c, t, head_dim, head_dim ** -0.5,
             *gemm_plan("residual", r, c, c, sms).args,
             *gemm_plan("cross", r, c, c, sms).args, _stream(x))
     _build.check(rc, "post_cross")
@@ -418,9 +506,7 @@ def geglu_ff(xm2, n3s, n3b, wa, wg, ba, bg, w2, b2):
     _check("geglu_ff",
            [(xm2, (r, c)), (wa, (c, f)), (wg, (c, f)), (w2, (f, c))],
            [(n3s, (c,)), (n3b, (c,)), (ba, (f,)), (bg, (f,)), (b2, (c,))])
-    if c % HEAD_DIM or f % HEAD_DIM:
-        raise ValueError(f"geglu_ff: C={c}, F={f} must be multiples of "
-                         f"{HEAD_DIM}")
+    _refuse(kernel_refusal("geglu_ff", c, f=f))
     hidden = torch.empty((r, f), dtype=xm2.dtype, device=xm2.device)
     y = torch.empty_like(xm2)
     sms = sm_count(xm2.device.index)
@@ -463,17 +549,13 @@ def post_ff(x, attn, ck, cv, wo, bo, n2s, n2b, wq2, wo2, bo2, n3s, n3b, wa,
             (cv, (b, t, c)), (wo, (c, c)), (wq2, (c, c)), (wo2, (c, c)),
             (wa, (c, f)), (wg, (c, f)), (w2, (f, c))],
            [(v, (c,)) for v in (bo, n2s, n2b, bo2, n3s, n3b, b2)]
-           + [(ba, (f,)), (bg, (f,))], head_dim=head_dim)
-    if not 1 <= t <= MAX_CONTEXT:
-        raise ValueError(f"post_ff: context length {t} not in "
-                         f"[1, {MAX_CONTEXT}]")
-    if c % _BN or f % _BN:
-        raise ValueError(f"post_ff: C={c}, F={f} must be multiples of {_BN}")
+           + [(ba, (f,)), (bg, (f,))])
+    _refuse(kernel_refusal("post_ff", c, t=t, head_dim=head_dim, f=f))
     out = torch.empty_like(x)
     lib = _build.load()
     with torch.cuda.device(x.device):
         rc = lib.rdm_post_ff(*(_p(a) for a in args), _p(out), b * s, s, c, t,
-                             f, head_dim ** -0.5, _stream(x))
+                             f, head_dim, head_dim ** -0.5, _stream(x))
     _build.check(rc, "post_ff")
     post_ff.launches += 1
     return out
@@ -640,13 +722,6 @@ def geglu_ff_q_reference(xm2, n3s, n3b, wa, wsa, wg, wsg, ba, bg, w2, ws2,
 
 # --------------------------------------------------------- int8 wrappers
 
-def _check_k64(name: str, **dims: int) -> None:
-    for k, v in dims.items():
-        if v % 64:
-            raise ValueError(f"{name}: the int8 kernel takes {k} as a "
-                             f"multiple of 64, got {v}")
-
-
 def ln_qkv_q(x2, n1s, n1b, wqkv, ws, a: float):
     """int8 LN1 + q/k/v projection: x2 [R, C] -> (q, k, v) each [R, C]."""
     r, c = x2.shape
@@ -658,7 +733,7 @@ def ln_qkv_q(x2, n1s, n1b, wqkv, ws, a: float):
     _check("ln_qkv_q", [(x2, (r, c))], [(n1s, (c,)), (n1b, (c,)),
                                         (ws, (3 * c,))],
            i8=[(wqkv, (3 * c, c))])
-    _check_k64("ln_qkv_q", C=c)
+    _refuse(kernel_refusal("ln_qkv_q", c))
     q, k, v = (torch.empty_like(x2) for _ in range(3))
     lib = _build.load()
     with torch.cuda.device(x2.device):
@@ -685,8 +760,8 @@ def packed_attn_q8(q, k, v, *, heads: int, head_dim: int):
     if _on_cpu(q, k, v):
         return packed_attn_q8_reference(q, k, v, heads=heads,
                                         head_dim=head_dim)
-    _check("packed_attn_q8", [(a, (b, s, c)) for a in (q, k, v)],
-           head_dim=head_dim)
+    _check("packed_attn_q8", [(a, (b, s, c)) for a in (q, k, v)])
+    _refuse(kernel_refusal("packed_attn_q8", c, head_dim=head_dim))
     bq = _q8_block_rows(s)
     groups = -(-c // 128)
     # absmax per (image, group): q per q-block, then k, then v
@@ -726,20 +801,16 @@ def post_cross_q(x, attn, ck, cv, wo, wso, bo, n2s, n2b, wq2, wsq2, wo2,
            [(x, (b, s, c)), (attn, (b, s, c)), (ck, (b, t, c)),
             (cv, (b, t, c))],
            [(p, (c,)) for p in (wso, bo, n2s, n2b, wsq2, wso2, bo2)],
-           i8=[(wo, (c, c)), (wq2, (c, c)), (wo2, (c, c))],
-           head_dim=head_dim)
-    _check_k64("post_cross_q", C=c)
-    if not 1 <= t <= MAX_CONTEXT:
-        raise ValueError(f"post_cross_q: context length {t} not in "
-                         f"[1, {MAX_CONTEXT}]")
+           i8=[(wo, (c, c)), (wq2, (c, c)), (wo2, (c, c))])
+    _refuse(kernel_refusal("post_cross_q", c, t=t, head_dim=head_dim))
     out = torch.empty_like(x)
     lib = _build.load()
     with torch.cuda.device(x.device):
         rc = lib.rdm_post_cross_q(
             _p(x), _p(attn), _p(ck), _p(cv), _p(wo), _p(wso), _p(bo),
             _p(n2s), _p(n2b), _p(wq2), _p(wsq2), _p(wo2), _p(wso2), _p(bo2),
-            _p(out), b * s, s, c, t, a_o1, a_a2, a_o2, head_dim ** -0.5,
-            _stream(x))
+            _p(out), b * s, s, c, t, head_dim, a_o1, a_a2, a_o2,
+            head_dim ** -0.5, _stream(x))
     _build.check(rc, "post_cross_q")
     post_cross_q.launches += 1
     return out
@@ -767,7 +838,7 @@ def geglu_ff_q(xm2, n3s, n3b, wa, wsa, wg, wsg, ba, bg, w2, ws2, b2,
            [(n3s, (c,)), (n3b, (c,)), (wsa, (f,)), (wsg, (f,)), (ba, (f,)),
             (bg, (f,)), (ws2, (c,)), (b2, (c,))],
            i8=[(wa, (f, c)), (wg, (f, c)), (w2, (c, f))])
-    _check_k64("geglu_ff_q", C=c, F=f)
+    _refuse(kernel_refusal("geglu_ff_q", c, f=f))
     if hidden is None:
         hidden = torch.empty((r, f), dtype=torch.int8, device=xm2.device)
     _check("geglu_ff_q", [(xm2, (r, c))], i8=[(hidden, (r, f))])
@@ -874,8 +945,17 @@ def fused_transformer_block(x: torch.Tensor, context: torch.Tensor,
     `QSCALE_NAMES`; the block then runs the four int8 kernels on the
     weights of `quantize_block_weights(w)` (the attention core stays the
     bf16 one unless `use_int8_attn_core()`; the split pair always runs, as
-    in JAX)."""
+    in JAX).
+
+    On the card the block first asks `block_refusal` and raises with its
+    answer, before any kernel is launched."""
     b, s, c = x.shape
+    if split_k3 is None:
+        split_k3 = use_split_k3()
+    if x.is_cuda:
+        _refuse(block_refusal(c, context.shape[1], heads, head_dim,
+                              w["w2"].shape[0], int8=qscales is not None,
+                              split_k3=split_k3))
     ck = _linear(context.reshape(-1, context.shape[-1]), w["wk2"])
     cv = _linear(context.reshape(-1, context.shape[-1]), w["wv2"])
     ck = ck.reshape(b, -1, c)
@@ -887,8 +967,6 @@ def fused_transformer_block(x: torch.Tensor, context: torch.Tensor,
         attn = packed_attn(q.reshape(b, s, c), k.reshape(b, s, c),
                            v.reshape(b, s, c), heads=heads,
                            head_dim=head_dim)
-        if split_k3 is None:
-            split_k3 = use_split_k3()
         if not split_k3:
             return post_ff(x, attn, ck, cv, w["wo"], w["bo"], w["n2s"],
                            w["n2b"], w["wq2"], w["wo2"], w["bo2"], w["n3s"],

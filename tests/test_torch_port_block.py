@@ -208,7 +208,10 @@ def test_source_digest_tracks_flags(monkeypatch):
     ("head_dim 64", ValueError, "head_dim"),
 ])
 def test_kernel_input_checks(case, error, match):
-    """The checks a wrapper makes before handing pointers to a kernel."""
+    """The checks a wrapper makes before handing pointers to a kernel:
+    `_check`'s dtypes, shapes and layouts, then `kernel_refusal`'s shapes
+    (here those of the int8 attention core, which takes 32-wide heads
+    only)."""
     bf = torch.bfloat16
     x = torch.zeros((32, 64), dtype=bf)
     bias = torch.zeros(64)
@@ -226,6 +229,8 @@ def test_kernel_input_checks(case, error, match):
     else:
         head_dim = 64
     with pytest.raises(error, match=match):
-        bk._check("k", [(x, (32, 64))], [(bias, (64,))], head_dim=head_dim)
+        bk._check("k", [(x, (32, 64))], [(bias, (64,))])
+        bk._refuse(bk.kernel_refusal("packed_attn_q8", 64, head_dim=head_dim))
     bk._check("k", [(torch.zeros((32, 64), dtype=bf), (32, 64))],
               [(torch.zeros(64), (64,))])
+    assert bk.kernel_refusal("packed_attn_q8", 64, head_dim=HD) is None

@@ -2,22 +2,24 @@
 CPU, against the port's plain versions and the JAX Pallas kernels.
 
 No GPU runs here, so this emulates in plain torch what the CUDA launches
-add to the arithmetic of `post_cross` (three launches) and `geglu_ff`
-(two): the decomposition into launches; each launch's tile schedule from
+add to the arithmetic of `ln_qkv` (one launch), `post_cross` (three) and
+`geglu_ff` (two): the decomposition into launches; each launch's tile schedule from
 `gemm_plan` (row blocks of 64 or 128 rows, 64- or 128-column tiles,
 column tiles walked by a CTA, K in 64-wide steps zero-filled past K,
 ragged row and column edges masked; a ping-pong tile changes only which
 warpgroup runs a column tile, not its arithmetic); the LayerNorm
 prologue; the row -> image map of the cross-attention epilogue inside a
-tile (a 64-row tile spans images at S = 16 and 40); and the bf16 round
-trips of x1, o and f through device memory. The weights stay in
+tile (a 64-row tile spans images at S = 16 and 40); the q | k | v split of
+the qkv epilogue (a 128-column tile straddles two of them); and the bf16
+round trips of x1, o and f through device memory. The weights stay in
 `pack_block_weights`' [in, out] layout (no packed copy). The emulation
 is held against the plain versions
-(`post_cross_reference`, `geglu_ff_reference`) at rtol = atol = 1e-4 in
-f32, as tests/test_torch_port_block.py holds them, and within 2e-2 x
-max|ref| in bf16, the card tolerance of chip_smoke.py; and against JAX's
-`_post_cross_kernel` and `_geglu_ff_kernel` in Pallas interpret mode on
-the inputs a spy on `pl.pallas_call` captured, at 1e-4.
+(`ln_qkv_reference`, `post_cross_reference`, `geglu_ff_reference`) at
+rtol = atol = 1e-4 in f32, as tests/test_torch_port_block.py holds them,
+and within 2e-2 x max|ref| in bf16, the card tolerance of chip_smoke.py;
+and against JAX's `_ln_qkv_kernel`, `_post_cross_kernel` and
+`_geglu_ff_kernel` in Pallas interpret mode on the inputs a spy on
+`pl.pallas_call` captured, at 1e-4.
 
 The kernels themselves are held on the card by chip_smoke.py phase 3 and
 tests/test_torch_port_cuda.py.
@@ -68,6 +70,8 @@ def _epilogue(kind, acc, rows, n0, n, dtype, *, res, bias0, bias1, ck, cv,
     if kind == "residual":
         y = _round(acc[0][:, :width] + bias0[cols].float(), dtype)
         return res[rows, cols].float() + y
+    if kind == "qkv":  # rounded once, as the whole [R, 3C] product
+        return acc[0][:, :width]
     if kind == "geglu":
         a = acc[0][:, :width] + bias0[cols].float()
         g = acc[1][:, :width] + bias1[cols].float()
@@ -142,6 +146,15 @@ def post_cross_walk(x, attn, ck, cv, wo, bo, n2s, n2b, wq2, wo2, bo2, *,
     return xm.reshape(b, s, c), x1, o, (s1, s2, s3)
 
 
+def ln_qkv_walk(x2, n1s, n1b, wqkv, plan=None):
+    """ln_qkv as the CUDA wrapper runs it: one launch over [R, 3C], each
+    column of which lands in q, k or v; returns (q, k, v, tiles)."""
+    r, c = x2.shape
+    plan = plan or bk.gemm_plan("qkv", r, 3 * c, c, SMS)
+    out, seen = _launch("qkv", x2, [wqkv], plan, x2.dtype, ln=(n1s, n1b))
+    return out[:, :c], out[:, c:2 * c], out[:, 2 * c:], seen
+
+
 def geglu_ff_walk(xm2, n3s, n3b, wa, wg, ba, bg, w2, b2, plans=None):
     """geglu_ff as the CUDA wrapper runs it: f = GEGLU(LN3(xm)) in the
     activation dtype, then y = xm + f @ w2 + b2; returns (y, f, tiles)."""
@@ -159,7 +172,8 @@ def geglu_ff_walk(xm2, n3s, n3b, wa, wg, ba, bg, w2, b2, plans=None):
 def _inputs(heads, b, s, t, dtype, seed):
     """Seeded weights in `pack_block_weights`' layout ([in, out] in the
     activation dtype, fan-in scaled; f32 norms near 1 and biases) and the
-    post_cross inputs x, attn, ck, cv."""
+    post_cross inputs x, attn, ck, cv (ln_qkv's weight and norm drawn
+    last)."""
     c = heads * HD
     rng = np.random.default_rng(seed)
 
@@ -176,6 +190,8 @@ def _inputs(heads, b, s, t, dtype, seed):
     w.update(n2s=rn(c, scale=0.1, loc=1.0), n3s=rn(c, scale=0.1, loc=1.0))
     acts = [rn(*shape).to(dtype)
             for shape in ((b, s, c), (b, s, c), (b, t, c), (b, t, c))]
+    w.update(wqkv=rn(c, 3 * c, scale=c ** -0.5).to(dtype),
+             n1s=rn(c, scale=0.1, loc=1.0), n1b=rn(c, scale=0.1))
     return w, acts
 
 
@@ -205,6 +221,36 @@ def test_walk_matches_plain(heads, b, s, t, dtype):
           w["ba"], w["bg"], w["w2"], w["b2"])
     y, _, _ = geglu_ff_walk(*ff)
     _hold(y, bk.geglu_ff_reference(*ff), dtype)
+
+
+# C = 96: a ragged 128-column tile; 672: K % 64 = 32 (the FFHQ site) and
+# tiles straddling q | k and k | v; R = 1, 80, 200: ragged row blocks
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,r", [(96, 80), (96, 1), (192, 200), (672, 80)])
+def test_qkv_walk_matches_plain(c, r, dtype):
+    w, (x, _, _, _) = _inputs(c // HD, 1, r, 1, dtype, seed=c + r)
+    args = (x.reshape(r, c), w["n1s"], w["n1b"], w["wqkv"])
+    q, k, v, _ = ln_qkv_walk(*args)
+    for got, want in zip((q, k, v), bk.ln_qkv_reference(*args)):
+        assert got.shape == (r, c)
+        _hold(got, want, dtype)
+
+
+@pytest.mark.parametrize("tile", bk.GEMM_TILES["qkv"])
+@pytest.mark.parametrize("tpc", [1, 2])
+def test_qkv_tiles_cover_the_output(tile, tpc):
+    """Each tile the qkv launch is built for, a CTA walking one or two
+    column tiles: every (row block, column tile) pair once, the plain
+    version's q, k and v (f32, C = 96 at R = 200)."""
+    c, r = 96, 200
+    w, (x, _, _, _) = _inputs(c // HD, 1, r, 1, torch.float32, seed=4)
+    args = (x.reshape(r, c), w["n1s"], w["n1b"], w["wqkv"])
+    plan = bk.GemmPlan(*tile, tpc, 3, 0)
+    *qkv, seen = ln_qkv_walk(*args, plan=plan)
+    for got, want in zip(qkv, bk.ln_qkv_reference(*args)):
+        _hold(got, want, torch.float32)
+    assert sorted(seen) == [(i, j) for i in range(-(-r // tile[0]))
+                            for j in range(-(-3 * c // tile[1]))]
 
 
 @pytest.mark.parametrize("tile", [(128, 128, 0), (64, 128, 0), (64, 64, 0),
@@ -290,17 +336,29 @@ def test_walk_matches_jax_kernels(monkeypatch, heads, b, s):
                             tt(args[6][0]), tt(args[7]), tt(args[8][0]))
     _hold(y, tt(out), torch.float32)
 
+    # the qkv launch: JAX's Wqkv and q, k, v carry C padded to cp lanes
+    args, out = spy.calls["_ln_qkv_kernel"]
+    cp = out[0].shape[1]
+    wqkv = tt(args[3])
+    wqkv = torch.cat([wqkv[:, i * cp:i * cp + c] for i in range(3)], dim=1)
+    *qkv, _ = ln_qkv_walk(tt(args[0]), tt(args[1][0]), tt(args[2][0]), wqkv)
+    for got, want in zip(qkv, out):
+        _hold(got, tt(want)[:, :c], torch.float32)
+
 
 def test_plans_at_the_unet_sites():
     """The plans of the ImageNet U-Net's sites at 2, 8 and 32 images (2:
     a batch-1 forward under shared CFG): each fits shared memory, the
-    LayerNorm kinds' grids fit one wave, the C = 960 site runs 100+ CTAs
-    at 8 images, and every tile a plan names is built for its kind."""
+    LayerNorm kinds' grids fit one wave, post_cross's launches at the
+    C = 960 site run 100+ CTAs at 8 images, ln_qkv takes the 128-row tile
+    where it fills the card and the 64-row ping-pong one at C = 960, and
+    every tile a plan names is built for its kind."""
     for c, s in ((384, 1024), (576, 256), (960, 64)):
         for images in (2, 8, 32):
             r, f = images * s, 4 * c
             for kind, n, k in (("residual", c, c), ("cross", c, c),
-                               ("geglu", f, c), ("residual", c, f)):
+                               ("geglu", f, c), ("residual", c, f),
+                               ("qkv", 3 * c, c)):
                 p = bk.gemm_plan(kind, r, n, k, SMS)
                 assert (p.bm, p.bn, p.pp) in bk.GEMM_TILES[kind]
                 assert p.smem == bk.gemm_smem(kind, p.bm, p.bn, k, p.stages)
@@ -314,9 +372,12 @@ def test_plans_at_the_unet_sites():
                              2048 // bk._threads(p.bm, p.pp))
                 if kind != "residual" and p.tiles_per_cta < ntiles:
                     assert ctas <= SMS * per_sm  # one wave
-                if c == 960 and images == 8 and kind != "geglu":
+                if c == 960 and images == 8 and kind in ("residual",
+                                                          "cross"):
                     assert ctas >= 100
     assert bk.gemm_plan("cross", 8192, 384, 384, SMS).bn == 64
+    assert bk.gemm_plan("qkv", 8192, 1152, 384, SMS)[:3] == (128, 128, 0)
+    assert bk.gemm_plan("qkv", 512, 2880, 960, SMS)[:3] == (64, 128, 1)
 
 
 def test_plan_refuses_what_does_not_fit():
@@ -324,3 +385,7 @@ def test_plan_refuses_what_does_not_fit():
         bk.gemm_plan("geglu", 512, 8192, 2048, SMS)
     with pytest.raises(ValueError, match="kind"):
         bk.gemm_plan("post_ff", 512, 384, 384, SMS)
+    with pytest.raises(ValueError, match="shared memory"):
+        bk.gemm_plan("qkv", 512, 3 * 1312, 1312, SMS)  # the LN panel
+    with pytest.raises(ValueError, match="shared memory"):
+        bk.gemm_plan("cross", 512, 1664, 1664, SMS)  # the LN panel

@@ -12,13 +12,18 @@ Shapes include the ragged cases the main path never gives the kernels (S
 not a multiple of the 64-key tile, R not a multiple of the 32-row tile,
 C = 96 not a multiple of the 64-column tile, 16 context tokens; for the
 block-GEMM core (post_cross, geglu_ff) C = 96 and 960 at R = 80 / 48 / 80 /
-80 / 80 rows and at 32 images of 64 rows, T = 1 and 16; for the
-decode kernels B = 3, C = 192 (3 heads of 64), pos 0 and T - 1, 1 and 16
+80 / 80 rows and at 32 images of 64 rows, T = 1 and 16; for ln_qkv on the
+same core C = 96 and 672 at R = 1, 80 and 8192, each of its tiles forced
+alone; post_cross, post_ff and packed_attn at T = 17 to 40 and 64-wide
+heads; SpatialTransformer through the kernels at T = 20 and 40, head_dim
+64 and int8 at C = 672 against its unfused blocks in f32 on the CPU; for
+the decode kernels B = 3, C = 192 (3 heads of 64), pos 0 and T - 1, 1 and 16
 context rows, also in the int8_weights / int8_kv variants; for the int8
-kernels R = 80 rows, a half-filled last 128-channel scale group and two
-512-row q scale cells; for post_ff R = 80 rows and 16 context tokens; for
-the kNN N not a multiple of the 64-row chunk, B = 17 and 40 over two and
-three 16-query tiles, k = 1 and 128, duplicate rows in different slices).
+kernels R = 80 rows, a half-filled last 128-channel scale group, two
+512-row q scale cells and C = 672 at T = 20; for post_ff R = 80 rows and
+16 context tokens; for the kNN N not a multiple of the 64-row chunk,
+B = 17 and 40 over two and three 16-query tiles, k = 1 and 128,
+duplicate rows in different slices).
 Tolerance: max|err| <= 2e-2 x max|ref| in bf16, as chip_smoke.py sets it
 (kernel and plain version round to bf16 at different points); the int8
 cache commit as chip_smoke.py phase 12 holds it; the kNN as phase 17
@@ -26,6 +31,7 @@ holds it (scores within 1e-5, ids equal but where the plain scores of two
 neighbouring ranks lie within 2e-6).
 """
 
+import copy
 import threading
 
 import pytest
@@ -137,8 +143,8 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
         bk.ln_qkv(x, n, n, w)  # f32 activations
     q = torch.randn((1, 16, 128), device="cuda").bfloat16()
     with pytest.raises(ValueError, match="head_dim"):
-        bk.packed_attn(q, q, q, heads=2, head_dim=64)
-    ctx = torch.randn((1, 17, c), device="cuda").bfloat16()
+        bk.packed_attn(q, q, q, heads=8, head_dim=16)
+    ctx = torch.randn((1, 0, c), device="cuda").bfloat16()
     xb = torch.randn((1, 16, c), device="cuda").bfloat16()
     wb = torch.randn((c, c), device="cuda").bfloat16()
     with pytest.raises(ValueError, match="context length"):
@@ -267,7 +273,154 @@ def test_block_gemm_wrappers_refuse(cuda):
     with pytest.raises(ValueError, match="expected shape"):
         bk.geglu_ff(x2, ff[0][:32], *ff[1:])
     with pytest.raises(ValueError, match="head_dim"):
-        bk.post_cross(*pc, heads=1, head_dim=64)
+        bk.post_cross(*pc, heads=4, head_dim=16)
+    assert sum(bk.launch_counts().values()) == 0
+
+
+def _ln_qkv_inputs(c: int, r: int, seed: int):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((r, c), generator=g, device="cuda").bfloat16()
+    n1s = 1.0 + 0.1 * torch.randn(c, generator=g, device="cuda")
+    n1b = 0.1 * torch.randn(c, generator=g, device="cuda")
+    w = (torch.randn((c, 3 * c), generator=g, device="cuda")
+         * c ** -0.5).bfloat16()
+    return x, n1s, n1b, w
+
+
+def _hold_ln_qkv(got, want, r: int, c: int) -> None:
+    for a, b in zip(got, want):
+        assert a.shape == (r, c) and a.is_contiguous()
+        assert torch.isfinite(a).all()
+        assert _rel_err(a, b) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,r", [(96, 1), (96, 80), (96, 8192), (672, 1),
+                                 (672, 80), (672, 8192), (384, 8192),
+                                 (960, 512)])
+def test_ln_qkv_matches_plain(cuda, c, r):
+    """ln_qkv (one launch of the block-GEMM core's kQkv) against its plain
+    version: R = 1 and 80 (ragged row tiles) and 8192; C = 96 (a ragged
+    column tile), 672 (the FFHQ site: K % 64 = 32, tiles straddling q | k
+    and k | v) and the U-Net sites 384 and 960; one count a call, and two
+    calls equal bit for bit."""
+    args = _ln_qkv_inputs(c, r, seed=c + r)
+    bk.reset_launch_counts()
+    got = bk.ln_qkv(*args)
+    torch.cuda.synchronize()
+    assert bk.launch_counts()["ln_qkv"] == 1
+    assert sum(bk.launch_counts().values()) == 1
+    _hold_ln_qkv(got, bk.ln_qkv_reference(*args), r, c)
+    again = bk.ln_qkv(*args)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", bk.GEMM_TILES["qkv"])
+@pytest.mark.parametrize("c,r", [(96, 80), (672, 200), (960, 512)])
+def test_ln_qkv_every_tile(cuda, tile, c, r):
+    """Each tile the kQkv launch is built for, forced alone, against the
+    plain version (a tile that does not fit C is refused)."""
+    args = _ln_qkv_inputs(c, r, seed=r)
+    tiles = bk.GEMM_TILES["qkv"]
+    try:
+        bk.GEMM_TILES["qkv"] = (tile,)
+        bk.gemm_plan.cache_clear()
+        bk.kernel_refusal.cache_clear()
+        if bk.kernel_refusal("ln_qkv", c) is not None:
+            with pytest.raises(ValueError, match="shared memory"):
+                bk.ln_qkv(*args)
+            return
+        got = bk.ln_qkv(*args)
+        torch.cuda.synchronize()
+    finally:
+        bk.GEMM_TILES["qkv"] = tiles
+        bk.gemm_plan.cache_clear()
+        bk.kernel_refusal.cache_clear()
+    _hold_ln_qkv(got, bk.ln_qkv_reference(*args), r, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,hd,b,s,t", [
+    (96, 32, 2, 40, 20), (384, 32, 1, 64, 33), (256, 64, 2, 40, 4),
+    (640, 64, 1, 80, 40), (672, 32, 2, 40, 17)])
+def test_cross_kernels_take_long_contexts_and_wide_heads(cuda, c, hd, b, s,
+                                                         t):
+    """post_cross (the core's kCross / kCross64 epilogue), post_ff and
+    packed_attn against their plain versions past one 16-token context
+    chunk (T = 17, 20, 33, 40) and at 64-wide heads; C = 672 gives post_ff
+    a half-filled last 64-column tile. One count per call."""
+    pc, ff = _gemm_inputs(c, b, s, t, seed=c + t)
+    heads = c // hd
+    bk.reset_launch_counts()
+    got = bk.post_cross(*pc, heads=heads, head_dim=hd)
+    single = bk.post_ff(*pc, *ff, heads=heads, head_dim=hd)
+    o = bk.packed_attn(pc[0], pc[1], pc[0], heads=heads, head_dim=hd)
+    torch.cuda.synchronize()
+    counts = bk.launch_counts()
+    assert (counts["post_cross"], counts["post_ff"],
+            counts["packed_attn"]) == (1, 1, 1)
+    for out, want in (
+            (got, bk.post_cross_reference(*pc, heads=heads, head_dim=hd)),
+            (single, bk.post_ff_reference(*pc, *ff, heads=heads,
+                                          head_dim=hd)),
+            (o, bk.packed_attn_reference(pc[0], pc[1], pc[0], heads=heads,
+                                         head_dim=hd))):
+        assert torch.isfinite(out).all()
+        assert _rel_err(out, want) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,head_dim,t,int8", [
+    (384, 32, 20, False), (256, 64, 4, False), (672, 32, 4, True),
+    (384, 32, 4, False), (256, 64, 40, True), (672, 32, 20, False)])
+def test_spatial_transformer_gate_on_card(cuda, c, head_dim, t, int8,
+                                          monkeypatch):
+    """A SpatialTransformer in eval mode on the card runs its block through
+    the kernels wherever the JAX package fuses it (heads dividing 128):
+    past one 16-token context chunk (T = 20, 40), at 64-wide heads and in
+    int8 at C = 672 (K % 64 = 32), one launch of each kernel of its mode;
+    its output is finite and within the smoke's forward tolerance
+    (relative L2: FORWARD_TOL 3e-2, INT8_FORWARD_TOL 8e-2 in int8) of the
+    same module's unfused blocks in f32 on the CPU. Under
+    RDM_TPU_FUSED_BLOCK=0 it launches none."""
+    from rdm_tpu_torch.models.layers import SpatialTransformer
+    from rdm_tpu_torch.ops import quant
+
+    heads = c // head_dim
+    ref = _seed_params(SpatialTransformer(c, 48, heads, head_dim), seed=c)
+    g = torch.Generator().manual_seed(t)
+    x = torch.randn((2, c, 16, 16), generator=g)
+    ctx = torch.randn((2, t, 48), generator=g)
+    with torch.no_grad():
+        want = ref.train()(x, ctx)  # the unfused blocks, f32, CPU
+    st = copy.deepcopy(ref).cuda().bfloat16().eval()
+    xb, cb = x.cuda().bfloat16(), ctx.cuda().bfloat16()
+    blk = st.transformer_blocks[0]
+    if int8:
+        with quant.calibrate(), torch.no_grad():
+            st(xb, cb)
+        rec = quant.collect_absmax(blk)
+        blk.set_qabsmax(torch.stack([rec[m][k] for m, k in (
+            ("attn1", "act_absmax"), ("attn1", "out_absmax"),
+            ("attn2", "act_absmax"), ("attn2", "out_absmax"),
+            ("ff", "act_absmax"), ("ff", "hidden_absmax"))]))
+    bk.reset_launch_counts()
+    with torch.no_grad():
+        got = st(xb, cb)
+    torch.cuda.synchronize()
+    names = (("ln_qkv_q", "packed_attn", "post_cross_q", "geglu_ff_q")
+             if int8 else ("ln_qkv", "packed_attn", "post_cross",
+                           "geglu_ff"))
+    assert {n: k for n, k in bk.launch_counts().items() if k} == \
+        dict.fromkeys(names, 1)
+    assert torch.isfinite(got).all()
+    rel = ((got.float().cpu() - want).norm() / want.norm()).item()
+    assert rel <= (8e-2 if int8 else 3e-2), rel
+    monkeypatch.setenv("RDM_TPU_FUSED_BLOCK", "0")
+    bk.reset_launch_counts()
+    with torch.no_grad():
+        st(xb, cb)
     assert sum(bk.launch_counts().values()) == 0
 
 
@@ -302,11 +455,12 @@ def _int8_block(heads: int, b: int, s: int, t: int, seed: int):
 @pytest.mark.parametrize("kernel", ["ln_qkv_q", "packed_attn_q8",
                                     "post_cross_q", "geglu_ff_q"])
 @pytest.mark.parametrize("heads,b,s,t", [(4, 2, 40, 4), (6, 3, 64, 16),
-                                         (12, 2, 1024, 4)])
+                                         (12, 2, 1024, 4), (21, 2, 40, 20)])
 def test_int8_kernels_match_plain(cuda, kernel, heads, b, s, t):
     """Each int8 kernel against its plain version on the same int8 weights
     and scales: ragged rows (R = 80), a half-filled last 128-channel group
-    (6 heads), 16 context tokens, two 512-row q scale cells (S = 1024)."""
+    (6 heads), 16 and 20 context tokens, two 512-row q scale cells
+    (S = 1024), C = 672 (21 heads: K % 64 = 32, the FFHQ RDM's site)."""
     blk, w, a, _, x, ctx = _int8_block(heads, b, s, t, seed=heads + s)
     c = heads * HD
     g = torch.Generator(device="cuda").manual_seed(s)
