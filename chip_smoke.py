@@ -52,8 +52,11 @@ exits non-zero):
                rows: error and median CUDA-event times; decode_attn's two
                launches apart in CUDA graphs (the projection, decode_qkv.cu,
                and the attention, decode_attn.cu) beside SDPA's device time
-               for the attention alone; then decode_attn's attention output
-               on 24 more seeds (144 cases).
+               for the attention alone; decode_post_ff's five launches of
+               the block-GEMM core (csrc/decode_post_ff.cu) each timed in
+               a CUDA graph, a second call and a graph replay bit-equal to
+               the first call; then decode_attn's attention output on 24
+               more seeds (144 cases).
   7. rarm_forward  32 teacher-forced decode steps of the full-width RARM
                (depth 18) through the kernel path, CUDA bf16, against the
                CPU f32 teacher-forced forward over the same tokens.
@@ -85,7 +88,8 @@ exits non-zero):
                pos within one step of the plain ones on at most 0.1%,
                scales within 1e-5 relative, every other row untouched), and
                decode_post_ff with int8 weights: error, median CUDA-event
-               times, bound.
+               times, bound; decode_post_ff_w8's five launches and bit
+               equalities as in phase 6.
  13. rarm_serve_modes  over phase 5's table, batch 16, 256 tokens, top_k
                256, k = 4: RARMPipeline requests with int8_weights, int8_kv,
                both (guidance 2.0: decode batch 32) and approx_top_k, launch
@@ -233,7 +237,7 @@ DECODE_INFO = {
     "decode_post_ff": ("rdm_tpu_torch/csrc/decode_post_ff.cu",
                        "rdm_tpu/ops/decode_kernel.py:275",
                        ["rdm_tpu_torch/csrc/decode_post_ff.cu",
-                        "rdm_tpu_torch/csrc/geglu_ff.cu"]),
+                        "rdm_tpu_torch/csrc/block_gemm_sm90.cuh"]),
     "commit_rows": ("rdm_tpu_torch/csrc/commit_rows.cu",
                     "rdm_tpu/ops/decode_kernel.py:352",
                     ["rdm_tpu_torch/csrc/commit_rows.cu"]),
@@ -256,9 +260,10 @@ INT8_DECODE_INFO = {
     "decode_post_ff_w8": ("rdm_tpu_torch/csrc/decode_post_ff.cu",
                           "rdm_tpu/ops/decode_kernel.py:275",
                           ["rdm_tpu_torch/csrc/decode_post_ff.cu",
-                           "rdm_tpu_torch/csrc/geglu_ff.cu",
-                           "rdm_tpu_torch/csrc/block_common.cuh"]),
+                           "rdm_tpu_torch/csrc/block_gemm_sm90.cuh"]),
 }
+# decode_post_ff's five launches of the block-GEMM core, in launch order
+DECODE_CHAIN = ("x1", "cross", "xm", "geglu_up", "ff_down")
 POST_FF_INFO = ("rdm_tpu_torch/csrc/post_ff.cu",
                 "rdm_tpu/ops/block_kernel.py:264")
 FLASH_INFO = {
@@ -1118,6 +1123,48 @@ def _decode_attn_apart(t: dict, pos: int, kc, vc, b: int, heads: int,
                 lambda: F.scaled_dot_product_attention(*lib_in))}
 
 
+def _post_ff_chain(what: str, kern, got: torch.Tensor) -> dict:
+    """decode_post_ff's checks beyond its error: a second call and the
+    replay of a CUDA graph of one call equal `got` bit for bit (rank-ordered
+    sums, no atomics; the chain's clusters and programmatic dependent
+    launches captured), and each of its five launches' device ms in a
+    graph (graph_launch_ms, None where the profiler saw another count)."""
+    if not torch.equal(kern(), got):
+        raise RuntimeError(f"{what}: two calls differ")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kern()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kern()
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(out, got):
+        raise RuntimeError(f"{what}: a CUDA graph's replay differs from "
+                           "the eager call")
+    del graph
+    parts = graph_launch_ms(kern, len(DECODE_CHAIN), "block_gemm_kernel")
+    return {"chain_launch_ms": parts and dict(zip(DECODE_CHAIN, parts))}
+
+
+def _mean_chain(res: dict) -> None:
+    """A decode_post_ff row's mean of each launch's device ms over its
+    cases (where the profiler saw every case's launches)."""
+    parts = [c["chain_launch_ms"] for c in res["cases"]]
+    if all(parts):
+        res["chain_launch_ms"] = {k: sum(p[k] for p in parts) / len(parts)
+                                  for k in DECODE_CHAIN}
+
+
+def _chain_text(case: dict) -> str:
+    parts = case["chain_launch_ms"]
+    return "; two calls and a graph bit-equal; launches " + (
+        " / ".join(f"{v:.4f}" for v in parts.values()) + " ms"
+        if parts else "not seen by the profiler")
+
+
 def phase_rarm_kernels() -> dict:
     """Per decode kernel: {'max_abs_err', 'ms', 'plain_ms', 'cases'}.
 
@@ -1197,10 +1244,14 @@ def phase_rarm_kernels() -> dict:
                 else:
                     errs = _hold(f"decode_post_ff {what}",
                                  [("x_out", got, want)])
-                    detail = ""
+                    chain = _post_ff_chain(f"decode_post_ff {what}", kern,
+                                           got)
+                    detail = _chain_text(chain)[2:]
                 _, err, rel = errs[0]
                 ms, plain_ms = median_ms(kern), median_ms(plain)
                 dev = wrapper_device(kern)
+                if name == "decode_post_ff":
+                    dev.update(chain)
                 say("rarm_kernels", f"{name:14s} {what:13s}: max|err| "
                     f"{err:.4g}, /max|ref| {rel:.3e} (limit {KERNEL_TOL:g})"
                     f"{'; ' + detail if detail else ''}; kernel {ms:.4f} "
@@ -1237,6 +1288,7 @@ def phase_rarm_kernels() -> dict:
             res[key] = sum(c[key] for c in res["cases"]) / n
         res["bound_by"] = max(res["cases"], key=lambda c: c["bound_ms"])[
             "bound_by"]
+    _mean_chain(results["decode_post_ff"])
     cases = results["decode_attn"]["cases"]
     for key in ("qkv_device_ms", "attn_device_ms", "library_device_ms"):
         results["decode_attn"][key] = sum(c[key] for c in cases) / len(cases)
@@ -1779,7 +1831,8 @@ def phase_rarm_int8_kernels() -> dict:
                     got = kern()
                     torch.cuda.synchronize()
                     errs = _hold(f"{name} {what}", [("x_out", got, plain())])
-                    detail = ""
+                    chain = _post_ff_chain(f"{name} {what}", kern, got)
+                    detail = _chain_text(chain)[2:]
                 else:
                     w8, kv8 = "_w8" in name, name.endswith("_kv8")
                     kw = dict(heads=heads, head_dim=hd,
@@ -1841,6 +1894,8 @@ def phase_rarm_int8_kernels() -> dict:
                 _, err, rel = errs[0]
                 ms, plain_ms = median_ms(kern), median_ms(plain)
                 dev = wrapper_device(kern)
+                if name == "decode_post_ff_w8":
+                    dev.update(chain)
                 bound_ms, by = bound(*decode_cost(name, b, pos))
                 say("rarm_int8_kernels", f"{name:18s} {what:13s}: max|err| "
                     f"{err:.4g}, /max|ref| {rel:.3e} (limit {KERNEL_TOL:g})"
@@ -1862,6 +1917,7 @@ def phase_rarm_int8_kernels() -> dict:
             res[key] = sum(c[key] for c in res["cases"]) / n
         res["bound_by"] = max(res["cases"], key=lambda c: c["bound_ms"])[
             "bound_by"]
+    _mean_chain(results["decode_post_ff_w8"])
     return results
 
 
@@ -2861,12 +2917,14 @@ def main() -> int:
              for n, r in int8_kernels.items()]
     apart = ("sweep_rel_err", "qkv_device_ms", "attn_device_ms",
              "library_device_ms")  # decode_attn's alone
+    apart += ("chain_launch_ms",)  # decode_post_ff's five launches
     rows += [row(n, DECODE_INFO[n], decode_launches, r,
                  sources=DECODE_INFO[n][2], cases=r["cases"],
                  **{k: r[k] for k in apart if k in r})
              for n, r in decode.items()]
     rows += [row(n, INT8_DECODE_INFO[n], int8_decode_launches, r,
-                 sources=INT8_DECODE_INFO[n][2], cases=r["cases"])
+                 sources=INT8_DECODE_INFO[n][2], cases=r["cases"],
+                 **{k: r[k] for k in apart if k in r})
              for n, r in int8_decode.items()]
     rows.append(row("post_ff", POST_FF_INFO,
                     {"post_ff": post_ff["launches"]}, post_ff,

@@ -1,28 +1,37 @@
 #!/usr/bin/env python3
 """Where the block-GEMM core's time goes, on one NVIDIA GPU.
 
-    python3 profile_gemm.py [--out profile_gemm.json]
+    python3 profile_gemm.py [--decode] [--out profile_gemm.json]
     python3 profile_gemm.py --host TREE [TREE ...] [--out FILE]
     python3 profile_gemm.py --tiles [--out FILE]
 
-Builds the launchers of `ln_qkv`, `post_cross` and `geglu_ff`
-(rdm_tpu_torch/csrc/ln_qkv.cu, post_cross.cu, geglu_ff_sm90.cu) over
-rdm_tpu_torch/csrc/block_gemm_sm90.cuh with nvcc five times: as they are,
-and with one part of the core cut each time: the wgmma products, the
-LayerNorm prologue's arithmetic (its rows still arrive by TMA), the
-epilogues, the GEGLU's erf. Each build runs in a process of its own and
-times the three wrappers at chip_smoke.py phase 3's three U-Net sites (8
-images, its tensors) in CUDA graphs, each launch by torch.profiler over
-the graph's replays (chip_smoke.py `graph_ms`, `graph_launch_ms`). The
-cut builds' outputs are wrong by design; only their time is read. Prints
-one JSON line per build and writes them all to --out, with the card's
-name and power limit.
+Builds the launchers of `ln_qkv`, `post_cross`, `geglu_ff` and the RARM
+decode chain `decode_post_ff` (rdm_tpu_torch/csrc/ln_qkv.cu,
+post_cross.cu, geglu_ff_sm90.cu, decode_post_ff.cu) over
+rdm_tpu_torch/csrc/block_gemm_sm90.cuh with nvcc as they are, and with
+one part of the core cut each time: the wgmma products, the LayerNorm
+prologue's arithmetic (its rows still arrive by TMA), the epilogues, the
+GEGLU's erf; for the decode chain also programmatic dependent launch
+(plain stream launches instead), the int8 weights' conversion to bf16
+and rank 0's sum of the K split's partial tiles. Each build runs in a
+process of its own and times the three U-Net wrappers at chip_smoke.py
+phase 3's three U-Net sites (8 images, its tensors) and `decode_post_ff`
+(bf16 and int8 weights) at decode batch 16 and 32 (chip_smoke.py phase
+7's tensors, C = 768, F = 3072, 4 context rows) in CUDA graphs, each
+launch by torch.profiler over the graph's replays (chip_smoke.py
+`graph_ms`, `graph_launch_ms`); the uncut build also times the decode
+chain with its K split turned off (KS = 1 in every plan). With --decode,
+only the decode chain is timed. The cut builds' outputs are wrong by
+design; only their time is read. Prints one JSON
+line per build and writes them all to --out, with the card's name and
+power limit.
 
 With --host, builds nothing of its own: for each TREE in the order given
 (a checkout of this repo, such as an older commit unpacked by `git
 archive`; `.` for this one), a process of its own imports that tree's
 `rdm_tpu_torch`, builds its kernels and times its `ln_qkv`, `post_cross`
-and `geglu_ff` wrappers at the same sites on the same seeded tensors:
+and `geglu_ff` wrappers at the same sites on the same seeded tensors, and
+its `decode_post_ff` (bf16 and int8 weights) at decode batch 16 and 32:
 host us a call (chip_smoke.py `host_us`) and device ms a call
 (`graph_ms`). Naming two trees in turns (A B B A) compares their host
 cost in one run.
@@ -45,22 +54,33 @@ import subprocess
 import sys
 import tempfile
 
-# (text of block_gemm_sm90.cuh, its replacement) of each cut
+# (text of block_gemm_sm90.cuh, its replacement), or several, of each cut
 CUTS = {
     "kernel": None,
     "no wgmma": ("            wgmma_ss_mn<BN>(",
                  "            if (p.R < 0) wgmma_ss_mn<BN>("),
     "no LayerNorm arithmetic": (
-        "  for (int r0 = warp; r0 < BM; r0 += 2 * kWarps) {",
+        "  for (int r0 = warp; r0 < rows; r0 += 2 * kWarps) {",
         "  for (int r0 = warp; r0 < 0; r0 += 2 * kWarps) {"),
     "no epilogue": ("    const int n0 = t * BN;\n#pragma unroll\n",
                     "    if (p.R > 0) continue;\n"
                     "    const int n0 = t * BN;\n#pragma unroll\n"),
-    "no erf": ("          f[e] = av * (0.5f * gv * (1.0f + erff(gv * "
-               "0.7071067811865476f)));",
-               "          f[e] = av * gv;"),
+    "no erf": (("          f[e] = av * (0.5f * gv * (1.0f + erff(gv * "
+                "0.7071067811865476f)));",
+                "          f[e] = av * gv;"),
+               ("          f[u] = av * (0.5f * gv * (1.0f + erff(gv * "
+                "0.7071067811865476f)));",
+                "          f[u] = av * gv;")),
+    "no PDL": ("    attr[n].val.programmaticStreamSerializationAllowed = 1;",
+               "    attr[n].val.programmaticStreamSerializationAllowed = 0;"),
+    "no int8 conversion": ("        convert_w8<NW>(",
+                           "        if (p.R < 0) convert_w8<NW>("),
+    "no K-split sum": ("        for (int r = 1; r < (live ? ks : 1); ++r)",
+                       "        for (int r = 1; r < (p.R < 0 ? ks : 1); ++r)"),
 }
-LAUNCHERS = ("ln_qkv.cu", "post_cross.cu", "geglu_ff_sm90.cu")
+LAUNCHERS = ("ln_qkv.cu", "post_cross.cu", "geglu_ff_sm90.cu",
+             "decode_post_ff.cu")
+DECODE_BATCHES = (16, 32)  # chip_smoke.py RARM_BATCHES
 TILE_IMAGES = (2, 8, 32)
 HERE = os.path.dirname(os.path.abspath(__file__))
 HEADER = "block_gemm_sm90.cuh"
@@ -72,7 +92,7 @@ def build_dir(variant: str) -> str:
 
 
 def build(variant: str) -> subprocess.Popen:
-    """Starts nvcc on the three launchers over the cut header, in a
+    """Starts nvcc on the four launchers over the cut header, in a
     directory of the build's own (a quoted include finds the cut header
     beside the launchers first)."""
     from rdm_tpu_torch.ops import _build
@@ -80,8 +100,9 @@ def build(variant: str) -> subprocess.Popen:
     out = build_dir(variant)
     os.makedirs(out, exist_ok=True)
     src = (_build.CSRC / HEADER).read_text()
-    if CUTS[variant] is not None:
-        old, new = CUTS[variant]
+    cut = CUTS[variant]
+    pairs = () if cut is None else cut if isinstance(cut[0], tuple) else (cut,)
+    for old, new in pairs:
         if src.count(old) != 1:
             raise RuntimeError(f"{HEADER} changed; update profile_gemm.py's "
                                f"cut {variant!r}")
@@ -99,8 +120,9 @@ def build(variant: str) -> subprocess.Popen:
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
-def run_build(variant: str) -> dict:
-    """Times the three wrappers through the variant's library."""
+def run_build(variant: str, decode_only: bool) -> dict:
+    """Times the three U-Net wrappers (unless decode_only) and the decode
+    chain through the variant's library."""
     import torch
 
     import chip_smoke as cs
@@ -108,7 +130,8 @@ def run_build(variant: str) -> dict:
     from rdm_tpu_torch.ops import block_kernel as bk
 
     lib = ctypes.CDLL(os.path.join(build_dir(variant), "lib.so"))
-    for name in ("rdm_ln_qkv", "rdm_post_cross", "rdm_geglu_ff_sm90"):
+    for name in ("rdm_ln_qkv", "rdm_post_cross", "rdm_geglu_ff_sm90",
+                 "rdm_decode_post_ff"):
         getattr(lib, name).argtypes = _build._SIGNATURES[name]
         getattr(lib, name).restype = ctypes.c_int
     lib.rdm_error_string.argtypes = [ctypes.c_int]
@@ -116,7 +139,7 @@ def run_build(variant: str) -> dict:
     _build._lib = lib  # the wrappers launch this build
     g = torch.Generator(device="cuda").manual_seed(cs.SEED)
     out = {"build": variant, "sites": []}
-    for c, s, heads in cs.SITES:
+    for c, s, heads in () if decode_only else cs.SITES:
         t = cs._site_tensors(c, s, heads, g)
         attn = 0.5 * torch.randn(t["x"].shape, generator=g, device="cuda",
                                  dtype=torch.bfloat16)
@@ -129,6 +152,49 @@ def run_build(variant: str) -> dict:
                 "launch_device_ms": parts and dict(
                     zip(cs.GEMM_LAUNCHES[name], parts))})
         del t, attn
+    out["decode"] = decode_times(cs, g)
+    if variant == "kernel":  # the same launches without the K split
+        bk._MAX_KS = 1
+        bk.gemm_plan.cache_clear()
+        out["decode_ks1"] = decode_times(cs, g)
+    return out
+
+
+DECODE_LAUNCHES = ("x1", "cross", "xm", "geglu_up", "ff_down")
+
+
+def decode_calls(cs, g, b: int) -> dict:
+    """decode_post_ff with bf16 and int8 weights at decode batch b on
+    chip_smoke.py's seeded full-width layer (x and attn as its tensors)."""
+    from rdm_tpu_torch.ops import decode_kernel as dk
+
+    t = cs._int8_layer(cs._decode_tensors(b, g))
+    names = ("wo", "bo", "n2s", "n2b", "wq2", "wo2", "bo2", "n3s", "n3b",
+             "wa", "wg", "ba", "bg", "w2", "b2")
+    head = [t["x"], t["x"], t["ck"], t["cv"]]
+    ff = head + [t[n] for n in names]
+    ff8 = head + [t[n + "_q" if n + "_q" in t else n] for n in names]
+    sc = tuple(t[n + "_s"] for n in dk.POST_FF_WEIGHTS)
+    return {"bf16": lambda: dk.decode_post_ff(*ff, heads=12, head_dim=64),
+            "int8": lambda: dk.decode_post_ff(*ff8, heads=12, head_dim=64,
+                                              scales=sc)}
+
+
+def decode_times(cs, g) -> list:
+    """decode_post_ff's device ms a call and each launch's, per mode and
+    decode batch."""
+    import torch
+
+    out = []
+    for b in DECODE_BATCHES:
+        with torch.inference_mode():
+            for mode, fn in decode_calls(cs, g, b).items():
+                parts = cs.graph_launch_ms(fn, len(DECODE_LAUNCHES),
+                                           "block_gemm_kernel")
+                out.append({"mode": mode, "B": b,
+                            "device_ms": cs.graph_ms(fn),
+                            "launch_device_ms": parts and dict(
+                                zip(DECODE_LAUNCHES, parts))})
     return out
 
 
@@ -218,6 +284,13 @@ def run_host(tree: str) -> dict:
                                      "host_us": cs.host_us(fn),
                                      "device_ms": cs.graph_ms(fn)})
         del t, attn, pc, ff, qkv, calls
+    for b in DECODE_BATCHES:
+        with torch.inference_mode():
+            for mode, fn in decode_calls(cs, g, b).items():
+                out["sites"].append({"name": f"decode_post_ff {mode}",
+                                     "C": 768, "S": b,
+                                     "host_us": cs.host_us(fn),
+                                     "device_ms": cs.graph_ms(fn)})
     return out
 
 
@@ -249,6 +322,8 @@ def main() -> int:
                     help="time the wrappers' host cost of each tree in turn")
     ap.add_argument("--tiles", action="store_true",
                     help="time ln_qkv through each of its tiles")
+    ap.add_argument("--decode", action="store_true",
+                    help="time only the decode chain in the cut builds")
     ap.add_argument("--build", help=argparse.SUPPRESS)
     ap.add_argument("--host-tree", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -263,7 +338,7 @@ def main() -> int:
         return 0
     sys.path.insert(0, HERE)
     if args.build:
-        print(json.dumps(run_build(args.build)), flush=True)
+        print(json.dumps(run_build(args.build, args.decode)), flush=True)
         return 0
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -284,7 +359,8 @@ def main() -> int:
             raise RuntimeError(f"nvcc failed for {v!r}:\n{log}")
     results = {"card": card, "builds": []}
     for v in CUTS:  # one process a build, one at a time on the card
-        proc = subprocess.run([sys.executable, __file__, "--build", v],
+        proc = subprocess.run([sys.executable, __file__, "--build", v]
+                              + ["--decode"] * args.decode,
                               capture_output=True, text=True)
         if proc.returncode:
             raise RuntimeError(f"{v!r} failed:\n{proc.stderr[-3000:]}")
@@ -295,6 +371,13 @@ def main() -> int:
                   f"{site['device_ms']:.4f} ms; launches "
                   f"{parts if parts else 'not seen by the profiler'}",
                   flush=True)
+        for key in ("decode", "decode_ks1"):
+            for d in r.get(key, ()):
+                parts = d["launch_device_ms"]
+                print(f"{v:24s} {key} {d['mode']:4s} B={d['B']:2d}: device "
+                      f"{d['device_ms']:.4f} ms; launches "
+                      f"{parts if parts else 'not seen by the profiler'}",
+                      flush=True)
         results["builds"].append(r)
     with open(args.out, "w") as f:
         json.dump(results, f, indent=1)

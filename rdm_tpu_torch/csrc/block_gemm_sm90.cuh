@@ -83,13 +83,56 @@
 //   score is a quad sum of 8- or 16-term dot products. Rows of one tile may
 //   belong to two images (image = row / S), each row reads its own image's
 //   ck, cv. Past 16 tokens the context is walked in chunks of 16, twice
-//   (cross_epilogue; kCrossLong, kCross64), so T has no limit.
+//   (cross_epilogue; kCrossLong, kCross64), so T has no limit. The context
+//   is [B, T, C] for the U-Net and time-major [T, B, C] for the RARM
+//   decode (DEC, read where it lies: image stride C, token stride B C).
+//
+// The decode chain's launches (DEC, csrc/decode_post_ff.cu; replaces
+// rdm_tpu/ops/decode_kernel.py:275 `_post_ff_kernel`) run at R = B <= 64
+// rows, where a launch is bound by streaming W (16-32 FLOP a byte at B =
+// 16-32) and one 64-row block has too few column tiles to keep the card's
+// memory busy (12 at N = 768). So:
+// - a K split across a thread-block cluster of KS <= 8 CTAs (grid.x =
+//   column tiles x KS): rank r of a cluster takes the whole 64-wide
+//   K-steps [r nkb / KS, (r + 1) nkb / KS) of its column tile and loads
+//   only that slice of A (or of the LayerNorm's K columns feeding the
+//   products) and of W. After its last K-step each rank r > 0 writes the
+//   f32 fragments of its warps that hold live rows (rows < R) straight
+//   into a region of rank 0's shared memory (mapa, st.shared::cluster)
+//   and arrives on the cluster barrier; rank 0, once past it, adds them
+//   to its own in rank order and runs the epilogue. No atomics, no global
+//   workspace: two calls are bit-equal. The LayerNorm statistics need
+//   whole rows, so each rank brings and normalises its live rows in full.
+// - tokens stay on M and are not swapped onto N: at B = 16 a 64-row tile
+//   wastes 3/4 of its tensor work, but a K-step's product (0.5 MFLOP,
+//   ~0.07 us of an SM's tensor rate) is a fifth of the time its 8 KB of W
+//   take to arrive at an SM's share of the memory rate, and the
+//   epilogues, the LayerNorm panel and the cross-attention keep the
+//   row-per-thread layout they were written for. TMA brings only the
+//   first rb = R rounded up to 8 rows of A or src (DecodeArgs::rb); the
+//   rows past them reach only outputs that are not stored.
+// - the cross-attention, one query row per image and a 64-column head a
+//   tile, runs four rows a warp over the tile's live rows
+//   (cross_rows_epilogue): at B = 16 they all sit in warp 0's fragments.
+// - int8 weights (WT = int8_t, the int8_weights serving mode): TMA brings
+//   int8 [64, 64] boxes of W; the consumer warpgroup converts them to bf16
+//   (exact) into the stage's bf16 W panels, fences the generic proxy and
+//   runs the bf16 wgmma on them, as `_wdot` converts the codes to the
+//   activation dtype. The bf16 column scale multiplies the f32
+//   accumulator before the bias, in every epilogue.
+// - programmatic dependent launch between the chain's launches: each CTA
+//   lets the next launch start at once (`griddepcontrol.launch_dependents`
+//   first); the producer issues the W loads of its first stages (no
+//   earlier launch writes W), then `griddepcontrol.wait`, then the A /
+//   src loads; the consumers wait too before an epilogue reads the
+//   residual. The U-Net's launches stay plain stream launches.
 #pragma once
 
 #include <algorithm>
 #include <map>
 #include <mutex>
 #include <tuple>
+#include <type_traits>
 
 #include "attn_fwd_sm90.cuh"
 
@@ -100,13 +143,15 @@ using attn::bf16;
 
 // kCross takes 32-column heads and up to kCtx context tokens; kCrossLong
 // any number of tokens; kCross64 64-column heads and any number of tokens
-// (cross_epilogue).
+// (cross_epilogue); kCross64Short, the decode's up to kCtx tokens, 64-column
+// heads and one query row an image (cross_rows_epilogue).
 enum Kind {
   kResidual = 0, kCross = 1, kGeglu = 2, kQkv = 3, kCross64 = 4,
-  kCrossLong = 5
+  kCrossLong = 5, kCross64Short = 6
 };
 __host__ __device__ constexpr bool is_cross(int kind) {
-  return kind == kCross || kind == kCross64 || kind == kCrossLong;
+  return kind == kCross || kind == kCross64 || kind == kCrossLong ||
+         kind == kCross64Short;
 }
 
 constexpr int kBK = 64;           // K of a ring stage
@@ -114,12 +159,15 @@ constexpr int kPW = 32;           // columns of a TMA box (64 bytes)
 constexpr int kWPanel = kBK * 64;  // bytes of one W box
 constexpr int kMaxStages = 8;
 constexpr int kSmemLimit = 232448;
+constexpr int kMaxKS = 8;         // CTAs of a K-split cluster (portable)
 
 // Shared memory of one CTA of BM rows after its base is aligned to 1 KB:
 // the normalised A panel (all but kResidual; ceil(K / 64) * 2 panels of BM
 // rows x 64 bytes) | the ring (stages x [two A panels (kResidual) | NW x
-// BN / 32 W panels]) | full[stages], empty[stages], the panel's barrier.
-// Mirrored by ops/block_kernel.py `gemm_smem`.
+// BN / 32 W panels | with int8 weights, NW int8 boxes of 64 K-rows x BN
+// bytes]) | a K split's receive region (split_bytes) | full[stages],
+// empty[stages], the panel's barrier. Mirrored by ops/block_kernel.py
+// `gemm_smem`.
 __host__ __device__ constexpr int a_panel_bytes(int bm) { return bm * 64; }
 __host__ __device__ constexpr int n_weights(int kind) {
   return kind == kGeglu ? 2 : 1;
@@ -130,13 +178,35 @@ __host__ __device__ constexpr int panel_region(int kind, int bm, int K) {
 __host__ __device__ constexpr int a_stage_bytes(int kind, int bm) {
   return kind == kResidual ? 2 * a_panel_bytes(bm) : 0;
 }
-__host__ __device__ constexpr int stage_bytes(int kind, int bm, int bn) {
-  return a_stage_bytes(kind, bm) + n_weights(kind) * (bn / kPW) * kWPanel;
+__host__ __device__ constexpr int w_stage_bytes(int kind, int bn) {
+  return n_weights(kind) * (bn / kPW) * kWPanel;  // bf16, as wgmma reads W
+}
+__host__ __device__ constexpr int stage_bytes(int kind, int bm, int bn,
+                                              bool w8 = false) {
+  return a_stage_bytes(kind, bm) + w_stage_bytes(kind, bn) +
+         (w8 ? n_weights(kind) * bn * kBK : 0);
+}
+// With a K split over ks CTAs, rank 0 receives the others' f32 partial
+// tiles in a region of its own after the ring: ks - 1 of them, the
+// fragments of the warps that hold live rows (16 rows a warp, of the
+// first `rows`). The others write them there while rank 0 still computes,
+// so one cluster barrier after the writes is all the sum waits for.
+__host__ __device__ constexpr int split_bytes(int kind, int bm, int bn,
+                                              int ks, int rows) {
+  return (ks - 1) * n_weights(kind) * (((rows < bm ? rows : bm) + 15) / 16) *
+         64 * bn;
+}
+__host__ __device__ constexpr int data_bytes(int kind, int bm, int bn, int K,
+                                             int stages, bool w8, int ks,
+                                             int rows) {
+  return panel_region(kind, bm, K) + stages * stage_bytes(kind, bm, bn, w8) +
+         split_bytes(kind, bm, bn, ks, rows);
 }
 __host__ __device__ constexpr int smem_bytes(int kind, int bm, int bn, int K,
-                                             int stages) {
-  return 1024 + panel_region(kind, bm, K) +
-         stages * stage_bytes(kind, bm, bn) + 8 * (2 * stages + 1);
+                                             int stages, bool w8 = false,
+                                             int ks = 1, int rows = 64) {
+  return 1024 + data_bytes(kind, bm, bn, K, stages, w8, ks, rows) +
+         8 * (2 * stages + 1);
 }
 
 // What the prologue and epilogues read and write. Unused fields are null.
@@ -153,6 +223,20 @@ struct Args {
   float scale;
   bf16* out1;          // k, v [R, N / 3] (kQkv)
   bf16* out2;
+};
+
+// A decode launch's (DEC) Args: the bf16 column scales [N] of int8 w0, w1.
+// Its context ck, cv is time-major [T, R, N] (one query row per image),
+// a layout fixed at compile time: a field more in Args moves ptxas's
+// register allocation of every U-Net instantiation.
+// rb: the rows a TMA box of A or src brings, R rounded up to 8 (at most
+// BM): the tile's rows past them are never loaded, so a batch of 16 moves
+// a quarter of a 64-row box (the rows they leave in shared memory reach
+// only outputs that are not stored).
+struct DecodeArgs : Args {
+  const bf16* ws0;
+  const bf16* ws1;
+  int rb;
 };
 
 __device__ __forceinline__ float round_bf16(float v) {
@@ -178,19 +262,22 @@ __device__ __forceinline__ int panel_offset(int r, int v, int bm) {
 }
 
 // The LayerNorm prologue: the panel region holds rows row0 .. row0 + BM of
-// src once `pbar` completes (TMA; rows >= R zero-filled, their outputs
-// never stored); normalise it in place. A lane keeps its share of a row
-// (vectors lane + 32 i, i < kLNVec: K <= 1536) and of the scale and bias,
-// converted to bf16 once, in registers; a warp takes two rows at a time so
-// their reductions overlap. Consumer threads only; ends with the
-// consumers' barrier.
+// src once `pbar` completes (TMA; rows >= R zero-filled, or never loaded
+// past a decode launch's rb, their outputs never stored); normalise its
+// first `rows` rows in place (BM, or the live rows of a decode launch: a
+// zero row left as it is adds 0 to rows never stored). A lane keeps its
+// share of a row (vectors lane + 32 i, i < kLNVec: K <= 1536) and of the
+// scale and bias, converted to bf16 once, in registers; a warp takes two
+// rows at a time so their reductions overlap. Consumer threads only; ends
+// with the consumers' barrier.
 constexpr int kLNVec = 6;
 constexpr int kMaxLNK = 32 * 8 * kLNVec;
 
 template <int CW, int BM>
 __device__ __forceinline__ void layer_norm_prologue(unsigned char* panel,
                                                     uint32_t pbar,
-                                                    const Args& p) {
+                                                    const Args& p,
+                                                    int rows) {
   constexpr int kWarps = 4 * CW;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int K = p.K, nvec = K / 8;
@@ -214,7 +301,7 @@ __device__ __forceinline__ void layer_norm_prologue(unsigned char* panel,
     }
   }
   attn::mbar_wait(pbar, 0);
-  for (int r0 = warp; r0 < BM; r0 += 2 * kWarps) {
+  for (int r0 = warp; r0 < rows; r0 += 2 * kWarps) {
     uint4 x[2][kLNVec];
     float sum[2] = {0.f, 0.f}, sq[2] = {0.f, 0.f};
 #pragma unroll
@@ -435,7 +522,7 @@ __device__ __forceinline__ void qkv_epilogue(const float (&acc)[BN / 2],
 // warp); rows >= R compute on a clamped row and store nothing.
 constexpr int kCtx = 16;
 
-template <int BN, int HD, bool CHUNKS>
+template <int BN, int HD, bool CHUNKS, bool TM = false>
 __device__ __forceinline__ void cross_epilogue(const float (&acc)[BN / 2],
                                                const Args& p, int r0, int n0,
                                                int q) {
@@ -451,7 +538,11 @@ __device__ __forceinline__ void cross_epilogue(const float (&acc)[BN / 2],
     for (int h = 0; h < 2; ++h) {
       const int row = r0 + 8 * h;
       const int img = min(row, p.R - 1) / p.S;
-      const size_t cbase = (size_t)img * T * N + hcol + cq;
+      // token t of the row's image at cbase + t * tstride: [B, T, C], or
+      // time-major [T, B, C] (TM)
+      const size_t cbase =
+          (TM ? (size_t)img * N : (size_t)img * T * N) + hcol + cq;
+      const size_t tstride = TM ? (size_t)p.R * N : N;
       float qv[2 * NB];
 #pragma unroll
       for (int j = 0; j < NB; ++j) {
@@ -470,7 +561,8 @@ __device__ __forceinline__ void cross_epilogue(const float (&acc)[BN / 2],
           for (int u = 0; u < kChunk; ++u) {
             s[u] = 0.f;
             if (t0 + tt + u < T) {
-              const bf16* kr = p.ck + cbase + (size_t)(t0 + tt + u) * N;
+              const bf16* kr = p.ck + cbase + (size_t)(t0 + tt + u) *
+                                                  (TM ? tstride : N);
 #pragma unroll
               for (int j = 0; j < NB; ++j) {
                 const float2 k = ld_bf16x2(kr + 8 * j);
@@ -504,7 +596,8 @@ __device__ __forceinline__ void cross_epilogue(const float (&acc)[BN / 2],
         for (int u = 0; u < kCtx; ++u) {
           if (t0 + u >= T) break;
           const float pt = round_bf16(sc[u] * inv);
-          const bf16* vr = p.cv + cbase + (size_t)(t0 + u) * N;
+          const bf16* vr =
+              p.cv + cbase + (size_t)(t0 + u) * (TM ? tstride : N);
 #pragma unroll
           for (int j = 0; j < NB; ++j) {
             const float2 v = ld_bf16x2(vr + 8 * j);
@@ -558,6 +651,318 @@ __device__ __forceinline__ void cross_epilogue(const float (&acc)[BN / 2],
   }
 }
 
+// ------------------------------------------ the decode launches' pieces
+
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+__device__ __forceinline__ int cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return (int)n;
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// The shared address `addr` of this CTA, in CTA `rank` of the cluster
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, int rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(addr), "r"(rank));
+  return remote;
+}
+// 16 bytes to a (cluster_addr) shared address of another CTA; fire and
+// forget, made visible by the next cluster barrier's release
+__device__ __forceinline__ void st_cluster_f4(uint32_t remote, float a,
+                                              float b, float c, float d) {
+  asm volatile(
+      "st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(remote),
+      "f"(a), "f"(b), "f"(c), "f"(d)
+      : "memory");
+}
+__device__ __forceinline__ void prefetch_l1(const void* p) {
+  asm volatile("prefetch.global.L1 [%0];\n" ::"l"(p));
+}
+
+// Rank 0 of a decode launch, waiting for the others' partial tiles: bring
+// the lines its epilogue will read into L1 (the residual rows, or the
+// rows' time-major context tokens of the tile's head), so the epilogue's
+// loads do not wait on L2.
+template <int KIND, int BN>
+__device__ __forceinline__ void prefetch_epilogue(const Args& p, int r0,
+                                                  int n0, int q) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 8 * h;
+    if (row >= p.R) break;
+    if constexpr (KIND == kResidual) {
+#pragma unroll
+      for (int m = 0; m < BN / 32; ++m)
+        if (n0 + 32 * m < p.N)
+          prefetch_l1(p.res + (size_t)row * p.N + n0 + 32 * m + 8 * q);
+    } else if constexpr (is_cross(KIND)) {
+      // one 64-column head a tile: a token's k or v row is one 128-byte
+      // line; the quad's four threads take every fourth token
+      const size_t cb = (size_t)row * p.N + n0;  // [T, R, N]
+      for (int t = q; t < p.T; t += 4) {
+        prefetch_l1(p.ck + cb + (size_t)t * p.R * p.N);
+        prefetch_l1(p.cv + cb + (size_t)t * p.R * p.N);
+      }
+    }
+  }
+}
+// Programmatic dependent launch: wait for the launch before this one to
+// finish and its writes to be visible (a no-op in a plain launch); let the
+// launch after this one start.
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// acc *= the bf16 scale of its column (int8 weights), before any bias
+template <int BN>
+__device__ __forceinline__ void scale_cols(float (&acc)[BN / 2],
+                                           const bf16* ws, int N, int n0,
+                                           int q) {
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * q;
+    if (col >= N) break;
+    const float2 s = ld_bf16x2(ws + col);
+    acc[4 * j] *= s.x;
+    acc[4 * j + 1] *= s.y;
+    acc[4 * j + 2] *= s.x;
+    acc[4 * j + 3] *= s.y;
+  }
+}
+
+// The stage's int8 W boxes (NW x [64 K-rows, 64 columns], 64-byte rows
+// swizzled as TMA lands them) -> its bf16 W panels (NW x 2 x [64 K-rows,
+// 32 columns], the layout a bf16 box has), exactly; one warpgroup, each
+// thread two 16-byte chunks of a box. A chunk of row r lies at r * 64 +
+// ((c ^ (r / 2 % 4)) << 4) in both layouts. A code v becomes the f32
+// 2^23 + v + 128 by a byte permute, minus 2^23 + 128 (exact), whose upper
+// half is bf16(v) (|v| <= 128 needs 8 bits of mantissa): byte permutes
+// and f32 adds, where an int -> float conversion runs at a quarter of
+// their rate.
+template <int NW>
+__device__ __forceinline__ void convert_w8(unsigned char* w16,
+                                           const unsigned char* w8) {
+#pragma unroll
+  for (int w = 0; w < NW; ++w)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int idx = (threadIdx.x & 127) + 128 * i;
+      const int r = idx & 63, c = idx >> 6, sw = (r >> 1) & 3;
+      const uint4 v = *reinterpret_cast<const uint4*>(
+          w8 + w * 64 * kBK + r * 64 + ((c ^ sw) << 4));
+      const uint32_t* b = reinterpret_cast<const uint32_t*>(&v);
+      uint32_t o[8];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t x = b[e] ^ 0x80808080u;  // v + 128, four bytes
+        uint32_t f[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          f[k] = __float_as_uint(
+              __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7650 + k)) -
+              8388736.0f);
+        o[2 * e] = __byte_perm(f[0], f[1], 0x7632);
+        o[2 * e + 1] = __byte_perm(f[2], f[3], 0x7632);
+      }
+      unsigned char* panel = w16 + (2 * w + (c >> 1)) * kWPanel + r * 64;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<uint4*>(panel +
+                                  (((2 * (c & 1) + h) ^ sw) << 4)) =
+            make_uint4(o[4 * h], o[4 * h + 1], o[4 * h + 2], o[4 * h + 3]);
+    }
+}
+
+// The decode's cross-attention (kCross64Short, DEC: a 64-column tile is
+// one head, T <= kCtx tokens, one query row per image, the context
+// time-major [T, R, N]). At B = 16 a 64-row tile's live rows all sit in
+// warp 0's fragments, so cross_epilogue would run the whole head's
+// attention on one warp of the CTA. Instead the warpgroup stages bf16(q2)
+// of its live rows in shared memory (`qs`, 128 bytes a row) and takes
+// them four rows a warp, eight lanes a row and eight dims a lane (16-byte
+// loads of k, v and out): a score is an 8-lane sum; p = bf16(exp(s - max)
+// / sum) over all T, as cross_epilogue; o = sum_t p v_t in f32 -> bf16.
+// Consumer threads only (one warpgroup); the shared memory it reuses must
+// be free (the products and the split's sum done).
+template <int BN>
+__device__ __forceinline__ void cross_rows_epilogue(
+    const float (&acc)[BN / 2], const Args& p, unsigned char* qs, int row0,
+    int r_in, int n0, int q) {
+  static_assert(BN == 64, "one 64-column head a tile");
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int live = min(64, p.R - row0), N = p.N, T = p.T;
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");  // qs is free
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r_in + 8 * h;
+    if (r < live)
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+        *reinterpret_cast<uint32_t*>(qs + r * 128 + 16 * j + 4 * q) =
+            attn::pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+  const int sub = lane >> 3, d0 = 8 * (lane & 7);
+  for (int r0 = 4 * warp; r0 < live; r0 += 16) {
+    const int row = min(r0 + sub, live - 1);  // every lane shuffles
+    float qv[8];
+    {
+      const uint4 u = *reinterpret_cast<const uint4*>(qs + row * 128 + 2 * d0);
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(h[e]);
+        qv[2 * e] = f.x;
+        qv[2 * e + 1] = f.y;
+      }
+    }
+    const size_t img = row0 + row;  // image = row (S = 1)
+    const size_t cb = img * N + n0 + d0, ts = (size_t)p.R * N;
+    float sc[kCtx];
+    float mx = -INFINITY;
+#pragma unroll
+    for (int t = 0; t < kCtx; ++t) {
+      if (t >= T) break;
+      const uint4 u = *reinterpret_cast<const uint4*>(p.ck + cb + t * ts);
+      const __nv_bfloat162* k = reinterpret_cast<const __nv_bfloat162*>(&u);
+      float s = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(k[e]);
+        s += qv[2 * e] * f.x + qv[2 * e + 1] * f.y;
+      }
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      s += __shfl_xor_sync(0xffffffffu, s, 4);
+      sc[t] = s * p.scale;
+      mx = fmaxf(mx, sc[t]);
+    }
+    float den = 0.f;
+#pragma unroll
+    for (int t = 0; t < kCtx; ++t) {
+      if (t >= T) break;
+      sc[t] = __expf(sc[t] - mx);
+      den += sc[t];
+    }
+    const float inv = 1.0f / den;
+    float o[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) o[e] = 0.f;
+#pragma unroll
+    for (int t = 0; t < kCtx; ++t) {
+      if (t >= T) break;
+      const float pt = round_bf16(sc[t] * inv);
+      const uint4 u = *reinterpret_cast<const uint4*>(p.cv + cb + t * ts);
+      const __nv_bfloat162* v = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(v[e]);
+        o[2 * e] += pt * f.x;
+        o[2 * e + 1] += pt * f.y;
+      }
+    }
+    if (r0 + sub < live)
+      *reinterpret_cast<uint4*>(p.out + img * N + n0 + d0) =
+          make_uint4(attn::pack_bf16(o[0], o[1]), attn::pack_bf16(o[2], o[3]),
+                     attn::pack_bf16(o[4], o[5]), attn::pack_bf16(o[6], o[7]));
+  }
+}
+
+// The decode's residual and GEGLU epilogues (DEC) the same way: the
+// warpgroup stages the f32 accumulators of its live rows in shared memory
+// (`stg`, [NW][64 rows][BN], 256 bytes a row) and takes them four rows a
+// warp, eight columns a lane, with residual_epilogue's and
+// geglu_epilogue's arithmetic and one 16-byte store a lane.
+template <int KIND, int BN>
+__device__ __forceinline__ void rows_epilogue(const float (&a)[BN / 2],
+                                              const float (&g)[BN / 2],
+                                              const Args& p,
+                                              unsigned char* stg, int row0,
+                                              int r_in, int n0, int q) {
+  static_assert(BN == 64, "a row of the tile is 256 bytes of f32");
+  constexpr int NW = n_weights(KIND);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int live = min(64, p.R - row0), N = p.N;
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");  // stg is free
+#pragma unroll
+  for (int w = 0; w < NW; ++w)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r_in + 8 * h;
+      if (r < live)
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+          *reinterpret_cast<float2*>(stg + (w * 64 + r) * 256 + 32 * j +
+                                     8 * q) =
+              make_float2(w ? g[4 * j + 2 * h] : a[4 * j + 2 * h],
+                          w ? g[4 * j + 2 * h + 1] : a[4 * j + 2 * h + 1]);
+    }
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+  const int c0 = 8 * (lane & 7), col = n0 + c0;
+  for (int row = 4 * warp + (lane >> 3); row < live; row += 16) {
+    float v[NW][8];
+#pragma unroll
+    for (int w = 0; w < NW; ++w)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float4 f = *reinterpret_cast<const float4*>(
+            stg + (w * 64 + row) * 256 + 4 * c0 + 16 * e);
+        v[w][4 * e] = f.x;
+        v[w][4 * e + 1] = f.y;
+        v[w][4 * e + 2] = f.z;
+        v[w][4 * e + 3] = f.w;
+      }
+    const size_t gr = (size_t)(row0 + row) * N + col;
+    uint32_t o[4];
+    if constexpr (KIND == kResidual) {
+      const uint4 res = __ldg(reinterpret_cast<const uint4*>(p.res + gr));
+      uint32_t y[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 b =
+            __ldg(reinterpret_cast<const float2*>(p.bias0 + col + 2 * e));
+        y[e] = attn::pack_bf16(v[0][2 * e] + b.x, v[0][2 * e + 1] + b.y);
+      }
+      const uint4 sum = add_bf16x8(res, make_uint4(y[0], y[1], y[2], y[3]));
+      o[0] = sum.x;
+      o[1] = sum.y;
+      o[2] = sum.z;
+      o[3] = sum.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float f[2];
+        const float2 ba =
+            __ldg(reinterpret_cast<const float2*>(p.bias0 + col + 2 * e));
+        const float2 bg =
+            __ldg(reinterpret_cast<const float2*>(p.bias1 + col + 2 * e));
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const float av = v[0][2 * e + u] + (u ? ba.y : ba.x);
+          const float gv = v[NW - 1][2 * e + u] + (u ? bg.y : bg.x);
+          f[u] = av * (0.5f * gv * (1.0f + erff(gv * 0.7071067811865476f)));
+        }
+        o[e] = attn::pack_bf16(f[0], f[1]);
+      }
+    }
+    *reinterpret_cast<uint4*>(p.out + gr) = make_uint4(o[0], o[1], o[2], o[3]);
+  }
+}
+
 // One CTA: rows [BM by, + BM) and column tiles [tiles_per_cta bx,
 // + tiles_per_cta) of out; warps 0 .. 4 CW - 1 the consumers, warp 4 CW the
 // producer. Split (PP false): warpgroup g owns rows 64 g .. 64 g + 63 of
@@ -568,25 +973,33 @@ __device__ __forceinline__ void cross_epilogue(const float (&acc)[BN / 2],
 // filled by a producer lane of its own: one ring read by two warpgroups
 // out of step would let a parity wait pass a phase early.
 // ta: the streamed A (kResidual) or the LayerNorm's src (the others),
-// [R, K], box {32, BM}; tw0, tw1: the weights (box {32, 64}; tw1 only for
-// kGeglu).
-template <int CW, int BM, int BN, bool PP, int KIND>
+// [R, K], box {32, BM}; tw0, tw1: the weights (box {32, 64}, int8 {64, 64};
+// tw1 only for kGeglu).
+// DEC (the decode chain's launches: one 64 x 64 split tile a CTA, K % 64
+// == 0): the K split over the cluster, programmatic dependent launch and
+// live-row LayerNorm of the header's note; WT = int8_t only there.
+template <int CW, int BM, int BN, bool PP, int KIND, typename WT = bf16,
+          bool DEC = false>
 __global__ void __launch_bounds__(128 * CW + 32,
-                                  CW == 2 ? 1 : BN == 64 ? 3 : 2)
+                                  CW == 2 ? 1 : DEC ? 2 : BN == 64 ? 3 : 2)
     block_gemm_kernel(const __grid_constant__ CUtensorMap ta,
                       const __grid_constant__ CUtensorMap tw0,
                       const __grid_constant__ CUtensorMap tw1,
-                      const Args p) {
+                      const std::conditional_t<DEC, DecodeArgs, Args> p) {
   using namespace attn;
   static_assert(PP ? CW == 2 && (BM == 64 || BM == 128) : BM == 64 * CW,
                 "a split tile gives each warpgroup 64 rows");
+  constexpr bool W8 = std::is_same<WT, int8_t>::value;
+  static_assert(!DEC || (CW == 1 && BN == 64 && !PP),
+                "a decode launch runs the 64 x 64 split tile");
+  static_assert(!W8 || DEC, "int8 weights in the decode launches only");
   constexpr int kCons = 128 * CW;
   constexpr int MT = PP ? BM / 64 : 1;  // wgmma row tiles a warpgroup
   constexpr int NW = n_weights(KIND);
   constexpr bool kLN = KIND != kResidual;
   constexpr int kAPanel = a_panel_bytes(BM);
   constexpr int kAStage = a_stage_bytes(KIND, BM);
-  constexpr int kStage = stage_bytes(KIND, BM, BN);
+  constexpr int kStage = stage_bytes(KIND, BM, BN, W8);
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -594,15 +1007,25 @@ __global__ void __launch_bounds__(128 * CW + 32,
   const int ST = p.stages;
   const uint32_t panel = base;
   const uint32_t ring = base + panel_region(KIND, BM, p.K);
-  const uint32_t full = ring + ST * kStage, empty = full + 8 * ST;
+  // the K split: this CTA's rank in its cluster and the cluster's size
+  const int kr = DEC ? cluster_rank() : 0, ks = DEC ? cluster_size() : 1;
+  const uint32_t full = [&] {
+    if constexpr (DEC)
+      return base + data_bytes(KIND, BM, BN, p.K, ST, W8, ks, p.rb);
+    else
+      return ring + ST * kStage;
+  }();
+  const uint32_t empty = full + 8 * ST;
   const uint32_t pbar = empty + 8 * ST;  // the LayerNorm panel's arrival
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row0 = blockIdx.y * BM;
   const int ntiles = (p.N + BN - 1) / BN;
-  const int t_begin = blockIdx.x * p.tiles_per_cta;
+  const int t_begin = (DEC ? blockIdx.x / ks : blockIdx.x) * p.tiles_per_cta;
   const int t_end = min(ntiles, t_begin + p.tiles_per_cta);
   const int nkb = (p.K + kBK - 1) / kBK;
+  const int kb0 = DEC ? kr * nkb / ks : 0;  // this rank's K-steps
+  const int kb1 = DEC ? (kr + 1) * nkb / ks : nkb;
   const bool k_tail = p.K % kBK != 0;  // the last K-step has one A panel
   const int RS = PP ? ST / 2 : ST;     // stages of a ring
   const int t_step = PP ? 2 : 1;       // a ring's column tiles
@@ -626,6 +1049,67 @@ __global__ void __launch_bounds__(128 * CW + 32,
 
   if (warp == kCons / 32) {
     // ------------------------------------------------------ the producer
+    if constexpr (DEC) {
+      if (lane == 0) {
+        // the next launch may start: it waits for this one to finish
+        // before it reads what this one writes
+        griddep_launch_dependents();
+        const int n0 = t_begin * BN;
+        const int npan = min(BN / kPW, (p.N - n0 + kPW - 1) / kPW);
+        const int abytes = kLN ? 0 : 2 * p.rb * 64;
+        const int wbytes = W8 ? NW * BN * kBK : NW * npan * kWPanel;
+        const int nk = kb1 - kb0, pre = min(ST, nk);
+        auto load_w = [&](uint32_t st, uint32_t bar, int kb) {
+#pragma unroll
+          for (int w = 0; w < NW; ++w) {
+            if constexpr (W8)
+              tma_load_2d(w ? &tw1 : &tw0,
+                          st + kAStage + w_stage_bytes(KIND, BN) +
+                              w * BN * kBK,
+                          bar, n0, kb * kBK);
+            else
+              for (int q = 0; q < npan; ++q)
+                tma_load_2d(w ? &tw1 : &tw0,
+                            st + kAStage + (w * (BN / kPW) + q) * kWPanel,
+                            bar, n0 + q * kPW, kb * kBK);
+          }
+        };
+        // W of the first stages: no earlier launch writes it
+        for (int i = 0; i < pre; ++i) {
+          mbar_expect_tx(full + 8 * i, abytes + wbytes);
+          load_w(ring + i * kStage, full + 8 * i, kb0 + i);
+        }
+        griddep_wait();  // A / src are the launch before's output
+        if (kLN) {
+          mbar_expect_tx(pbar, (p.K / kPW) * p.rb * 64);
+          for (int q = 0; q < p.K / kPW; ++q)
+            tma_load_2d(&ta, panel + q * kAPanel, pbar, q * kPW, row0);
+        }
+        int s = 0, phase = 0;
+        for (int i = 0; i < nk; ++i) {
+          const uint32_t st = ring + s * kStage, bar = full + 8 * s;
+          if (i >= pre) {
+            mbar_wait(empty + 8 * s, phase ^ 1);
+            mbar_expect_tx(bar, abytes + wbytes);
+            load_w(st, bar, kb0 + i);
+          }
+          if (!kLN)
+            for (int a = 0; a < 2; ++a)
+              tma_load_2d(&ta, st + a * kAPanel, bar,
+                          (kb0 + i) * kBK + a * kPW, row0);
+          if (++s == ST) {
+            s = 0;
+            phase ^= 1;
+          }
+        }
+      }
+      __syncwarp();
+      if (ks > 1) {  // the consumers' cluster barrier
+        cluster_arrive();
+        cluster_wait();
+      }
+      return;
+    }
     if (lane < (PP ? 2 : 1)) {  // lane r fills ring r
       if (kLN && lane == 0) {  // the LayerNorm's rows, every panel at once
         mbar_expect_tx(pbar, (p.K / kPW) * kAPanel);
@@ -662,7 +1146,9 @@ __global__ void __launch_bounds__(128 * CW + 32,
   }
 
   // ------------------------------------------------------- the consumers
-  if (kLN) layer_norm_prologue<CW, BM>(gbase, pbar, p);
+  if (kLN)
+    layer_norm_prologue<CW, BM>(gbase, pbar, p,
+                                DEC ? min(BM, p.R - row0) : BM);
   const int g = warp >> 2;  // consumer warpgroup
   const int q = lane & 3;
   // the first of this thread's rows in wgmma row tile m: 64 m (ping-pong)
@@ -672,9 +1158,16 @@ __global__ void __launch_bounds__(128 * CW + 32,
   int s = 0, phase = 0, prev = 0;
   float acc[NW][MT][BN / 2];
   for (int t = t_begin + (PP ? g : 0); t < t_end; t += t_step) {
-    for (int kb = 0; kb < nkb; ++kb) {
+    for (int kb = kb0; kb < kb1; ++kb) {
       mbar_wait(full + 8 * (r0s + s), phase);
       const uint32_t st = ring + (r0s + s) * kStage;
+      if constexpr (W8) {  // int8 boxes -> bf16 panels, for wgmma to read
+        convert_w8<NW>(gbase + (st - base) + kAStage,
+                       gbase + (st - base) + kAStage +
+                           w_stage_bytes(KIND, BN));
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        asm volatile("bar.sync 1, %0;\n" ::"n"(kCons) : "memory");
+      }
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk) {
@@ -691,12 +1184,12 @@ __global__ void __launch_bounds__(128 * CW + 32,
                 acc[w][m], da,
                 sw64_desc(st + kAStage + w * (BN / kPW) * kWPanel + kk * 1024,
                           kWPanel, 512),
-                (kb | kk) != 0);
+                DEC ? (kb != kb0 || kk != 0) : (kb | kk) != 0);
         }
       }
       wgmma_commit();
       wgmma_wait<1>();
-      if (kb > 0) {  // the group before this one is done with its stage
+      if (kb > kb0) {  // the group before this one is done with its stage
         __syncwarp();
         if (lane == 0) mbar_arrive(empty + 8 * (r0s + prev));
       }
@@ -709,16 +1202,73 @@ __global__ void __launch_bounds__(128 * CW + 32,
     wgmma_wait<0>();
     __syncwarp();
     if (lane == 0) mbar_arrive(empty + 8 * (r0s + prev));
+    if constexpr (DEC) {
+      // a partial tile's float4 j of weight w for this thread, if its
+      // warp holds live rows (warps 0 .. lw - 1), in the split's region
+      const int lw = (p.rb + 15) / 16;
+      const bool live = warp < lw;
+      const uint32_t split = ring + ST * kStage;
+      auto slot = [&](int r, int w, int j) {
+        return split + 16 * ((((r - 1) * NW + w) * (BN / 8) + j) * 32 * lw +
+                             threadIdx.x);
+      };
+      if (ks > 1) {
+        if (kr != 0) {  // rank r's tile into rank 0's slot r - 1
+          if (live) {
+#pragma unroll
+            for (int w = 0; w < NW; ++w)
+#pragma unroll
+              for (int j = 0; j < BN / 8; ++j)
+                st_cluster_f4(cluster_addr(slot(kr, w, j), 0),
+                              acc[w][0][4 * j], acc[w][0][4 * j + 1],
+                              acc[w][0][4 * j + 2], acc[w][0][4 * j + 3]);
+          }
+          cluster_arrive();
+          cluster_wait();
+          return;
+        }
+        cluster_arrive();
+      }
+      griddep_wait();  // the residual is the launch before's output
+      prefetch_epilogue<KIND, BN>(p, row0 + r_in, t * BN, q);
+      if (ks > 1) {
+        cluster_wait();  // the others' tiles have landed
+        // in rank order (bit-equal calls); dead warps' rows are not stored
+        for (int r = 1; r < (live ? ks : 1); ++r)
+#pragma unroll
+          for (int w = 0; w < NW; ++w)
+#pragma unroll
+            for (int j = 0; j < BN / 8; ++j) {
+              const float4 v = *reinterpret_cast<const float4*>(
+                  gbase + (slot(r, w, j) - base));
+              acc[w][0][4 * j] += v.x;
+              acc[w][0][4 * j + 1] += v.y;
+              acc[w][0][4 * j + 2] += v.z;
+              acc[w][0][4 * j + 3] += v.w;
+            }
+      }
+    }
     const int n0 = t * BN;
 #pragma unroll
     for (int m = 0; m < MT; ++m) {
 #pragma unroll
       for (int w = 0; w < NW; ++w) fence_regs(acc[w][m]);
+      if constexpr (W8) {
+        scale_cols<BN>(acc[0][m], p.ws0, p.N, n0, q);
+        if constexpr (NW == 2) scale_cols<BN>(acc[1][m], p.ws1, p.N, n0, q);
+      }
       const int r0 = row0 + 64 * m + r_in;
-      if constexpr (KIND == kResidual)
+      if constexpr (DEC && (KIND == kResidual || KIND == kGeglu))
+        rows_epilogue<KIND, BN>(acc[0][m], acc[NW - 1][m], p, gbase, row0,
+                                r_in, n0, q);
+      else if constexpr (KIND == kResidual)
         residual_epilogue<BN>(acc[0][m], p, r0, n0, q);
+      else if constexpr (DEC && KIND == kCross64Short)
+        cross_rows_epilogue<BN>(acc[0][m], p, gbase, row0, r_in, n0, q);
       else if constexpr (is_cross(KIND))
-        cross_epilogue<BN, KIND == kCross64 ? 64 : 32, KIND != kCross>(
+        cross_epilogue<BN,
+                       KIND == kCross64 || KIND == kCross64Short ? 64 : 32,
+                       KIND == kCrossLong || KIND == kCross64, DEC>(
             acc[0][m], p, r0, n0, q);
       else if constexpr (KIND == kGeglu)
         geglu_epilogue<BN>(acc[0][m], acc[1][m], p, r0, n0, q);
@@ -736,8 +1286,10 @@ __global__ void __launch_bounds__(128 * CW + 32,
 // (BM, BN) = (128, 128), (64, 128), (64, 64) for kResidual; split
 // (64, 64) for the cross kinds; ping-pong (128, 64) and (64, 64) for
 // kGeglu; split (128, 128) and ping-pong (64, 128) for kQkv.
+// ks: CTAs of a K-split cluster (the decode launches; 1 elsewhere).
 struct Plan {
   int bm, bn, pp, tiles_per_cta, stages;
+  int ks = 1;
 };
 
 inline bool plan_ok(const Plan& pl, int kind, int K) {
@@ -755,26 +1307,56 @@ inline bool plan_ok(const Plan& pl, int kind, int K) {
          smem_bytes(kind, pl.bm, pl.bn, K, pl.stages) <= kSmemLimit;
 }
 
-// The tensor map of a weight [rows, cols] (boxes {32, 64}), built once per
-// (device, pointer, shape) and kept: the weights live across calls, and a
+// The tensor map of an int8 row-major [rows, cols] matrix: boxes
+// {box_cols, box_rows}, box_cols bytes a row swizzled across 64 bytes as a
+// bf16 box of 32 columns is, rows and columns past the matrix zero-filled.
+inline bool make_map_u8(CUtensorMap* map, const void* ptr, int rows,
+                        int cols, int box_cols, int box_rows) {
+  const attn::EncodeTiledFn fn = attn::encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The tensor map of a row-major [rows, cols] matrix of `esize`-byte
+// elements (bf16 or int8) in boxes {box_cols, box_rows}, built once per
+// everything it encodes (device, pointer, shape, box, element) and kept: a
 // map holds only the address, shape and box, so a new tensor at the same
-// address with the same shape is described by the same map.
-inline bool weight_map(CUtensorMap* map, int dev, const void* w, int rows,
-                       int cols) {
-  typedef std::tuple<int, uintptr_t, int, int> Key;
+// address with the same shape is described by the same map. The weights
+// live across calls; the decode chain's activations come back to the same
+// addresses from PyTorch's caching allocator, call after call.
+inline bool cached_map(CUtensorMap* map, int dev, const void* ptr, int rows,
+                       int cols, int box_cols, int box_rows, int esize) {
+  typedef std::tuple<int, uintptr_t, int, int, int, int, int> Key;
   static std::mutex mu;
   static std::map<Key, CUtensorMap> cache;
-  const Key key(dev, reinterpret_cast<uintptr_t>(w), rows, cols);
+  const Key key(dev, reinterpret_cast<uintptr_t>(ptr), rows, cols, box_cols,
+                box_rows, esize);
   std::lock_guard<std::mutex> lock(mu);
   auto it = cache.find(key);
   if (it == cache.end()) {
     CUtensorMap m;
-    if (!attn::make_map_2d(&m, w, rows, cols, kPW, kBK)) return false;
+    if (!(esize == 2 ? attn::make_map_2d(&m, ptr, rows, cols, box_cols,
+                                         box_rows)
+                     : make_map_u8(&m, ptr, rows, cols, box_cols, box_rows)))
+      return false;
     if (cache.size() >= 4096) cache.clear();
     it = cache.emplace(key, m).first;
   }
   *map = it->second;
   return true;
+}
+
+// The tensor map of a bf16 weight [rows, cols] (boxes {32, 64}).
+inline bool weight_map(CUtensorMap* map, int dev, const void* w, int rows,
+                       int cols) {
+  return cached_map(map, dev, w, rows, cols, kPW, kBK, 2);
 }
 
 template <int CW, int BM, int BN, bool PP, int KIND>
@@ -838,6 +1420,74 @@ int launch(const Plan& pl, const void* a_src, const void* w0, const void* w1,
             : launch_tile<1, 64, 128, false, KIND>(ta, tw0, tw1, a, dev,
                                                    stream);
   return (int)e;
+}
+
+// One launch of the decode chain (DEC): out = epilogue(A @ W) at R rows
+// with the 64 x 64 split tile, a CTA a column tile, the K-steps split over
+// clusters of pl.ks CTAs; ck, cv time-major [T, R, N]; WT = int8_t: w0 /
+// w1 int8 codes with a.ws0 / a.ws1 their column scales. pdl: the launch
+// may start while the one before it in the stream finishes (programmatic
+// stream serialization). Returns a cudaError_t; cudaErrorInvalidValue for
+// a plan or shape it does not take.
+template <int KIND, typename WT>
+int launch_decode(const Plan& pl, const void* a_src, const void* w0,
+                  const void* w1, DecodeArgs a, bool pdl,
+                  cudaStream_t stream) {
+  constexpr bool W8 = std::is_same<WT, int8_t>::value;
+  constexpr int BM = 64, BN = 64;
+  auto kernel = block_gemm_kernel<1, BM, BN, false, KIND, WT, true>;
+  const int nkb = a.K / kBK;
+  a.rb = a.R >= BM ? BM : (a.R + 7) / 8 * 8;
+  const int smem = smem_bytes(KIND, BM, BN, a.K, pl.stages, W8, pl.ks, a.rb);
+  if (pl.bm != BM || pl.bn != BN || pl.pp != 0 || pl.tiles_per_cta != 1 ||
+      pl.stages < 2 || pl.stages > kMaxStages || smem > kSmemLimit ||
+      pl.ks < 1 || pl.ks > kMaxKS || pl.ks > nkb || a.R < 1 ||
+      a.N < BN || a.N % BN || a.K < kBK || a.K % kBK ||
+      (KIND != kResidual && a.K > kMaxLNK) ||
+      (is_cross(KIND) && KIND != kCross64 && a.T > kCtx))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t e = attn::bind_device(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const int wbox = W8 ? BN : kPW, esize = W8 ? 1 : 2;
+  CUtensorMap ta, tw0, tw1;
+  if (!cached_map(&tw0, dev, w0, a.K, a.N, wbox, kBK, esize) ||
+      !cached_map(&tw1, dev, KIND == kGeglu ? w1 : w0, a.K, a.N, wbox, kBK,
+                  esize) ||
+      !cached_map(&ta, dev, a_src, a.R, a.K, kPW, a.rb, 2))
+    return (int)cudaErrorInvalidValue;
+  a.stages = pl.stages;
+  a.tiles_per_cta = 1;
+  static unsigned long long smem_set = 0;  // the opt-in, once per device
+  static std::mutex mu;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    e = attn::allow_smem(kernel, kSmemLimit, dev, smem_set);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.N / BN * pl.ks, (a.R + BM - 1) / BM, 1);
+  cfg.blockDim = dim3(128 + 32, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[2];
+  int n = 0;
+  if (pl.ks > 1) {
+    attr[n].id = cudaLaunchAttributeClusterDimension;
+    attr[n].val.clusterDim.x = pl.ks;
+    attr[n].val.clusterDim.y = 1;
+    attr[n].val.clusterDim.z = 1;
+    ++n;
+  }
+  if (pdl) {
+    attr[n].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[n].val.programmaticStreamSerializationAllowed = 1;
+    ++n;
+  }
+  cfg.attrs = attr;
+  cfg.numAttrs = n;
+  e = cudaLaunchKernelEx(&cfg, kernel, ta, tw0, tw1, a);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 }  // namespace gemm

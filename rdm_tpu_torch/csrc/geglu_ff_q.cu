@@ -9,12 +9,12 @@
 //   y   = xm + bf16((hq @ w2^T) * (ah * ws2) + b2)
 // wa, wg int8 [F, C], w2 int8 [C, F] (out, in); scales f32 per column.
 //
-// As geglu_ff.cu, two launches stand in for the TPU kernel's sequential
+// As geglu_ff_sm90.cu, two launches stand in for the TPU kernel's sequential
 // accumulation over F blocks: geglu_up_q_kernel (LN3 prologue, quantized
 // panel, value and gate products sharing each A fragment, the gate and
 // the h_ff quantization in the epilogue) writes the int8 codes hq [R, F]
 // — the value the TPU kernel quantizes before its second product, half
-// the bytes of geglu_ff.cu's bf16 round trip — and ff_down_q_kernel
+// the bytes of geglu_ff_sm90.cu's bf16 round trip — and ff_down_q_kernel
 // streams hq @ w2^T and adds b2 and the residual. erff is CUDA's exact erf
 // (the TPU kernel used the A&S 7.1.26 polynomial; the plain PyTorch
 // version uses torch.erf).

@@ -12,9 +12,6 @@
 // changes only the order of f32 sums. The value and gate products share
 // each A descriptor into two accumulators. csrc/block_gemm_sm90.cuh says
 // what bounds it and how the core is built.
-//
-// csrc/geglu_ff.cu keeps the first (wmma) version for the RARM decode
-// chain, which runs it at R = B rows with bf16 or int8 weights.
 #include "block_gemm_sm90.cuh"
 
 extern "C" int rdm_geglu_ff_sm90(const void* xm, const void* n3s,

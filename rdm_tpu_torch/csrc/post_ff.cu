@@ -12,9 +12,9 @@
 //   f_j = bf16((h3 @ wa_j + ba_j) * gelu(h3 @ wg_j + bg_j))   per 64-wide
 //                                        slice j of F, exact-erf gelu
 //   y  = xm + bf16(sum_j f_j @ w2[j] + b2)
-// with the rounding of csrc/post_cross.cu and csrc/geglu_ff.cu, and the
-// down-projection summed over F in the same k order as ff_down_kernel, so
-// the kernel computes what the split pair computes.
+// with the rounding of csrc/post_cross.cu and csrc/geglu_ff_sm90.cu, so
+// the kernel computes what the split pair computes, up to the order of f32
+// sums.
 //
 // The TPU kernel carried an f32 [M, C] accumulator across a sequential
 // grid axis over F column blocks. Here one thread block owns its 32 rows

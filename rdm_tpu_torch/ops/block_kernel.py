@@ -93,6 +93,12 @@ GEMM_TILES = {"residual": ((128, 128, 0), (64, 128, 0), (64, 64, 0)),
               "qkv": ((128, 128, 0), (64, 128, 1))}
 _GEMM_STAGES = 8  # csrc/block_gemm_sm90.cuh kMaxStages
 _GEMM_BK = 64
+# The decode chain's launches (`gemm_plan(split_k=True)`): one tile, 64
+# rows (the batch, zero-filled past it) x 64 columns, split warpgroups, K
+# split over a cluster of up to _MAX_KS CTAs (kMaxKS, the portable cluster
+# size), each CTA two or more K-steps.
+DECODE_TILE = (64, 64, 0)
+_MAX_KS = 8
 _SMEM_LIMIT = 232448  # a CTA's opt-in maximum
 _SMEM_SM = 233472     # an SM's, each resident CTA taking 1 KB more
 
@@ -184,13 +190,16 @@ class GemmPlan(NamedTuple):
     """One launch of the block-GEMM core: a tile of `bm` rows and `bn`
     columns, `pp` 1 for two ping-pong warpgroups (else bm / 64 split
     ones), `tiles_per_cta` column tiles a CTA walks, `stages` of the ring,
-    `smem` bytes a CTA."""
+    `smem` bytes a CTA, `ks` CTAs of a cluster splitting K (the decode
+    chain's launches; 1 elsewhere). `args` are the U-Net launchers' five
+    ints; the decode launcher takes `args` and `ks`."""
     bm: int
     bn: int
     pp: int
     tiles_per_cta: int
     stages: int
     smem: int
+    ks: int = 1
 
     @property
     def args(self):
@@ -202,17 +211,28 @@ def _threads(bm: int, pp: int) -> int:
     return 128 * (2 if pp else bm // 64) + 32
 
 
-def gemm_smem(kind: str, bm: int, bn: int, k: int, stages: int) -> int:
+def gemm_smem(kind: str, bm: int, bn: int, k: int, stages: int,
+              w8: bool = False, ks: int = 1,
+              rows: Optional[int] = None) -> int:
     """Shared bytes of a CTA (csrc/block_gemm_sm90.cuh `smem_bytes`): the
     normalised A panel (LayerNorm kinds; K rounded up to a 64-wide K-step,
     bm rows x 2 bytes), then `stages` x (two streamed A panels of 32
-    columns for "residual" + bn columns x 64 K-rows of each weight), then
-    the ring's and the panel's barriers, after up to 1 KB of alignment."""
+    columns for "residual" + bn columns x 64 K-rows of each weight in bf16,
+    and with int8 weights (w8) their int8 boxes beside), then the ring's
+    and the panel's barriers, after up to 1 KB of alignment. With a K
+    split over ks CTAs (`split_bytes`) a region of its own after the ring
+    takes what rank 0 receives: ks - 1 f32 partial tiles of the warps
+    that hold the launch's first `rows` rows (16 a warp; all bm rows by
+    default)."""
+    rb = bm if rows is None else min(bm, rows)
     panel = 0 if kind == "residual" else -(-k // _GEMM_BK) * 2 * bm * 64
     a_stage = 2 * bm * 64 if kind == "residual" else 0
     nw = 2 if kind == "geglu" else 1
     stage = a_stage + nw * (bn // 32) * _GEMM_BK * 64
-    return 1024 + panel + stages * stage + 8 * (2 * stages + 1)
+    if w8:
+        stage += nw * bn * _GEMM_BK
+    split = (ks - 1) * nw * -(-rb // 16) * 64 * bn
+    return 1024 + panel + stages * stage + split + 8 * (2 * stages + 1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -245,8 +265,50 @@ def _gemm_refusal(kind: str, k: int) -> Optional[str]:
             f"{kind} launch")
 
 
+def _per_sm(kind: str, bm: int, bn: int, pp: int, k: int, st: int,
+            w8: bool = False, ks: int = 1,
+            rows: Optional[int] = None) -> int:
+    """CTAs of a plan resident on one SM, by shared memory and threads."""
+    smem = gemm_smem(kind, bm, bn, k, st, w8, ks, rows)
+    return min(_SMEM_SM // (smem + 1024), 2048 // _threads(bm, pp))
+
+
+def _split_k_plan(kind: str, r: int, n: int, k: int, sms: int,
+                  w8: bool) -> GemmPlan:
+    """gemm_plan(split_k=True): DECODE_TILE, a CTA one column tile. KS
+    > 1 only for a launch of one 64-row block (r <= 64) whose column tiles
+    fill fewer than half the SMs: then the largest KS up to _MAX_KS that
+    leaves each CTA two or more K-steps and the grid within one wave. The
+    ring holds the CTA's K-steps, 2 to 8 stages, as deep as fits beside
+    the split's region."""
+    if kind not in ("residual", "cross", "geglu"):
+        raise ValueError(f"gemm_plan: the decode chain has no {kind!r} "
+                         "launch")
+    bm, bn, pp = DECODE_TILE
+    nkb, ntiles = -(-k // _GEMM_BK), -(-n // bn)
+
+    def stages(ks):  # a ring no deeper than the CTA's K-steps, or None
+        fit = [st for st in range(2, max(2, min(_GEMM_STAGES,
+                                                -(-nkb // ks))) + 1)
+               if gemm_smem(kind, bm, bn, k, st, w8, ks, r) <= _SMEM_LIMIT]
+        return fit[-1] if fit else None
+
+    if stages(1) is None:
+        raise ValueError(f"gemm_plan: K={k} leaves no room in shared memory "
+                         f"for the decode chain's {kind} launch")
+    ks = 1
+    if r <= bm and 2 * ntiles < sms:
+        ks = next((x for x in range(_MAX_KS, 1, -1) if nkb // x >= 2
+                   and stages(x) is not None and ntiles * x <= sms * _per_sm(
+                       kind, bm, bn, pp, k, stages(x), w8, x, r)), 1)
+    st = stages(ks)
+    return GemmPlan(bm, bn, pp, 1, st,
+                    gemm_smem(kind, bm, bn, k, st, w8, ks, r), ks)
+
+
 @functools.lru_cache(maxsize=None)
-def gemm_plan(kind: str, r: int, n: int, k: int, sms: int) -> GemmPlan:
+def gemm_plan(kind: str, r: int, n: int, k: int, sms: int, *,
+              split_k: bool = False, w8: bool = False) -> GemmPlan:
     """The tile of one launch on a card of `sms` SMs: the first of the
     kind's GEMM_TILES whose ring keeps 3 or more stages (a ping-pong
     tile's two rings 2 each) in shared memory and whose grid still gives
@@ -258,7 +320,11 @@ def gemm_plan(kind: str, r: int, n: int, k: int, sms: int) -> GemmPlan:
     can use (the deeper on a tie), and let a CTA walk several column tiles
     of its row block, normalising its rows once: the fewest tiles a CTA
     that still fit the grid in one wave (W's traffic is the same for any
-    split)."""
+    split). split_k: the decode chain's launch (`_split_k_plan`; w8, its
+    int8 weights), whose launcher takes a K split across a cluster; every
+    other launch has ks = 1."""
+    if split_k:
+        return _split_k_plan(kind, r, n, k, sms, w8)
     fits = _gemm_fits(kind, k)
     if not fits:
         raise ValueError(_gemm_refusal(kind, k))
@@ -268,8 +334,7 @@ def gemm_plan(kind: str, r: int, n: int, k: int, sms: int) -> GemmPlan:
             break
 
     def per_sm(st):
-        return min(_SMEM_SM // (gemm_smem(kind, bm, bn, k, st) + 1024),
-                   2048 // _threads(bm, pp))
+        return _per_sm(kind, bm, bn, pp, k, st)
 
     if kind == "residual":
         tpc = 1

@@ -12,8 +12,11 @@ runs as:
                         `_attn_kernel`)
   2. `decode_post_ff` - out-proj + residual, LN2 + q projection +
                         cross-attention, out-proj + residual, LN3 + GEGLU
-                        FF + residual (csrc/decode_post_ff.cu, a chain of
-                        five launches; replaces `_post_ff_kernel`)
+                        FF + residual (csrc/decode_post_ff.cu: five
+                        launches of the block-GEMM core,
+                        csrc/block_gemm_sm90.cuh, each splitting K over a
+                        cluster where one 64-row block leaves the card
+                        idle; replaces `_post_ff_kernel`)
   3. `commit_rows`    - writes one step's k/v rows of every layer into
                         their caches at row pos in one launch
                         (csrc/commit_rows.cu; replaces `_commit_kernel`)
@@ -71,9 +74,9 @@ import torch.nn.functional as F
 
 from rdm_tpu_torch.ops import _build
 from rdm_tpu_torch.ops.block_kernel import (_check, _on_cpu, _p, _stream,
-                                            geglu_ff_reference, layer_norm,
-                                            ln_qkv_reference,
-                                            post_cross_reference)
+                                            geglu_ff_reference, gemm_plan,
+                                            layer_norm, ln_qkv_reference,
+                                            post_cross_reference, sm_count)
 from rdm_tpu_torch.ops.attention import dot_product_attention
 
 HEAD_DIM = 64        # the only head width the decode kernels take
@@ -291,7 +294,8 @@ def decode_post_ff(x, attn, cross_k, cross_v, wo, bo, n2s, n2b, wq2, wo2,
                    bo2, n3s, n3b, wa, wg, ba, bg, w2, b2, *, heads: int,
                    head_dim: int, scales=None):
     """Everything after the self-attention core: x, attn [B, C],
-    cross_k/v [S, B, C] -> x_out [B, C]. On CUDA a chain of five launches,
+    cross_k/v [S, B, C] -> x_out [B, C]. On CUDA five launches of the
+    block-GEMM core at R = B rows (`gemm_plan(split_k=True)` plans them),
     counted as one call. scales: the bf16 column scales of int8 (wo, wq2,
     wo2, wa, wg, w2), [C], [C], [C], [F], [F], [C]."""
     b, c = x.shape
@@ -326,6 +330,10 @@ def decode_post_ff(x, attn, cross_k, cross_v, wo, bo, n2s, n2b, wq2, wo2,
            i8=weights if quantized else [])
     if f % 64:
         raise ValueError(f"decode_post_ff: F={f} is not a multiple of 64")
+    sms = sm_count(x.device.index)
+    plans = [gemm_plan(kind, b, n, k, sms, split_k=True, w8=quantized)
+             for kind, n, k in (("residual", c, c), ("cross", c, c),
+                                ("geglu", f, c), ("residual", c, f))]
     x1, o2, xmid, out = (torch.empty_like(x) for _ in range(4))
     hidden = torch.empty((b, f), dtype=x.dtype, device=x.device)
     lib = _build.load()
@@ -334,7 +342,8 @@ def decode_post_ff(x, attn, cross_k, cross_v, wo, bo, n2s, n2b, wq2, wo2,
             *(_p(a) for a in args),
             *((_p(sc) for sc in scales) if quantized else (None,) * 6),
             _p(x1), _p(o2), _p(xmid), _p(hidden), _p(out), b, c, s, f,
-            head_dim ** -0.5, _stream(x))
+            head_dim ** -0.5, *(v for pl in plans for v in (*pl.args, pl.ks)),
+            _stream(x))
     _build.check(rc, "decode_post_ff")
     _launches["decode_post_ff_w8" if quantized else "decode_post_ff"] += 1
     return out

@@ -360,6 +360,10 @@ def test_plans_at_the_unet_sites():
                                ("geglu", f, c), ("residual", c, f),
                                ("qkv", 3 * c, c)):
                 p = bk.gemm_plan(kind, r, n, k, SMS)
+                # no K split at any U-Net site (R >= 128), even where the
+                # launcher takes one
+                assert p.ks == 1 and (kind == "qkv" or bk.gemm_plan(
+                    kind, r, n, k, SMS, split_k=True).ks == 1)
                 assert (p.bm, p.bn, p.pp) in bk.GEMM_TILES[kind]
                 assert p.smem == bk.gemm_smem(kind, p.bm, p.bn, k, p.stages)
                 assert p.smem <= bk._SMEM_LIMIT and 2 <= p.stages <= 8

@@ -18,7 +18,9 @@ alone; post_cross, post_ff and packed_attn at T = 17 to 40 and 64-wide
 heads; SpatialTransformer through the kernels at T = 20 and 40, head_dim
 64 and int8 at C = 672 against its unfused blocks in f32 on the CPU; for
 the decode kernels B = 3, C = 192 (3 heads of 64), pos 0 and T - 1, 1 and 16
-context rows, also in the int8_weights / int8_kv variants; for the int8
+context rows, also in the int8_weights / int8_kv variants, and
+decode_post_ff at C = 768 at B = 1 to 65 and 1, 4 and 20 context rows in
+both weight modes, in a CUDA graph and from a new thread; for the int8
 kernels R = 80 rows, a half-filled last 128-channel scale group, two
 512-row q scale cells and C = 672 at T = 20; for post_ff R = 80 rows and
 16 context tokens; for the kNN N not a multiple of the 64-row chunk,
@@ -757,6 +759,102 @@ def test_serving_modes_sample_on_card(cuda, opts):
     assert dk.launch_counts() == want
     assert toks.shape == (3, cfg.seq_len)
     assert 0 <= int(toks.min()) and int(toks.max()) < cfg.out_vocab
+
+
+def _post_ff_inputs(b: int, s: int, w8: bool, seed: int):
+    """decode_post_ff's arguments at the RARM's width (C = 768, 12 heads of
+    64, F = 3072), seeded on the card, and the int8 column scales (w8) or
+    None."""
+    c, f = 768, 3072
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shape, scale=1.0, loc=0.0):
+        return loc + scale * torch.randn(shape, generator=g, device="cuda")
+
+    ws = {n: rn(k, m, scale=k ** -0.5).bfloat16() for n, k, m in (
+        ("wo", c, c), ("wq2", c, c), ("wo2", c, c), ("wa", c, f),
+        ("wg", c, f), ("w2", f, c))}
+    scales = None
+    if w8:
+        q = {n: dk.quantize_weight(ws[n]) for n in ws}
+        ws = {n: q[n][0] for n in ws}
+        scales = tuple(q[n][1] for n in dk.POST_FF_WEIGHTS)
+    vec = {n: rn(m, scale=0.1) for n, m in (
+        ("bo", c), ("n2b", c), ("bo2", c), ("n3b", c), ("ba", f), ("bg", f),
+        ("b2", c))}
+    vec.update(n2s=rn(c, scale=0.1, loc=1.0), n3s=rn(c, scale=0.1, loc=1.0))
+    acts = [rn(b, c).bfloat16(), rn(b, c).bfloat16(),
+            rn(s, b, c).bfloat16(), rn(s, b, c).bfloat16()]
+    return acts + [ws.get(n, vec.get(n)) for n in (
+        "wo", "bo", "n2s", "n2b", "wq2", "wo2", "bo2", "n3s", "n3b", "wa",
+        "wg", "ba", "bg", "w2", "b2")], scales
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w8", [False, True])
+@pytest.mark.parametrize("s", [1, 4, 20])
+@pytest.mark.parametrize("b", [1, 3, 16, 32, 33, 65])
+def test_decode_post_ff_on_the_core(cuda, b, s, w8):
+    """decode_post_ff's five launches of the block-GEMM core at the RARM's
+    width, bf16 and int8 weights: B = 1 to 65 (one and two 64-row blocks;
+    the K split over clusters up to B = 64, none past it), S = 1, 4 and 20
+    context rows, against the plain version; one count a call, in the
+    mode's name; two calls equal bit for bit (rank-ordered sums, no
+    atomics)."""
+    ff, scales = _post_ff_inputs(b, s, w8, seed=100 * b + s + w8)
+    kw = dict(heads=12, head_dim=DHD, scales=scales)
+    dk.reset_launch_counts()
+    got = dk.decode_post_ff(*ff, **kw)
+    again = dk.decode_post_ff(*ff, **kw)
+    torch.cuda.synchronize()
+    want = dict.fromkeys(dk.KERNEL_NAMES, 0)
+    want["decode_post_ff_w8" if w8 else "decode_post_ff"] = 2
+    assert dk.launch_counts() == want
+    assert torch.isfinite(got).all()
+    assert _rel_err(got, dk.decode_post_ff_reference(*ff, **kw)) <= TOL
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w8", [False, True])
+def test_decode_post_ff_in_a_graph_and_a_new_thread(cuda, w8):
+    """The chain's launches (clusters, programmatic dependent launch)
+    captured in a CUDA graph replay bit-equal to eager, and a call from a
+    fresh thread (no current context until the launcher binds one) gives
+    the main thread's output bit for bit."""
+    ff, scales = _post_ff_inputs(16, 4, w8, seed=7)
+
+    def fn():
+        return dk.decode_post_ff(*ff, heads=12, head_dim=DHD, scales=scales)
+
+    eager = fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    got = []
+
+    def worker():
+        try:
+            got.append(fn())
+            torch.cuda.synchronize()
+        except Exception as e:  # re-raised on the test's thread below
+            got.append(e)
+
+    t = threading.Thread(target=worker)
+    t.start()
+    t.join()
+    if isinstance(got[0], Exception):
+        raise got[0]
+    assert torch.equal(got[0], eager)
 
 
 # ------------------------------------------------- flash attention, training
