@@ -50,12 +50,17 @@ exits non-zero):
                at full width (C = 768, 12 heads of 64, T = 256, F = 3072,
                bf16) at B = 16 and 32, pos 0/63/200/255, k = 4 context
                rows: error and median CUDA-event times; decode_attn's two
-               launches apart in CUDA graphs (the projection, decode_qkv.cu,
-               and the attention, decode_attn.cu) beside SDPA's device time
-               for the attention alone; decode_post_ff's five launches of
+               launches (csrc/decode_attn.cu: the projection, a kQkv
+               launch of the block-GEMM core, and the split-KV
+               attention) apart in CUDA graphs as plain stream launches,
+               beside SDPA's device time for the attention alone, and a
+               second call, a graph replay and a call with programmatic
+               dependent launch off bit-equal to the first call;
+               commit_rows beside torch._foreach_copy_ over the caches'
+               row-pos views; decode_post_ff's five launches of
                the block-GEMM core (csrc/decode_post_ff.cu) each timed in
-               a CUDA graph, a second call and a graph replay bit-equal to
-               the first call; then decode_attn's attention output on 24
+               a CUDA graph, a second call, a graph replay and a call with
+               PDL off bit-equal to the first call; then decode_attn's attention output on 24
                more seeds (144 cases).
   7. rarm_forward  32 teacher-forced decode steps of the full-width RARM
                (depth 18) through the kernel path, CUDA bf16, against the
@@ -88,8 +93,9 @@ exits non-zero):
                pos within one step of the plain ones on at most 0.1%,
                scales within 1e-5 relative, every other row untouched), and
                decode_post_ff with int8 weights: error, median CUDA-event
-               times, bound; decode_post_ff_w8's five launches and bit
-               equalities as in phase 6.
+               times, bound; each decode_attn variant's two launches and
+               bit equalities, and decode_post_ff_w8's five launches and
+               bit equalities, as in phase 6.
  13. rarm_serve_modes  over phase 5's table, batch 16, 256 tokens, top_k
                256, k = 4: RARMPipeline requests with int8_weights, int8_kv,
                both (guidance 2.0: decode batch 32) and approx_top_k, launch
@@ -162,7 +168,12 @@ over the int8 requests of phase 11); for the decode kernels the times are
 the mean over the eight (B, pos) cases, `max_abs_err` the largest, and
 `launches` the count over the two RARM requests (`commit_rows`: over the
 batched-commit decode, the path that runs it); their int8 variants the
-same over phase 12's cases, `launches` over phase 13's requests; post_ff
+same over phase 12's cases, `launches` over phase 13's requests
+(decode_attn's rows also give each launch's device ms apart, the
+projection's `qkv_device_ms` and the attention's `attn_device_ms`, and
+SDPA's `library_device_ms` over the same rows, an int8 cache's rows
+dequantized; commit_rows' `library_ms` / `library_device_ms`
+torch._foreach_copy_ over the row-pos views); post_ff
 the sum over the sites, `launches` over phase 14's single-kernel requests;
 flash_fwd / flash_bwd the sum over phase 15's three shapes (`library_ms`:
 SDPA forward, and forward + backward), `launches` over the first
@@ -179,6 +190,7 @@ from __future__ import annotations
 import functools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -229,11 +241,14 @@ INT8_INFO = {
     "geglu_ff_q": ("rdm_tpu_torch/csrc/geglu_ff_q.cu",
                    "rdm_tpu/ops/block_kernel.py:456"),
 }
+# decode_attn: the projection (a kQkv launch of the block-GEMM core) and
+# the split-KV attention, both launched from csrc/decode_attn.cu
+DECODE_ATTN_SOURCES = ["rdm_tpu_torch/csrc/decode_attn.cu",
+                       "rdm_tpu_torch/csrc/block_gemm_sm90.cuh"]
 DECODE_INFO = {
     "decode_attn": ("rdm_tpu_torch/csrc/decode_attn.cu",
                     "rdm_tpu/ops/decode_kernel.py:135",
-                    ["rdm_tpu_torch/csrc/decode_qkv.cu",
-                     "rdm_tpu_torch/csrc/decode_attn.cu"]),
+                    DECODE_ATTN_SOURCES),
     "decode_post_ff": ("rdm_tpu_torch/csrc/decode_post_ff.cu",
                        "rdm_tpu/ops/decode_kernel.py:275",
                        ["rdm_tpu_torch/csrc/decode_post_ff.cu",
@@ -243,20 +258,15 @@ DECODE_INFO = {
                     ["rdm_tpu_torch/csrc/commit_rows.cu"]),
 }
 INT8_DECODE_INFO = {
-    "decode_attn_w8": ("rdm_tpu_torch/csrc/decode_qkv.cu",
+    "decode_attn_w8": ("rdm_tpu_torch/csrc/decode_attn.cu",
                        "rdm_tpu/ops/decode_kernel.py:135",
-                       ["rdm_tpu_torch/csrc/decode_qkv.cu",
-                        "rdm_tpu_torch/csrc/decode_attn.cu",
-                        "rdm_tpu_torch/csrc/block_common.cuh"]),
+                       DECODE_ATTN_SOURCES),
     "decode_attn_kv8": ("rdm_tpu_torch/csrc/decode_attn.cu",
                         "rdm_tpu/ops/decode_kernel.py:135",
-                        ["rdm_tpu_torch/csrc/decode_qkv.cu",
-                         "rdm_tpu_torch/csrc/decode_attn.cu"]),
+                        DECODE_ATTN_SOURCES),
     "decode_attn_w8_kv8": ("rdm_tpu_torch/csrc/decode_attn.cu",
                            "rdm_tpu/ops/decode_kernel.py:135",
-                           ["rdm_tpu_torch/csrc/decode_qkv.cu",
-                            "rdm_tpu_torch/csrc/decode_attn.cu",
-                            "rdm_tpu_torch/csrc/block_common.cuh"]),
+                           DECODE_ATTN_SOURCES),
     "decode_post_ff_w8": ("rdm_tpu_torch/csrc/decode_post_ff.cu",
                           "rdm_tpu/ops/decode_kernel.py:275",
                           ["rdm_tpu_torch/csrc/decode_post_ff.cu",
@@ -348,6 +358,7 @@ PEAK_BF16, PEAK_INT8, HBM_BYTES_S = 989e12, 1979e12, 3.35e12
 # per SM per clock, on the H100 SXM's 132 SMs.
 SMS, EX2_PER_SM_CLOCK = 132, 16
 HOST_CALLS = 200  # back-to-back calls that time one call's host cost
+LOG2E = 1.4426950408889634
 
 
 def bound(ops16: float = 0.0, ops8: float = 0.0, nbytes: float = 0.0):
@@ -1078,59 +1089,102 @@ def decode_cost(name: str, b: int, pos: int, c: int = 768, t: int = CONTEXT,
     return 0, 0, 2 * 2 * layers * b * c * 2  # commit_rows
 
 
-def _decode_attn_apart(t: dict, pos: int, kc, vc, b: int, heads: int,
-                       hd: int) -> dict:
-    """decode_attn's two launches apart, each in a CUDA graph: LN1, the
-    q/k/v projection and the row commit (csrc/decode_qkv.cu), then the
-    attention over rows <= pos (csrc/decode_attn.cu); beside SDPA's device
-    time for the attention alone, on the projected q and the cache rows
-    <= pos (BHSD copies made outside the timed call)."""
+def _decode_attn_apart(x, pos: int, kc, vc, n1s, n1b, wqkv, *, heads: int,
+                       hd: int, wqkv_s=None, ks=None, vs=None) -> dict:
+    """decode_attn's two launches apart, each in a CUDA graph as a plain
+    stream launch (programmatic dependent launch off, so a launch's own
+    time and not its overlap with the next): LN1, the q/k/v projection
+    and the row commit (the block-GEMM core's kQkv launch,
+    `rdm_decode_proj`), then the split-KV attention over rows < pos and
+    the current position (`rdm_decode_attn`, which also commits an int8
+    row); beside SDPA's device time over the same q and cache rows <= pos
+    (BHSD copies made outside the timed call; an int8 cache's rows
+    dequantized to bf16 first), and the two plans."""
     import torch.nn.functional as F
 
     from rdm_tpu_torch.ops import _build
+    from rdm_tpu_torch.ops import block_kernel as bk
+    from rdm_tpu_torch.ops import decode_kernel as dk
 
     lib = _build.load()
-    x, c = t["x"], t["x"].shape[1]
-    q, kn, vn, out = (torch.empty_like(x) for _ in range(4))
+    (b, c), t, kv8 = x.shape, kc.shape[0], ks is not None
+    sms = bk.sm_count(x.device.index)
+    proj = bk.gemm_plan("qkv", b, 3 * c, c, sms, split_k=True,
+                        w8=wqkv_s is not None)
+    ap = dk.attn_plan(b, heads, pos, sms)
+    q, out = torch.empty_like(x), torch.empty_like(x)
+    kn, vn = ((torch.empty_like(x), torch.empty_like(x)) if kv8
+              else (kc[pos], vc[pos]))
+    f32 = [torch.empty((b, c), device=x.device) for _ in range(2)] \
+        if kv8 else [None, None]
 
     def p(a):
-        return a.data_ptr()
+        return None if a is None else a.data_ptr()
 
     def stream():
         return torch.cuda.current_stream().cuda_stream
 
-    def qkv():
-        _build.check(lib.rdm_decode_qkv(
-            p(x), p(t["n1s"]), p(t["n1b"]), p(t["wqkv"]), None, p(q), p(kn),
-            p(vn), p(kc), p(vc), None, None, pos, b, c, stream()),
-            "decode_qkv")
+    def projection():
+        _build.check(lib.rdm_decode_proj(
+            p(x), p(n1s), p(n1b), p(wqkv), p(wqkv_s), p(q), p(kn), p(vn),
+            p(f32[0]), p(f32[1]), b, c, *proj.args, proj.ks, 0, stream()),
+            "decode_attn projection")
 
-    def attn():
+    def attention():
         _build.check(lib.rdm_decode_attn(
-            p(q), p(kn), p(vn), p(kc), p(vc), None, None, None, None,
-            p(out), pos, b, c, heads, hd ** -0.5 * 1.4426950408889634,
-            stream()), "decode_attn")
+            p(q), p(kn), p(vn), p(kc), p(vc), p(ks), p(vs), p(f32[0]),
+            p(f32[1]), p(out), pos, t, b, c, heads, hd ** -0.5 * LOG2E,
+            ap.group, ap.splits, ap.rows, 0, stream()),
+            "decode_attn attention")
 
-    qkv()
+    projection()
+    torch.cuda.synchronize()
 
     def bhsd(a, n):
         return a.reshape(n, b, heads, hd).permute(1, 2, 0, 3).contiguous()
 
-    lib_in = (bhsd(q, 1), bhsd(kc[:pos + 1], pos + 1),
-              bhsd(vc[:pos + 1], pos + 1))
-    return {"qkv_device_ms": graph_ms(qkv), "attn_device_ms": graph_ms(attn),
+    keys, vals = kc[:pos], vc[:pos]
+    if kv8:
+        keys = (keys.float() * ks[:pos]).bfloat16()
+        vals = (vals.float() * vs[:pos]).bfloat16()
+    lib_in = (bhsd(q, 1), bhsd(torch.cat([keys, kn[None]]), pos + 1),
+              bhsd(torch.cat([vals, vn[None]]), pos + 1))
+    return {"qkv_device_ms": graph_ms(projection),
+            "attn_device_ms": graph_ms(attention),
             "library_device_ms": graph_ms(
-                lambda: F.scaled_dot_product_attention(*lib_in))}
+                lambda: F.scaled_dot_product_attention(*lib_in)),
+            "qkv_plan": {"ks": proj.ks, "stages": proj.stages,
+                         "ctas": 3 * c // 64 * proj.ks * -(-b // 64)},
+            "attn_plan": ap._asdict()}
 
 
-def _post_ff_chain(what: str, kern, got: torch.Tensor) -> dict:
-    """decode_post_ff's checks beyond its error: a second call and the
-    replay of a CUDA graph of one call equal `got` bit for bit (rank-ordered
-    sums, no atomics; the chain's clusters and programmatic dependent
-    launches captured), and each of its five launches' device ms in a
-    graph (graph_launch_ms, None where the profiler saw another count)."""
-    if not torch.equal(kern(), got):
-        raise RuntimeError(f"{what}: two calls differ")
+def _apart_text(what: str, case: dict) -> str:
+    pl = case["attn_plan"]
+    return (f"{what:13s}: device {case['qkv_device_ms']:.4f} ms projection "
+            f"(kQkv, KS {case['qkv_plan']['ks']}, "
+            f"{case['qkv_plan']['ctas']} CTAs) + "
+            f"{case['attn_device_ms']:.4f} ms attention ({pl['splits']} "
+            f"splits x {pl['rows']} rows, {pl['ctas']} CTAs), PDL off; "
+            f"SDPA over rows <= pos {case['library_device_ms']:.4f} ms, the "
+            "attention launch's work only")
+
+
+def _same_bits(what: str, kern, got, no_pdl) -> None:
+    """A decode wrapper's checks beyond its error: a second call, the
+    replay of a CUDA graph of one call (clusters and programmatic
+    dependent launches captured) and `no_pdl`, the same launches with
+    programmatic dependent launch off, each give the first call's outputs
+    (`got`: a tensor or a tuple) bit for bit: rank-ordered sums, no
+    atomics."""
+    first = [a.clone() for a in (got if isinstance(got, tuple) else (got,))]
+
+    def same(outs, how):
+        torch.cuda.synchronize()
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        if not all(torch.equal(a, b) for a, b in zip(outs, first)):
+            raise RuntimeError(f"{what}: {how} differs from the first call")
+
+    same(kern(), "a second call")
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -1140,11 +1194,24 @@ def _post_ff_chain(what: str, kern, got: torch.Tensor) -> dict:
     with torch.cuda.graph(graph):
         out = kern()
     graph.replay()
-    torch.cuda.synchronize()
-    if not torch.equal(out, got):
-        raise RuntimeError(f"{what}: a CUDA graph's replay differs from "
-                           "the eager call")
+    same(out, "a CUDA graph's replay")
     del graph
+    same(no_pdl(), "a call without programmatic dependent launch")
+
+
+def _mean_apart(res: dict) -> None:
+    """A decode_attn row's mean of each launch's and SDPA's device ms over
+    its cases."""
+    cases = res["cases"]
+    for key in ("qkv_device_ms", "attn_device_ms", "library_device_ms"):
+        res[key] = sum(c[key] for c in cases) / len(cases)
+
+
+def _post_ff_chain(what: str, kern, got: torch.Tensor, no_pdl) -> dict:
+    """decode_post_ff's checks beyond its error (`_same_bits`), and each of
+    its five launches' device ms in a graph (graph_launch_ms, None where
+    the profiler saw another count)."""
+    _same_bits(what, kern, got, no_pdl)
     parts = graph_launch_ms(kern, len(DECODE_CHAIN), "block_gemm_kernel")
     return {"chain_launch_ms": parts and dict(zip(DECODE_CHAIN, parts))}
 
@@ -1160,7 +1227,7 @@ def _mean_chain(res: dict) -> None:
 
 def _chain_text(case: dict) -> str:
     parts = case["chain_launch_ms"]
-    return "; two calls and a graph bit-equal; launches " + (
+    return "; two calls, a graph and PDL off bit-equal; launches " + (
         " / ".join(f"{v:.4f}" for v in parts.values()) + " ms"
         if parts else "not seen by the profiler")
 
@@ -1231,9 +1298,14 @@ def phase_rarm_kernels() -> dict:
                                 f"{label}_new")
                     keep[pos] = True
                     ff[1] = want[0]   # decode_post_ff's input
+                    _same_bits(f"decode_attn {what}", kern, got,
+                               lambda: dk._decode_attn(
+                                   t["x"], pos, kc_k, vc_k, *attn_args,
+                                   heads=heads, head_dim=hd, pdl=False))
                     detail = "; ".join(f"{lab} {rel:.3e}"
                                        for lab, _, rel in errs[1:])
-                    detail += "; cache rows exact"
+                    detail += ("; cache rows exact; two calls, a graph and "
+                               "PDL off bit-equal")
                 elif name == "commit_rows":
                     errs = _hold(f"commit_rows {what}", [
                         (f"cache {i}", k, p)
@@ -1244,8 +1316,10 @@ def phase_rarm_kernels() -> dict:
                 else:
                     errs = _hold(f"decode_post_ff {what}",
                                  [("x_out", got, want)])
-                    chain = _post_ff_chain(f"decode_post_ff {what}", kern,
-                                           got)
+                    chain = _post_ff_chain(
+                        f"decode_post_ff {what}", kern, got,
+                        lambda: dk._decode_post_ff(*ff, heads=heads,
+                                                   head_dim=hd, pdl=False))
                     detail = _chain_text(chain)[2:]
                 _, err, rel = errs[0]
                 ms, plain_ms = median_ms(kern), median_ms(plain)
@@ -1270,14 +1344,22 @@ def phase_rarm_kernels() -> dict:
                     case["library_ms"] = _sdpa_ms(
                         bhsd(t["x"], 1), bhsd(t["kc"][:pos + 1], pos + 1),
                         bhsd(t["vc"][:pos + 1], pos + 1))
-                    case.update(_decode_attn_apart(t, pos, kc_k, vc_k, b,
-                                                   heads, hd))
-                    say("rarm_kernels", f"decode_attn    {what:13s}: device "
-                        f"{case['qkv_device_ms']:.4f} ms projection "
-                        f"(decode_qkv.cu) + {case['attn_device_ms']:.4f} ms "
-                        f"attention (decode_attn.cu); SDPA over rows <= pos "
-                        f"{case['library_device_ms']:.4f} ms, the attention "
-                        "launch's work only")
+                    case.update(_decode_attn_apart(
+                        t["x"], pos, kc_k, vc_k, *attn_args, heads=heads,
+                        hd=hd))
+                    say("rarm_kernels", "decode_attn    "
+                        + _apart_text(what, case))
+                elif name == "commit_rows":  # one PyTorch call, same rows
+                    views = [k[pos:pos + 1] for k in caches_k]
+
+                    def library():
+                        torch._foreach_copy_(views, t["rows"])
+                    case["library_ms"] = median_ms(library)
+                    case["library_device_ms"] = graph_ms(library)
+                    say("rarm_kernels", f"commit_rows    {what:13s}: device "
+                        f"{dev['kernel_device_ms']:.4f} ms; "
+                        f"torch._foreach_copy_ over the {len(views)} row-pos "
+                        f"views {case['library_device_ms']:.4f} ms")
                 res["cases"].append(case)
         del t, caches_k, caches_p, kc_k, vc_k, kc_p, vc_p
         torch.cuda.empty_cache()
@@ -1289,9 +1371,10 @@ def phase_rarm_kernels() -> dict:
         res["bound_by"] = max(res["cases"], key=lambda c: c["bound_ms"])[
             "bound_by"]
     _mean_chain(results["decode_post_ff"])
-    cases = results["decode_attn"]["cases"]
-    for key in ("qkv_device_ms", "attn_device_ms", "library_device_ms"):
-        results["decode_attn"][key] = sum(c[key] for c in cases) / len(cases)
+    _mean_apart(results["decode_attn"])
+    cases = results["commit_rows"]["cases"]
+    results["commit_rows"]["library_device_ms"] = sum(
+        c["library_device_ms"] for c in cases) / len(cases)
 
     # The attention output is the output most sensitive to rounding (the
     # softmax amplifies any difference in q), so hold it on more inputs.
@@ -1831,7 +1914,11 @@ def phase_rarm_int8_kernels() -> dict:
                     got = kern()
                     torch.cuda.synchronize()
                     errs = _hold(f"{name} {what}", [("x_out", got, plain())])
-                    chain = _post_ff_chain(f"{name} {what}", kern, got)
+                    chain = _post_ff_chain(
+                        f"{name} {what}", kern, got,
+                        lambda: dk._decode_post_ff(*ff, heads=heads,
+                                                   head_dim=hd, scales=sc,
+                                                   pdl=False))
                     detail = _chain_text(chain)[2:]
                 else:
                     w8, kv8 = "_w8" in name, name.endswith("_kv8")
@@ -1889,8 +1976,21 @@ def phase_rarm_int8_kernels() -> dict:
                         detail = "; cache rows exact"
                     if name == "decode_attn_w8":
                         t["attn_" + str(pos)] = want[0]  # post_ff's input
+                    _same_bits(f"{name} {what}", kern, got,
+                               lambda: call(functools.partial(
+                                   dk._decode_attn, pdl=False), mine))
                     detail = "; ".join(f"{lab} {rel:.3e}"
                                        for lab, _, rel in errs[1:]) + detail
+                    detail += "; two calls, a graph and PDL off bit-equal"
+                    apart = _decode_attn_apart(
+                        t["x"], pos, *mine[:2], t["n1s"], t["n1b"], wq,
+                        heads=heads, hd=hd, wqkv_s=kw["wqkv_s"],
+                        ks=mine[2] if kv8 else None,
+                        vs=mine[3] if kv8 else None)
+                    say("rarm_int8_kernels", f"{name:18s} "
+                        + _apart_text(what, apart)
+                        + ("; an int8 cache dequantized for SDPA" if kv8
+                           else ""))
                 _, err, rel = errs[0]
                 ms, plain_ms = median_ms(kern), median_ms(plain)
                 dev = wrapper_device(kern)
@@ -1908,7 +2008,8 @@ def phase_rarm_int8_kernels() -> dict:
                     "B": b, "pos": pos, "max_abs_err": err,
                     "rel_err": {lab: r for lab, _, r in errs}, "ms": ms,
                     "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": by, **dev})
+                    "bound_by": by, **dev,
+                    **(apart if name != "decode_post_ff_w8" else {})})
         del t
         torch.cuda.empty_cache()
     for res in results.values():
@@ -1918,6 +2019,9 @@ def phase_rarm_int8_kernels() -> dict:
         res["bound_by"] = max(res["cases"], key=lambda c: c["bound_ms"])[
             "bound_by"]
     _mean_chain(results["decode_post_ff_w8"])
+    for name in INT8_DECODE_INFO:
+        if name.startswith("decode_attn"):
+            _mean_apart(results[name])
     return results
 
 
@@ -2916,7 +3020,7 @@ def main() -> int:
     rows += [row(n, INT8_INFO[n], int8_launches, r, sites=r["sites"])
              for n, r in int8_kernels.items()]
     apart = ("sweep_rel_err", "qkv_device_ms", "attn_device_ms",
-             "library_device_ms")  # decode_attn's alone
+             "library_device_ms")  # decode_attn's (and commit_rows' last)
     apart += ("chain_launch_ms",)  # decode_post_ff's five launches
     rows += [row(n, DECODE_INFO[n], decode_launches, r,
                  sources=DECODE_INFO[n][2], cases=r["cases"],

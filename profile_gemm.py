@@ -4,10 +4,12 @@
     python3 profile_gemm.py [--decode] [--out profile_gemm.json]
     python3 profile_gemm.py --host TREE [TREE ...] [--out FILE]
     python3 profile_gemm.py --tiles [--out FILE]
+    python3 profile_gemm.py --attn [--out FILE]
 
-Builds the launchers of `ln_qkv`, `post_cross`, `geglu_ff` and the RARM
-decode chain `decode_post_ff` (rdm_tpu_torch/csrc/ln_qkv.cu,
-post_cross.cu, geglu_ff_sm90.cu, decode_post_ff.cu) over
+Builds the launchers of `ln_qkv`, `post_cross`, `geglu_ff`, the RARM
+decode chain `decode_post_ff` and `decode_attn` (rdm_tpu_torch/csrc/
+ln_qkv.cu, post_cross.cu, geglu_ff_sm90.cu, decode_post_ff.cu,
+decode_attn.cu) over
 rdm_tpu_torch/csrc/block_gemm_sm90.cuh with nvcc as they are, and with
 one part of the core cut each time: the wgmma products, the LayerNorm
 prologue's arithmetic (its rows still arrive by TMA), the epilogues, the
@@ -17,7 +19,9 @@ and rank 0's sum of the K split's partial tiles. Each build runs in a
 process of its own and times the three U-Net wrappers at chip_smoke.py
 phase 3's three U-Net sites (8 images, its tensors) and `decode_post_ff`
 (bf16 and int8 weights) at decode batch 16 and 32 (chip_smoke.py phase
-7's tensors, C = 768, F = 3072, 4 context rows) in CUDA graphs, each
+7's tensors, C = 768, F = 3072, 4 context rows), and decode_attn's
+projection alone (its kQkv launch, bf16 and int8 weights), in CUDA
+graphs, each
 launch by torch.profiler over the graph's replays (chip_smoke.py
 `graph_ms`, `graph_launch_ms`); the uncut build also times the decode
 chain with its K split turned off (KS = 1 in every plan). With --decode,
@@ -31,10 +35,15 @@ With --host, builds nothing of its own: for each TREE in the order given
 archive`; `.` for this one), a process of its own imports that tree's
 `rdm_tpu_torch`, builds its kernels and times its `ln_qkv`, `post_cross`
 and `geglu_ff` wrappers at the same sites on the same seeded tensors, and
-its `decode_post_ff` (bf16 and int8 weights) at decode batch 16 and 32:
-host us a call (chip_smoke.py `host_us`) and device ms a call
-(`graph_ms`). Naming two trees in turns (A B B A) compares their host
-cost in one run.
+its `decode_post_ff` (bf16 and int8 weights) at decode batch 16 and 32,
+and its `decode_attn` in each variant (bf16, int8 weights, int8 cache,
+both) at decode batch 16 and 32 and pos 0 / 63 / 200 / 255 (chip_smoke.py
+phase 6's tensors, C = 768, T = 256): host us a call (chip_smoke.py
+`host_us`) and device ms a call (`graph_ms`); and `decode_attn`'s two
+launches alone, both and each apart (its C entry points on arguments made
+once: the rest of a wrapper call is its Python), with each tree's mean
+over the positions. Naming two trees in turns (A B B A) compares their
+host cost and device time in one run.
 
 With --tiles, times `ln_qkv` through each tile that
 `block_kernel.GEMM_TILES["qkv"]` lists, forced alone (the ring depth and
@@ -42,6 +51,19 @@ column tiles a CTA as `gemm_plan` sets them for it), at the three sites at
 2, 8 and 32 images, each output held against the plain version
 (chip_smoke.py KERNEL_TOL), beside the plan `gemm_plan` picks: device ms
 a call in a CUDA graph.
+
+With --attn, builds `decode_attn`'s launcher (rdm_tpu_torch/csrc/
+decode_attn.cu over the core's header) as it is and with one part of its
+attention launch cut: the consumers' arithmetic (they still wait for
+every box and hand it back), or the cache loads (no TMA: the consumers
+read whatever the ring holds), or the int8 cache's commit of row pos.
+Each build, in a process of its own,
+runs the projection once and then times the attention launch alone (a
+plain stream launch) at decode batch 16 and 32, pos 63 / 200 / 255, with
+bf16 and int8 caches, in CUDA graphs of 20 calls: warm (the same caches
+each call, so the rows may stay in the 50 MB L2) and cold (20 sets of
+caches in turn, 250-500 MB, as the RARM step's 18 layers read theirs);
+the uncut build also times SDPA over the same rows, warm and cold.
 """
 
 from __future__ import annotations
@@ -50,6 +72,7 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -79,11 +102,35 @@ CUTS = {
                        "        for (int r = 1; r < (p.R < 0 ? ks : 1); ++r)"),
 }
 LAUNCHERS = ("ln_qkv.cu", "post_cross.cu", "geglu_ff_sm90.cu",
-             "decode_post_ff.cu")
+             "decode_post_ff.cu", "decode_attn.cu")
 DECODE_BATCHES = (16, 32)  # chip_smoke.py RARM_BATCHES
+ATTN_POSITIONS = (0, 63, 200, 255)  # chip_smoke.py RARM_POSITIONS
 TILE_IMAGES = (2, 8, 32)
 HERE = os.path.dirname(os.path.abspath(__file__))
 HEADER = "block_gemm_sm90.cuh"
+
+
+# (text of decode_attn.cu, its replacement) of each attention cut
+ATTN_SOURCE = "decode_attn.cu"
+ATTN_CUTS = {
+    "kernel": None,
+    "no attention arithmetic": (
+        "    mbar_wait(full + 8 * s, (i / ST) & 1);\n",
+        "    mbar_wait(full + 8 * s, (i / ST) & 1);\n"
+        "    if (p.pos >= 0) {\n      __syncwarp();\n"
+        "      if (lane == 0) mbar_arrive(empty + 8 * s);\n"
+        "      continue;\n    }\n"),
+    "no cache loads": (
+        "      mbar_expect_tx(bar, 2 * kBox);\n"
+        "      tma_load_2d(&tk, st, bar, c0, t0 + i * kRB);\n"
+        "      tma_load_2d(&tv, st + kBox, bar, c0, t0 + i * kRB);\n",
+        "      mbar_arrive(bar);\n"),
+    "no int8 commit": ("      commit_int8_row(p, b, lane, rowf, cbar);",
+                       "      if (p.pos < 0) commit_int8_row(p, b, lane, "
+                       "rowf, cbar);"),
+}
+ATTN_TIMED = (63, 200, 255)
+COLD_SETS = 20
 
 
 def build_dir(variant: str) -> str:
@@ -120,6 +167,148 @@ def build(variant: str) -> subprocess.Popen:
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
+def build_attn(variant: str) -> subprocess.Popen:
+    """Starts nvcc on decode_attn.cu with the attention cut `variant`, over
+    the core's header as it is, in a directory of the build's own."""
+    from rdm_tpu_torch.ops import _build
+
+    out = build_dir("attn " + variant)
+    os.makedirs(out, exist_ok=True)
+    src = (_build.CSRC / ATTN_SOURCE).read_text()
+    cut = ATTN_CUTS[variant]
+    pairs = () if cut is None else cut if isinstance(cut[0], tuple) else (cut,)
+    for old, new in pairs:
+        if src.count(old) != 1:
+            raise RuntimeError(f"{ATTN_SOURCE} changed; update "
+                               f"profile_gemm.py's cut {variant!r}")
+        src = src.replace(old, new)
+    with open(os.path.join(out, ATTN_SOURCE), "w") as f:
+        f.write(src)
+    return subprocess.Popen(
+        [_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+         "-shared", "-o", os.path.join(out, "lib.so"),
+         os.path.join(out, ATTN_SOURCE), str(_build.CSRC / "runtime.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def run_attn(variant: str) -> dict:
+    """The attention launch's device ms through the variant's library, warm
+    and cold, per decode batch, position and cache type (and SDPA's in the
+    uncut build)."""
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke as cs
+    from rdm_tpu_torch.ops import _build
+    from rdm_tpu_torch.ops import block_kernel as bk
+    from rdm_tpu_torch.ops import decode_kernel as dk
+
+    lib = ctypes.CDLL(os.path.join(build_dir("attn " + variant), "lib.so"))
+    for name in ("rdm_decode_proj", "rdm_decode_attn"):
+        getattr(lib, name).argtypes = _build._SIGNATURES[name]
+        getattr(lib, name).restype = ctypes.c_int
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    out = {"build": variant, "cases": []}
+
+    def p(a):
+        return None if a is None else a.data_ptr()
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    for b in DECODE_BATCHES:
+        t = cs._int8_layer(cs._decode_tensors(b, g))
+        x, c = t["x"], t["x"].shape[1]
+        sms = bk.sm_count(x.device.index)
+        proj = bk.gemm_plan("qkv", b, 3 * c, c, sms, split_k=True)
+        q, kn, vn, o = (torch.empty_like(x) for _ in range(4))
+        f32 = [torch.empty((b, c), device="cuda") for _ in range(2)]
+        if lib.rdm_decode_proj(p(x), p(t["n1s"]), p(t["n1b"]), p(t["wqkv"]),
+                               None, p(q), p(kn), p(vn), p(f32[0]),
+                               p(f32[1]), b, c, *proj.args, proj.ks, 0,
+                               stream()):
+            raise RuntimeError("rdm_decode_proj failed")
+        for kv8 in (False, True):
+            names = ("kc8", "vc8", "ks", "vs") if kv8 else ("kc", "vc")
+            sets = [[t[n].clone() for n in names] for _ in range(COLD_SETS)]
+            for pos in ATTN_TIMED:
+                ap = dk.attn_plan(b, 12, pos, sms)
+
+                def attention(cs_):
+                    sc = (cs_[2], cs_[3], f32[0], f32[1]) if kv8 else \
+                        (None,) * 4
+                    rc = lib.rdm_decode_attn(
+                        p(q), p(kn), p(vn), p(cs_[0]), p(cs_[1]),
+                        *(p(a) for a in sc), p(o), pos, cs_[0].shape[0], b,
+                        c, 12, 64 ** -0.5 * cs.LOG2E, ap.group, ap.splits,
+                        ap.rows, 0, stream())
+                    if rc:
+                        raise RuntimeError(f"rdm_decode_attn: {rc}")
+
+                turn = iter(range(10 ** 9))
+                case = {"B": b, "pos": pos, "kv8": kv8, "ctas": ap.ctas,
+                        "warm_ms": cs.graph_ms(lambda: attention(sets[0])),
+                        "cold_ms": cs.graph_ms(lambda: attention(
+                            sets[next(turn) % COLD_SETS]))}
+                if variant == "kernel":
+                    def bhsd(a, n):
+                        return a.reshape(n, b, 12, 64).permute(
+                            1, 2, 0, 3).contiguous()
+
+                    def sdpa_in(cs_):
+                        k, v = cs_[0][:pos], cs_[1][:pos]
+                        if kv8:
+                            k = (k.float() * cs_[2][:pos]).bfloat16()
+                            v = (v.float() * cs_[3][:pos]).bfloat16()
+                        return (bhsd(q, 1), bhsd(torch.cat([k, kn[None]]),
+                                                 pos + 1),
+                                bhsd(torch.cat([v, vn[None]]), pos + 1))
+                    ins = [sdpa_in(cs_) for cs_ in sets]
+                    turn = iter(range(10 ** 9))
+                    case["sdpa_warm_ms"] = cs.graph_ms(
+                        lambda: F.scaled_dot_product_attention(*ins[0]))
+                    case["sdpa_cold_ms"] = cs.graph_ms(
+                        lambda: F.scaled_dot_product_attention(
+                            *ins[next(turn) % COLD_SETS]))
+                    del ins
+                out["cases"].append(case)
+            del sets
+        del t
+        torch.cuda.empty_cache()
+    return out
+
+
+def attn_builds(card: str, path: str) -> int:
+    """Builds every attention variant at once, runs each in a process of
+    its own, one at a time; prints a line a case, writes all to `path`."""
+    procs = {v: build_attn(v) for v in ATTN_CUTS}
+    for v, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {v!r}:\n{log}")
+    results = {"card": card, "builds": []}
+    for v in ATTN_CUTS:
+        proc = subprocess.run([sys.executable, __file__, "--attn-build", v],
+                              capture_output=True, text=True)
+        if proc.returncode:
+            raise RuntimeError(f"{v!r} failed:\n{proc.stderr[-3000:]}")
+        r = json.loads(proc.stdout.strip().splitlines()[-1])
+        for case in r["cases"]:
+            sdpa = (f"; SDPA warm {case['sdpa_warm_ms']:.4f}, cold "
+                    f"{case['sdpa_cold_ms']:.4f}" if "sdpa_warm_ms" in case
+                    else "")
+            print(f"{v:24s} B={case['B']:2d} pos={case['pos']:3d} "
+                  f"{'int8' if case['kv8'] else 'bf16'} cache "
+                  f"({case['ctas']} CTAs): attention warm "
+                  f"{case['warm_ms']:.4f} ms, cold {case['cold_ms']:.4f}"
+                  f"{sdpa}", flush=True)
+        results["builds"].append(r)
+    with open(path, "w") as f:
+        json.dump(results, f, indent=1)
+    print(f"wrote {path}", flush=True)
+    return 0
+
+
 def run_build(variant: str, decode_only: bool) -> dict:
     """Times the three U-Net wrappers (unless decode_only) and the decode
     chain through the variant's library."""
@@ -131,7 +320,7 @@ def run_build(variant: str, decode_only: bool) -> dict:
 
     lib = ctypes.CDLL(os.path.join(build_dir(variant), "lib.so"))
     for name in ("rdm_ln_qkv", "rdm_post_cross", "rdm_geglu_ff_sm90",
-                 "rdm_decode_post_ff"):
+                 "rdm_decode_post_ff", "rdm_decode_proj"):
         getattr(lib, name).argtypes = _build._SIGNATURES[name]
         getattr(lib, name).restype = ctypes.c_int
     lib.rdm_error_string.argtypes = [ctypes.c_int]
@@ -180,6 +369,111 @@ def decode_calls(cs, g, b: int) -> dict:
                                               scales=sc)}
 
 
+def proj_calls(cs, g, b: int) -> dict:
+    """decode_attn's projection alone (the bare kQkv launcher of the loaded
+    library, its plan, programmatic dependent launch on, row 0 of bf16
+    caches as k and v), bf16 and int8 weights: LN1 + [q | k | v] at decode
+    batch b on chip_smoke.py's seeded full-width layer."""
+    import torch
+
+    from rdm_tpu_torch.ops import _build
+    from rdm_tpu_torch.ops import block_kernel as bk
+
+    t = cs._int8_layer(cs._decode_tensors(b, g))
+    x, c = t["x"], t["x"].shape[1]
+    sms = bk.sm_count(x.device.index)
+    q = torch.empty_like(x)
+
+    def call(w8):
+        plan = bk.gemm_plan("qkv", b, 3 * c, c, sms, split_k=True, w8=w8)
+        ts = (x, t["n1s"], t["n1b"], t["wqkv_q"] if w8 else t["wqkv"],
+              t["wqkv_s"] if w8 else None, q, t["kc"][0], t["vc"][0])
+        rc = _build._lib.rdm_decode_proj(
+            *(None if a is None else a.data_ptr() for a in ts), None, None,
+            b, c, *plan.args, plan.ks, 1,
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"rdm_decode_proj: {rc}")
+    return {"proj bf16": lambda: call(False), "proj int8": lambda: call(True)}
+
+
+def attn_calls(cs, t: dict, pos: int) -> dict:
+    """decode_attn in each variant at position pos on one layer's tensors
+    (`chip_smoke._int8_layer`), each on caches of its own."""
+    from rdm_tpu_torch.ops import decode_kernel as dk
+
+    calls = {}
+    for mode, (w8, kv8) in (("bf16", (False, False)), ("w8", (True, False)),
+                            ("kv8", (False, True)), ("w8_kv8", (True, True))):
+        cs_ = [t[n].clone() for n in (("kc8", "vc8", "ks", "vs") if kv8
+                                      else ("kc", "vc"))]
+        kw = dict(heads=12, head_dim=64, wqkv_s=t["wqkv_s"] if w8 else None,
+                  ks_cache=cs_[2] if kv8 else None,
+                  vs_cache=cs_[3] if kv8 else None)
+        wq = t["wqkv_q"] if w8 else t["wqkv"]
+        calls[mode] = (lambda cs_=cs_, kw=kw, wq=wq: dk.decode_attn(
+            t["x"], pos, cs_[0], cs_[1], t["n1s"], t["n1b"], wq, **kw))
+    return calls
+
+
+def attn_launches(t: dict, pos: int, mode: str) -> dict:
+    """decode_attn's two launches alone, as the tree's wrapper makes them
+    in variant `mode` at position pos (its C entry points called through
+    ctypes on arguments made once, on caches of their own): both, and each
+    apart. What a wrapper call costs beyond them is its Python."""
+    import torch
+
+    from rdm_tpu_torch.ops import _build
+    from rdm_tpu_torch.ops import block_kernel as bk
+
+    lib = _build.load()
+    w8, kv8 = "w8" in mode, "kv8" in mode
+    x = t["x"]
+    b, c = x.shape
+    kc, vc = (t[n].clone() for n in (("kc8", "vc8") if kv8 else ("kc", "vc")))
+    ks, vs = (t["ks"].clone(), t["vs"].clone()) if kv8 else (None, None)
+    wq, wqs = (t["wqkv_q"], t["wqkv_s"]) if w8 else (t["wqkv"], None)
+    q, kn, vn, out = (torch.empty_like(x) for _ in range(4))
+    knf, vnf = ((torch.empty((b, c), device="cuda") for _ in range(2))
+                if kv8 else (None, None))
+    st = torch.cuda.current_stream().cuda_stream
+    scale = 64 ** -0.5 * 1.4426950408889634
+
+    def p(a):
+        return None if a is None else a.data_ptr()
+
+    if "rdm_decode_proj" in _build._SIGNATURES:  # the two-launch design
+        from rdm_tpu_torch.ops import decode_kernel as dk
+
+        sms = bk.sm_count(x.device.index)
+        proj = bk.gemm_plan("qkv", b, 3 * c, c, sms, split_k=True, w8=w8)
+        ap = dk.attn_plan(b, 12, pos, sms)
+        if not kv8:
+            kn, vn = kc[pos], vc[pos]
+        first = (lib.rdm_decode_proj, (
+            p(x), p(t["n1s"]), p(t["n1b"]), p(wq), p(wqs), p(q), p(kn),
+            p(vn), p(knf), p(vnf), b, c, *proj.args, proj.ks, 1, st))
+        second = (lib.rdm_decode_attn, (
+            p(q), p(kn), p(vn), p(kc), p(vc), p(ks), p(vs), p(knf), p(vnf),
+            p(out), pos, kc.shape[0], b, c, 12, scale, ap.group, ap.splits,
+            ap.rows, 1, st))
+    else:  # the first version: rdm_decode_qkv, then the attention
+        first = (lib.rdm_decode_qkv, (
+            p(x), p(t["n1s"]), p(t["n1b"]), p(wq), p(wqs), p(q), p(kn),
+            p(vn), None if kv8 else p(kc), None if kv8 else p(vc), p(knf),
+            p(vnf), pos, b, c, st))
+        second = (lib.rdm_decode_attn, (
+            p(q), p(kn), p(vn), p(kc), p(vc), p(ks), p(vs), p(knf), p(vnf),
+            p(out), pos, b, c, 12, scale, st))
+    for fn, args in (first, second):
+        if fn(*args):
+            raise RuntimeError(f"decode_attn {mode}: a launch failed")
+    (f1, a1), (f2, a2) = first, second
+    return {"launches": lambda: (f1(*a1), f2(*a2)),
+            "projection launch": lambda: f1(*a1),
+            "attention launch": lambda: f2(*a2)}
+
+
 def decode_times(cs, g) -> list:
     """decode_post_ff's device ms a call and each launch's, per mode and
     decode batch."""
@@ -188,9 +482,11 @@ def decode_times(cs, g) -> list:
     out = []
     for b in DECODE_BATCHES:
         with torch.inference_mode():
-            for mode, fn in decode_calls(cs, g, b).items():
-                parts = cs.graph_launch_ms(fn, len(DECODE_LAUNCHES),
-                                           "block_gemm_kernel")
+            calls = {**decode_calls(cs, g, b), **proj_calls(cs, g, b)}
+            for mode, fn in calls.items():
+                parts = None if mode.startswith("proj") else \
+                    cs.graph_launch_ms(fn, len(DECODE_LAUNCHES),
+                                       "block_gemm_kernel")
                 out.append({"mode": mode, "B": b,
                             "device_ms": cs.graph_ms(fn),
                             "launch_device_ms": parts and dict(
@@ -247,9 +543,9 @@ def run_tiles() -> dict:
 
 def run_host(tree: str) -> dict:
     """Host us and device ms a wrapper call of the tree's `ln_qkv`,
-    `post_cross` and `geglu_ff`. The tree's package comes first on the
-    path; the timing helpers and tensors are this script's
-    chip_smoke.py."""
+    `post_cross`, `geglu_ff`, `decode_post_ff` and `decode_attn`. The
+    tree's package comes first on the path; the timing helpers and tensors
+    are this script's chip_smoke.py."""
     import importlib.util
 
     sys.path.insert(0, os.path.abspath(tree))
@@ -291,6 +587,18 @@ def run_host(tree: str) -> dict:
                                      "C": 768, "S": b,
                                      "host_us": cs.host_us(fn),
                                      "device_ms": cs.graph_ms(fn)})
+            t = cs._int8_layer(cs._decode_tensors(b, g))
+            for pos in ATTN_POSITIONS:
+                for mode, fn in attn_calls(cs, t, pos).items():
+                    out["sites"].append({
+                        "name": f"decode_attn {mode} pos={pos}", "C": 768,
+                        "S": b, "host_us": cs.host_us(fn),
+                        "device_ms": cs.graph_ms(fn)})
+                    for part, lfn in attn_launches(t, pos, mode).items():
+                        out["sites"].append({
+                            "name": f"decode_attn {mode} pos={pos} {part}",
+                            "C": 768, "S": b, "host_us": cs.host_us(lfn)})
+            del t
     return out
 
 
@@ -304,10 +612,19 @@ def host_turns(trees, card: str, path: str) -> int:
         if proc.returncode:
             raise RuntimeError(f"{tree!r} failed:\n{proc.stderr[-3000:]}")
         r = json.loads(proc.stdout.strip().splitlines()[-1])
+        means = {}
         for site in r["sites"]:
+            dev = (f", device {site['device_ms']:.4f} ms"
+                   if "device_ms" in site else "")
             print(f"turn {i + 1} {tree:16s} {site['name']:10s} "
-                  f"C={site['C']:4d}: host {site['host_us']:.1f} us a call, "
-                  f"device {site['device_ms']:.4f} ms", flush=True)
+                  f"C={site['C']:4d} S={site['S']:4d}: host "
+                  f"{site['host_us']:.1f} us a call{dev}", flush=True)
+            if site["name"].startswith("decode_attn"):
+                key = (re.sub(r" pos=\d+", "", site["name"]), site["S"])
+                means.setdefault(key, []).append(site["host_us"])
+        for (name, s), us in means.items():
+            print(f"turn {i + 1} {tree:16s} mean over pos {name} "
+                  f"S={s:4d}: host {sum(us) / len(us):.1f} us", flush=True)
         results["runs"].append(r)
     with open(path, "w") as f:
         json.dump(results, f, indent=1)
@@ -324,6 +641,9 @@ def main() -> int:
                     help="time ln_qkv through each of its tiles")
     ap.add_argument("--decode", action="store_true",
                     help="time only the decode chain in the cut builds")
+    ap.add_argument("--attn", action="store_true",
+                    help="time decode_attn's attention launch in cut builds")
+    ap.add_argument("--attn-build", help=argparse.SUPPRESS)
     ap.add_argument("--build", help=argparse.SUPPRESS)
     ap.add_argument("--host-tree", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -337,6 +657,9 @@ def main() -> int:
         print(json.dumps(run_host(args.host_tree)), flush=True)
         return 0
     sys.path.insert(0, HERE)
+    if args.attn_build:
+        print(json.dumps(run_attn(args.attn_build)), flush=True)
+        return 0
     if args.build:
         print(json.dumps(run_build(args.build, args.decode)), flush=True)
         return 0
@@ -347,6 +670,8 @@ def main() -> int:
     print(card, flush=True)
     if args.host:
         return host_turns(args.host, card, args.out)
+    if args.attn:
+        return attn_builds(card, args.out)
     if args.tiles:
         with open(args.out, "w") as f:
             json.dump({"card": card, **run_tiles()}, f, indent=1)

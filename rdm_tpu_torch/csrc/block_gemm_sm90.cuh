@@ -88,10 +88,12 @@
 //   decode (DEC, read where it lies: image stride C, token stride B C).
 //
 // The decode chain's launches (DEC, csrc/decode_post_ff.cu; replaces
-// rdm_tpu/ops/decode_kernel.py:275 `_post_ff_kernel`) run at R = B <= 64
-// rows, where a launch is bound by streaming W (16-32 FLOP a byte at B =
-// 16-32) and one 64-row block has too few column tiles to keep the card's
-// memory busy (12 at N = 768). So:
+// rdm_tpu/ops/decode_kernel.py:275 `_post_ff_kernel`) and decode_attn's
+// projection (kQkv, csrc/decode_attn.cu; with `_attn_kernel`'s int8 cache
+// also the f32 k and v rows, `qkv_f32_rows`) run at R = B <= 64 rows,
+// where a launch is bound by streaming W (16-32 FLOP a byte at B = 16-32)
+// and one 64-row block has too few column tiles to keep the card's memory
+// busy (12 at N = 768, 36 at the projection's 3C). So:
 // - a K split across a thread-block cluster of KS <= 8 CTAs (grid.x =
 //   column tiles x KS): rank r of a cluster takes the whole 64-wide
 //   K-steps [r nkb / KS, (r + 1) nkb / KS) of its column tile and loads
@@ -233,10 +235,14 @@ struct Args {
 // BM): the tile's rows past them are never loaded, so a batch of 16 moves
 // a quarter of a 64-row box (the rows they leave in shared memory reach
 // only outputs that are not stored).
+// outf1, outf2 (kQkv, the int8_kv mode): the f32 k and v rows [R, N / 3]
+// beside their bf16 ones, or null.
 struct DecodeArgs : Args {
   const bf16* ws0;
   const bf16* ws1;
   int rb;
+  float* outf1;
+  float* outf2;
 };
 
 __device__ __forceinline__ float round_bf16(float v) {
@@ -503,6 +509,37 @@ __device__ __forceinline__ void qkv_epilogue(const float (&acc)[BN / 2],
       const int row = r0 + 8 * h;
       if (row < p.R)
         *reinterpret_cast<uint4*>(out + (size_t)row * C + col) = y;
+    }
+  }
+}
+
+// The decode's kQkv (DEC) with f32 rows asked for: k and v as the f32
+// accumulators hold them, unrounded, for the int8 cache's row scale over
+// all C channels (a 64-column tile sees only its own). Two columns a
+// store: a quad's four threads write one row's 32 contiguous bytes.
+template <int BN>
+__device__ __forceinline__ void qkv_f32_rows(const float (&acc)[BN / 2],
+                                             const DecodeArgs& p, int r0,
+                                             int n0, int q) {
+  if (p.outf1 == nullptr) return;
+  const int N = p.N, C = N / 3;
+#pragma unroll
+  for (int m = 0; m < BN / 32; ++m) {
+    const int gc = n0 + 32 * m;
+    if (gc >= N) break;
+    const int which = gc / C;
+    if (which == 0) continue;
+    float* f = (which == 1 ? p.outf1 : p.outf2) + gc - which * C + 2 * q;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 8 * h;
+      if (row >= p.R) continue;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int i = 4 * (4 * m + jj) + 2 * h;
+        *reinterpret_cast<float2*>(f + (size_t)row * C + 8 * jj) =
+            make_float2(acc[i], acc[i + 1]);
+      }
     }
   }
 }
@@ -1272,8 +1309,10 @@ __global__ void __launch_bounds__(128 * CW + 32,
             acc[0][m], p, r0, n0, q);
       else if constexpr (KIND == kGeglu)
         geglu_epilogue<BN>(acc[0][m], acc[1][m], p, r0, n0, q);
-      else
+      else {
         qkv_epilogue<BN>(acc[0][m], p, r0, n0, q);
+        if constexpr (DEC) qkv_f32_rows<BN>(acc[0][m], p, r0, n0, q);
+      }
     }
   }
 }
@@ -1325,26 +1364,51 @@ inline bool make_map_u8(CUtensorMap* map, const void* ptr, int rows,
 }
 
 // The tensor map of a row-major [rows, cols] matrix of `esize`-byte
-// elements (bf16 or int8) in boxes {box_cols, box_rows}, built once per
-// everything it encodes (device, pointer, shape, box, element) and kept: a
-// map holds only the address, shape and box, so a new tensor at the same
-// address with the same shape is described by the same map. The weights
-// live across calls; the decode chain's activations come back to the same
+// elements (bf16 or int8) in boxes {box_cols, box_rows} with no swizzle: a
+// box lands in shared memory row after row as it lies in memory (for
+// readers of 16-byte runs along a row, as decode_attn's consumers are).
+inline bool make_map_flat(CUtensorMap* map, const void* ptr, int rows,
+                          int cols, int box_cols, int box_rows, int esize) {
+  const attn::EncodeTiledFn fn = attn::encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * esize};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(map, esize == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                            : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+            2, const_cast<void*>(ptr), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The tensor map of a row-major [rows, cols] matrix of `esize`-byte
+// elements (bf16 or int8) in boxes {box_cols, box_rows}, swizzled as the
+// core's operands are (make_map_2d, make_map_u8) or, with swizzle off,
+// flat (make_map_flat); built once per everything it encodes (device,
+// pointer, shape, box, element, swizzle) and kept: a map holds only the
+// address, shape and box, so a new tensor at the same address with the
+// same shape is described by the same map. The weights and caches live
+// across calls; the decode launches' activations come back to the same
 // addresses from PyTorch's caching allocator, call after call.
 inline bool cached_map(CUtensorMap* map, int dev, const void* ptr, int rows,
-                       int cols, int box_cols, int box_rows, int esize) {
-  typedef std::tuple<int, uintptr_t, int, int, int, int, int> Key;
+                       int cols, int box_cols, int box_rows, int esize,
+                       bool swizzle = true) {
+  typedef std::tuple<int, uintptr_t, int, int, int, int, int, bool> Key;
   static std::mutex mu;
   static std::map<Key, CUtensorMap> cache;
   const Key key(dev, reinterpret_cast<uintptr_t>(ptr), rows, cols, box_cols,
-                box_rows, esize);
+                box_rows, esize, swizzle);
   std::lock_guard<std::mutex> lock(mu);
   auto it = cache.find(key);
   if (it == cache.end()) {
     CUtensorMap m;
-    if (!(esize == 2 ? attn::make_map_2d(&m, ptr, rows, cols, box_cols,
-                                         box_rows)
-                     : make_map_u8(&m, ptr, rows, cols, box_cols, box_rows)))
+    if (!(!swizzle ? make_map_flat(&m, ptr, rows, cols, box_cols, box_rows,
+                                   esize)
+          : esize == 2
+              ? attn::make_map_2d(&m, ptr, rows, cols, box_cols, box_rows)
+              : make_map_u8(&m, ptr, rows, cols, box_cols, box_rows)))
       return false;
     if (cache.size() >= 4096) cache.clear();
     it = cache.emplace(key, m).first;

@@ -54,7 +54,7 @@ static int post_ff_chain(const void* x, const void* attn, const void* ck,
                          void* o2, void* xm, void* f, void* out, int B,
                          int C, int S, int F, float scale, const Plan& res,
                          const Plan& cross, const Plan& up,
-                         const Plan& down, cudaStream_t st) {
+                         const Plan& down, bool pdl, cudaStream_t st) {
   DecodeArgs a{};
   a.R = B;
   a.N = C;
@@ -67,7 +67,7 @@ static int post_ff_chain(const void* x, const void* attn, const void* ck,
   a.bias0 = (const float*)bo;
   a.ws0 = (const bf16*)sc[0];
   a.out = (bf16*)x1;
-  int e = launch_decode<kResidual, WT>(res, attn, wo, nullptr, a, false, st);
+  int e = launch_decode<kResidual, WT>(res, attn, wo, nullptr, a, pdl, st);
   if (e) return e;
   // 2. o2 = cross-attention(bf16(LN2(x1)) @ wq2)
   a.ln_s = (const float*)n2s;
@@ -77,16 +77,16 @@ static int post_ff_chain(const void* x, const void* attn, const void* ck,
   a.cv = (const bf16*)cv;
   a.out = (bf16*)o2;
   e = S > kCtx
-          ? launch_decode<kCross64, WT>(cross, x1, wq2, nullptr, a, true, st)
+          ? launch_decode<kCross64, WT>(cross, x1, wq2, nullptr, a, pdl, st)
           : launch_decode<kCross64Short, WT>(cross, x1, wq2, nullptr, a,
-                                             true, st);
+                                             pdl, st);
   if (e) return e;
   // 3. xm = x1 + bf16(o2 @ wo2 + bo2)
   a.res = (const bf16*)x1;
   a.bias0 = (const float*)bo2;
   a.ws0 = (const bf16*)sc[2];
   a.out = (bf16*)xm;
-  e = launch_decode<kResidual, WT>(res, o2, wo2, nullptr, a, true, st);
+  e = launch_decode<kResidual, WT>(res, o2, wo2, nullptr, a, pdl, st);
   if (e) return e;
   // 4. f = bf16((h3 @ wa + ba) * gelu(h3 @ wg + bg))
   DecodeArgs u{};
@@ -102,7 +102,7 @@ static int post_ff_chain(const void* x, const void* attn, const void* ck,
   u.ws0 = (const bf16*)sc[3];
   u.ws1 = (const bf16*)sc[4];
   u.out = (bf16*)f;
-  e = launch_decode<kGeglu, WT>(up, xm, wa, wg, u, true, st);
+  e = launch_decode<kGeglu, WT>(up, xm, wa, wg, u, pdl, st);
   if (e) return e;
   // 5. out = xm + bf16(f @ w2 + b2)
   DecodeArgs d{};
@@ -115,7 +115,7 @@ static int post_ff_chain(const void* x, const void* attn, const void* ck,
   d.bias0 = (const float*)b2;
   d.ws0 = (const bf16*)sc[5];
   d.out = (bf16*)out;
-  return launch_decode<kResidual, WT>(down, f, w2, nullptr, d, true, st);
+  return launch_decode<kResidual, WT>(down, f, w2, nullptr, d, pdl, st);
 }
 
 }  // namespace gemm
@@ -137,7 +137,7 @@ extern "C" int rdm_decode_post_ff(
     int tpc_r, int st_r, int ks_r, int bm_c, int bn_c, int pp_c, int tpc_c,
     int st_c, int ks_c, int bm_u, int bn_u, int pp_u, int tpc_u, int st_u,
     int ks_u, int bm_d, int bn_d, int pp_d, int tpc_d, int st_d, int ks_d,
-    void* stream) {
+    int pdl, void* stream) {
   using namespace rdmk::gemm;
   const void* sc[6] = {swo, swq2, swo2, swa, swg, sw2};
   int given = 0;
@@ -153,9 +153,9 @@ extern "C" int rdm_decode_post_ff(
     return post_ff_chain<bf16>(x, attn, ck, cv, wo, bo, n2s, n2b, wq2, wo2,
                                bo2, n3s, n3b, wa, wg, ba, bg, w2, b2, sc, x1,
                                o2, xm, f, out, B, C, S, F, scale, res, cross,
-                               up, down, st);
+                               up, down, pdl != 0, st);
   return post_ff_chain<int8_t>(x, attn, ck, cv, wo, bo, n2s, n2b, wq2, wo2,
                                bo2, n3s, n3b, wa, wg, ba, bg, w2, b2, sc, x1,
                                o2, xm, f, out, B, C, S, F, scale, res, cross,
-                               up, down, st);
+                               up, down, pdl != 0, st);
 }

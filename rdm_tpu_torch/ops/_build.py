@@ -55,9 +55,9 @@ _SIGNATURES = {
     "rdm_post_cross_q": [_P] * 15 + [_I] * 5 + [_F] * 4 + [_P],
     "rdm_geglu_ff_q": [_P] * 14 + [_I] * 4 + [_F, _F, _P],
     "rdm_post_ff": [_P] * 20 + [_I] * 6 + [_F, _P],
-    "rdm_decode_qkv": [_P] * 12 + [_I, _I, _I, _P],
-    "rdm_decode_attn": [_P] * 10 + [_I, _I, _I, _I, _F, _P],
-    "rdm_decode_post_ff": [_P] * 30 + [_I] * 4 + [_F] + [_I] * 24 + [_P],
+    "rdm_decode_proj": [_P] * 10 + [_I] * 9 + [_P],
+    "rdm_decode_attn": [_P] * 10 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
+    "rdm_decode_post_ff": [_P] * 30 + [_I] * 4 + [_F] + [_I] * 25 + [_P],
     "rdm_commit_rows": [_P, _P, _I, _I, _I, _P],
     "rdm_flash_fwd": [_P] * 4 + [_I] * 6 + [_F, _P],
     "rdm_flash_bwd": [_P] * 8 + [_I] * 6 + [_F, _F, _P],

@@ -280,9 +280,11 @@ def _split_k_plan(kind: str, r: int, n: int, k: int, sms: int,
     fill fewer than half the SMs: then the largest KS up to _MAX_KS that
     leaves each CTA two or more K-steps and the grid within one wave. The
     ring holds the CTA's K-steps, 2 to 8 stages, as deep as fits beside
-    the split's region."""
-    if kind not in ("residual", "cross", "geglu"):
-        raise ValueError(f"gemm_plan: the decode chain has no {kind!r} "
+    the split's region (and, for the LayerNorm kinds, the normalised
+    panel of K columns). The decode launches: "residual", "cross" and
+    "geglu" (decode_post_ff's chain), "qkv" (decode_attn's projection)."""
+    if kind not in ("residual", "cross", "geglu", "qkv"):
+        raise ValueError(f"gemm_plan: the decode launches have no {kind!r} "
                          "launch")
     bm, bn, pp = DECODE_TILE
     nkb, ntiles = -(-k // _GEMM_BK), -(-n // bn)

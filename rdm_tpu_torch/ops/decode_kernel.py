@@ -7,9 +7,11 @@ runs as:
 
   1. `decode_attn`    - LN1 + the [C, 3C] q/k/v projection of the new token,
                         then its causal attention over the cache rows
-                        < pos plus its own k/v (csrc/decode_qkv.cu and
-                        csrc/decode_attn.cu, two launches; replaces
-                        `_attn_kernel`)
+                        < pos plus its own k/v (csrc/decode_attn.cu, two
+                        launches: a kQkv launch of the block-GEMM core,
+                        K split over a cluster, then a split-KV attention
+                        whose clusters merge their softmax states in rank
+                        order; replaces `_attn_kernel`)
   2. `decode_post_ff` - out-proj + residual, LN2 + q projection +
                         cross-attention, out-proj + residual, LN3 + GEGLU
                         FF + residual (csrc/decode_post_ff.cu: five
@@ -39,8 +41,10 @@ given caches.
 
 Not carried over from the TPU kernels: the head-segment SEG/SEG^T matmuls
 (a per-head dot over 64 channels is plain on a GPU), the W-chunked grid and
-its clamped index maps (the attention kernel bounds its read by pos
-itself), and the 512 KB in-kernel-commit threshold.
+its clamped index maps (the attention launch splits the rows below pos
+over a cluster, `attn_plan`), and the 512 KB in-kernel-commit threshold.
+The decode launches start under the launch before them (programmatic
+dependent launch), which gives the bits of plain stream launches.
 
 The serving options of the TPU kernels, as compiled variants of the same
 kernels:
@@ -55,8 +59,8 @@ kernels:
   from the f32 projection, scale = max(max|k| over all C, 1e-12) / 127;
   past rows are read as codes times their scales, the current position
   attends through the exact k_new / v_new. The cache read halves. Rows are
-  committed in place by the attention launch; a deferred commit is refused
-  (the TPU `decode_layer` asserts the same).
+  committed in place by the attention launch, once per batch row; a
+  deferred commit is refused (the TPU `decode_layer` asserts the same).
 
 Each wrapper counts its launches in `launch_counts()`, under the name of
 the variant it launched: `decode_attn`, `decode_attn_w8` (int8 weights),
@@ -67,13 +71,15 @@ the variant it launched: `decode_attn`, `decode_attn_w8` (int8 weights),
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Optional, Sequence
+import functools
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
 from rdm_tpu_torch.ops import _build
-from rdm_tpu_torch.ops.block_kernel import (_check, _on_cpu, _p, _stream,
+from rdm_tpu_torch.ops.block_kernel import (_LOG2E, _check,
+                                            _on_cpu, _p, _stream,
                                             geglu_ff_reference, gemm_plan,
                                             layer_norm, ln_qkv_reference,
                                             post_cross_reference, sm_count)
@@ -89,6 +95,12 @@ KERNEL_NAMES = ("decode_attn", "decode_attn_w8", "decode_attn_kv8",
                 "decode_attn_w8_kv8", "decode_post_ff", "decode_post_ff_w8",
                 "commit_rows")
 _launches = dict.fromkeys(KERNEL_NAMES, 0)
+# decode_attn's attention launch (csrc/decode_attn.cu, which refuses a
+# plan outside them): cache rows of a TMA box, CTAs of a cluster splitting
+# the rows below pos, and a split's rows at most
+ATTN_ROWS = 16
+ATTN_MAX_SPLITS = 8
+ATTN_MAX_ROWS = 256
 
 
 # ------------------------------------------------------------ plain math
@@ -210,6 +222,40 @@ def commit_rows_reference(pos: int, caches: Sequence[torch.Tensor],
     return list(caches)
 
 
+# ----------------------------------------------------------------- plans
+
+class AttnPlan(NamedTuple):
+    """decode_attn's attention launch: `group` heads a CTA, `splits` CTAs
+    of a cluster each taking `rows` cache rows below pos (a multiple of
+    ATTN_ROWS); `ctas` of the grid (splits x heads / group x B). The
+    launcher picks the ring's depth for the built kernel."""
+    group: int
+    splits: int
+    rows: int
+    ctas: int
+
+
+@functools.lru_cache(maxsize=None)
+def attn_plan(b: int, heads: int, pos: int, sms: int) -> AttnPlan:
+    """The split-KV attention's grid on a card of `sms` SMs at batch b and
+    position pos: 4 heads a CTA (2 or 1 where heads does not divide), so a
+    cache row's box is 512 contiguous bytes (256 int8); as many splits of
+    the rows below pos as keep 4 CTAs an SM on average, up to
+    ATTN_MAX_SPLITS and one 16-row box each at least; the rows dealt out
+    in whole boxes, so only the last split's last box runs past pos.
+    pos = 0 reads no row: one split."""
+    group = next(g for g in (4, 2, 1) if heads % g == 0)
+    cells = b * (heads // group)
+    splits = max(1, min(ATTN_MAX_SPLITS, -(-pos // ATTN_ROWS),
+                        4 * sms // cells))
+    rows = -(-max(1, -(-pos // splits)) // ATTN_ROWS) * ATTN_ROWS
+    splits = max(1, -(-pos // rows))
+    if rows > ATTN_MAX_ROWS:
+        raise ValueError(f"decode_attn: {pos} cache rows over {splits} "
+                         f"splits exceed {ATTN_MAX_ROWS} a split")
+    return AttnPlan(group, splits, rows, splits * cells)
+
+
 # -------------------------------------------------------------- wrappers
 
 def _check_pos(name: str, pos: int, t: int) -> None:
@@ -233,10 +279,23 @@ def decode_attn(x, pos: int, k_cache, v_cache, n1s, n1b, wqkv, *,
                 wqkv_s=None, ks_cache=None, vs_cache=None):
     """LN1 + q/k/v projection + cached causal attention of one token:
     x [B, C], caches [T, B, C] -> (attn, k_new, v_new), each [B, C]. On
-    CUDA this is two launches (projection, then attention), counted as one
-    call. wqkv_s ([3C] bf16): wqkv is int8. ks_cache / vs_cache ([T, B, 1]
-    f32): the caches are int8, and the attention launch commits row pos
-    (commit must be on)."""
+    CUDA this is two launches (the projection, `gemm_plan("qkv",
+    split_k=True)` on the block-GEMM core; the split-KV attention,
+    `attn_plan`), counted as one call; with a bf16 in-place commit k_new
+    and v_new are the caches' rows pos. wqkv_s ([3C] bf16): wqkv is int8.
+    ks_cache / vs_cache ([T, B, 1] f32): the caches are int8, and the
+    attention launch commits row pos (commit must be on)."""
+    return _decode_attn(x, pos, k_cache, v_cache, n1s, n1b, wqkv,
+                        heads=heads, head_dim=head_dim, commit=commit,
+                        wqkv_s=wqkv_s, ks_cache=ks_cache, vs_cache=vs_cache,
+                        pdl=True)
+
+
+def _decode_attn(x, pos, k_cache, v_cache, n1s, n1b, wqkv, *, heads,
+                 head_dim, commit=True, wqkv_s=None, ks_cache=None,
+                 vs_cache=None, pdl: bool):
+    """decode_attn; pdl: its launches may start under the launch before
+    them (always, in the wrapper; off, the card tests' reference bits)."""
     b, c = x.shape
     t = k_cache.shape[0]
     int8_kv = ks_cache is not None
@@ -265,26 +324,31 @@ def decode_attn(x, pos: int, k_cache, v_cache, n1s, n1b, wqkv, *,
               else []),
            i8=([(wqkv, (c, 3 * c))] if quantized else [])
            + (caches if int8_kv else []))
-    q, kn, vn, out = (torch.empty_like(x) for _ in range(4))
+    sms = sm_count(x.device.index)
+    proj = gemm_plan("qkv", b, 3 * c, c, sms, split_k=True, w8=quantized)
+    ap = attn_plan(b, heads, pos, sms)
+    q, out = torch.empty_like(x), torch.empty_like(x)
+    if commit and not int8_kv:
+        kn, vn = k_cache[pos], v_cache[pos]
+    else:
+        kn, vn = torch.empty_like(x), torch.empty_like(x)
     knf, vnf = ((torch.empty((b, c), dtype=torch.float32, device=x.device)
                  for _ in range(2)) if int8_kv else (None, None))
-    bf_commit = commit and not int8_kv
-    scale_log2 = head_dim ** -0.5 * 1.4426950408889634
     lib = _build.load()
     with torch.cuda.device(x.device):
         st = _stream(x)
-        rc = lib.rdm_decode_qkv(
+        rc = lib.rdm_decode_proj(
             _p(x), _p(n1s), _p(n1b), _p(wqkv),
             _p(wqkv_s) if quantized else None, _p(q), _p(kn), _p(vn),
-            _p(k_cache) if bf_commit else None,
-            _p(v_cache) if bf_commit else None,
-            _p(knf) if int8_kv else None, _p(vnf) if int8_kv else None,
-            pos, b, c, st)
-        _build.check(rc, "decode_qkv")
+            _p(knf) if int8_kv else None, _p(vnf) if int8_kv else None, b, c,
+            *proj.args, proj.ks, int(pdl), st)
+        _build.check(rc, "decode_attn (projection)")
         rc = lib.rdm_decode_attn(
             _p(q), _p(kn), _p(vn), _p(k_cache), _p(v_cache),
             *((_p(ks_cache), _p(vs_cache), _p(knf), _p(vnf)) if int8_kv
-              else (None,) * 4), _p(out), pos, b, c, heads, scale_log2, st)
+              else (None,) * 4), _p(out), pos, t, b, c, heads,
+            head_dim ** -0.5 * _LOG2E, ap.group, ap.splits, ap.rows,
+            int(pdl), st)
     _build.check(rc, "decode_attn")
     _launches[_attn_variant(quantized, int8_kv)] += 1
     return out, kn, vn
@@ -298,6 +362,16 @@ def decode_post_ff(x, attn, cross_k, cross_v, wo, bo, n2s, n2b, wq2, wo2,
     block-GEMM core at R = B rows (`gemm_plan(split_k=True)` plans them),
     counted as one call. scales: the bf16 column scales of int8 (wo, wq2,
     wo2, wa, wg, w2), [C], [C], [C], [F], [F], [C]."""
+    return _decode_post_ff(x, attn, cross_k, cross_v, wo, bo, n2s, n2b, wq2,
+                           wo2, bo2, n3s, n3b, wa, wg, ba, bg, w2, b2,
+                           heads=heads, head_dim=head_dim, scales=scales,
+                           pdl=True)
+
+
+def _decode_post_ff(x, attn, cross_k, cross_v, wo, bo, n2s, n2b, wq2, wo2,
+                    bo2, n3s, n3b, wa, wg, ba, bg, w2, b2, *, heads,
+                    head_dim, scales=None, pdl: bool):
+    """decode_post_ff; pdl as `_decode_attn`'s."""
     b, c = x.shape
     s = cross_k.shape[0]
     f = wa.shape[1]
@@ -343,7 +417,7 @@ def decode_post_ff(x, attn, cross_k, cross_v, wo, bo, n2s, n2b, wq2, wo2,
             *((_p(sc) for sc in scales) if quantized else (None,) * 6),
             _p(x1), _p(o2), _p(xmid), _p(hidden), _p(out), b, c, s, f,
             head_dim ** -0.5, *(v for pl in plans for v in (*pl.args, pl.ks)),
-            _stream(x))
+            int(pdl), _stream(x))
     _build.check(rc, "decode_post_ff")
     _launches["decode_post_ff_w8" if quantized else "decode_post_ff"] += 1
     return out

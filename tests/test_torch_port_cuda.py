@@ -549,11 +549,23 @@ def _seed_params(module: torch.nn.Module, seed: int) -> torch.nn.Module:
     return module
 
 
+# decode_attn's cases at the RARM width (12 heads, T = 256): B = 1 to 65
+# (65: two 64-row blocks of the projection, no K split), pos 0, 1 and T - 1
+RARM_ATTN_CASES = [(1, 12, 256, 0, 4), (16, 12, 256, 1, 4),
+                   (17, 12, 256, 255, 4), (32, 12, 256, 255, 4),
+                   (64, 12, 256, 200, 4), (65, 12, 256, 255, 4)]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("commit", [True, False])
 @pytest.mark.parametrize("b,heads,t,pos,s", [
     (3, 3, 64, 0, 1), (3, 3, 64, 63, 16), (16, 12, 256, 63, 4),
-    (32, 12, 256, 200, 4), (40, 3, 32, 17, 4)])
-def test_decode_kernels_match_plain(cuda, b, heads, t, pos, s):
+    (32, 12, 256, 200, 4), (40, 3, 32, 17, 4)] + RARM_ATTN_CASES)
+def test_decode_kernels_match_plain(cuda, b, heads, t, pos, s, commit):
+    """decode_attn (both commits), decode_post_ff and commit_rows against
+    their plain versions; with commit, row pos of the caches holds k_new /
+    v_new exactly, without it the caches are untouched; every other row
+    is untouched either way."""
     c = heads * DHD
     blk = _seed_params(rarm._Block(c, 24, heads, DHD), seed=b + pos)
     w = bk.pack_block_weights(blk.cuda(), torch.bfloat16)
@@ -568,15 +580,17 @@ def test_decode_kernels_match_plain(cuda, b, heads, t, pos, s):
     dk.reset_launch_counts()
     caches = (kc.clone(), vc.clone())
     got = dk.decode_attn(x, pos, *caches, w["n1s"], w["n1b"], w["wqkv"],
-                         **hd)
+                         commit=commit, **hd)
     torch.cuda.synchronize()
     want = dk.decode_attn_reference(x, pos, kc.clone(), vc.clone(),
-                                    w["n1s"], w["n1b"], w["wqkv"], **hd)
+                                    w["n1s"], w["n1b"], w["wqkv"],
+                                    commit=commit, **hd)
     for a, r in zip(got, want):
         assert torch.isfinite(a).all() and _rel_err(a, r) <= TOL
-    # row pos holds the new k/v exactly, every other row is untouched
+    # row pos holds the new k/v exactly (commit) or its old values, every
+    # other row is untouched
     for cache, old, new in zip(caches, (kc, vc), got[1:]):
-        assert torch.equal(cache[pos], new)
+        assert torch.equal(cache[pos], new if commit else old[pos])
         keep = torch.arange(t, device="cuda") != pos
         assert torch.equal(cache[keep], old[keep])
     ff = (x, got[0], ck, cv, w["wo"], w["bo"], w["n2s"], w["n2b"], w["wq2"],
@@ -657,14 +671,18 @@ def test_decode_wrappers_raise_instead_of_falling_back(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("commit", [True, False])
 @pytest.mark.parametrize("mode", ["w8", "kv8", "w8_kv8"])
 @pytest.mark.parametrize("b,heads,t,pos,s", [
-    (3, 3, 64, 0, 1), (3, 3, 64, 63, 16), (16, 12, 256, 200, 4)])
-def test_decode_int8_variants_match_plain(cuda, mode, b, heads, t, pos, s):
+    (3, 3, 64, 0, 1), (3, 3, 64, 63, 16), (16, 12, 256, 200, 4)]
+    + RARM_ATTN_CASES)
+def test_decode_int8_variants_match_plain(cuda, mode, b, heads, t, pos, s,
+                                          commit):
     """decode_attn with int8 weights / an int8 cache / both, and
     decode_post_ff with int8 weights, against their plain versions; the
     int8 commit's codes within one step on at most 0.1%, its scales within
-    1e-5 relative, the other rows untouched."""
+    1e-5 relative, the other rows untouched. Without commit, int8 weights
+    leave the caches untouched and an int8 cache is refused."""
     c = heads * DHD
     blk = _seed_params(rarm._Block(c, 24, heads, DHD), seed=b + pos + 7)
     w = bk.pack_block_weights(blk.cuda(), torch.bfloat16)
@@ -695,8 +713,12 @@ def test_decode_int8_variants_match_plain(cuda, mode, b, heads, t, pos, s):
     def attn(fn, cs):
         return fn(x, pos, cs["kc"], cs["vc"], w["n1s"], w["n1b"], w["wqkv"],
                   ks_cache=cs.get("ks_cache"), vs_cache=cs.get("vs_cache"),
-                  **hd)
+                  commit=commit, **hd)
 
+    if "kv8" in mode and not commit:
+        with pytest.raises(ValueError, match="commits in place"):
+            attn(dk.decode_attn, mine)
+        return
     got = attn(dk.decode_attn, mine)
     torch.cuda.synchronize()
     want = attn(dk.decode_attn_reference, ref)
@@ -713,8 +735,12 @@ def test_decode_int8_variants_match_plain(cuda, mode, b, heads, t, pos, s):
         for k in ("ks_cache", "vs_cache"):
             assert ((mine[k][pos] - ref[k][pos]).abs()
                     / ref[k][pos]).max() <= 1e-5
-    else:
+    elif commit:
         assert torch.equal(mine["kc"][pos], got[1])
+        assert torch.equal(mine["vc"][pos], got[2])
+    else:
+        assert torch.equal(mine["kc"][pos], kc[pos])
+        assert torch.equal(mine["vc"][pos], vc[pos])
     scales = tuple(w[n + "_s"] for n in dk.POST_FF_WEIGHTS) \
         if "w8" in mode else None
     ff = (x, got[0], ck, cv, w["wo"], w["bo"], w["n2s"], w["n2b"], w["wq2"],
@@ -729,6 +755,111 @@ def test_decode_int8_variants_match_plain(cuda, mode, b, heads, t, pos, s):
     want_counts["decode_attn_" + mode] = 1
     want_counts["decode_post_ff_w8" if "w8" in mode else "decode_post_ff"] = 1
     assert dk.launch_counts() == want_counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "w8", "kv8", "w8_kv8"])
+@pytest.mark.parametrize("b,pos", [(16, 0), (16, 200), (32, 255), (65, 63)])
+def test_decode_attn_bit_equal_in_graphs_and_without_pdl(cuda, mode, b, pos):
+    """decode_attn's two launches at the RARM width (12 heads of 64, T =
+    256), per variant: a second call, the replay of a CUDA graph of one
+    call and the same launches with programmatic dependent launch off
+    (plain stream launches) give the first call's attn, k_new, v_new and
+    cache rows bit for bit (rank-ordered sums, no atomics; PDL moves only
+    when a launch starts)."""
+    heads, t, c = 12, 256, 768
+    blk = _seed_params(rarm._Block(c, 24, heads, DHD), seed=b + pos + 3)
+    w = bk.pack_block_weights(blk.cuda(), torch.bfloat16)
+    if "w8" in mode:
+        w["wqkv"], w["wqkv_s"] = dk.quantize_weight(w["wqkv"])
+    g = torch.Generator(device="cuda").manual_seed(pos + 11)
+    x = torch.randn((b, c), generator=g, device="cuda").bfloat16()
+    if "kv8" in mode:
+        caches = []
+        for _ in range(2):
+            codes, sc = dk.quantize_rows(torch.randn(
+                (t * b, c), generator=g, device="cuda"))
+            caches += [codes.reshape(t, b, c), sc.reshape(t, b, 1)]
+        kc, ks, vc, vs = caches
+    else:
+        kc, vc = (torch.randn((t, b, c), generator=g,
+                              device="cuda").bfloat16() for _ in range(2))
+        ks = vs = None
+
+    def call(pdl=True):
+        out = dk._decode_attn(x, pos, kc, vc, w["n1s"], w["n1b"], w["wqkv"],
+                              heads=heads, head_dim=DHD, commit=True,
+                              wqkv_s=w.get("wqkv_s"), ks_cache=ks,
+                              vs_cache=vs, pdl=pdl)
+        return [a.clone() for a in out] + [
+            a[pos].clone() for a in (kc, vc, ks, vs) if a is not None]
+
+    first = call()
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(a.float()).all() for a in first)
+    for a, b_ in zip(call(), first):
+        assert torch.equal(a, b_)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b_ in zip(captured, first):
+        assert torch.equal(a, b_)
+    for a, b_ in zip(call(pdl=False), first):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,pos", [(16, 0), (17, 200), (32, 255)])
+def test_int8_commit_equals_quantize_rows_of_its_rows(cuda, b, pos):
+    """decode_attn's two launches called bare: the attention launch's int8
+    commit of row pos is `quantize_rows`'s rule on the projection's own f32
+    k and v rows, bit for bit: scale = max(max|row|, 1e-12) / 127 as the
+    correctly rounded f32 quotient (as on the CPU; torch on the card
+    multiplies by the reciprocal of a Python scalar divisor instead, so the
+    expected scale is divided in f64 and rounded once to f32, which gives
+    the same f32), codes rint(row / scale) clipped to +-127."""
+    from rdm_tpu_torch.ops import _build
+
+    heads, t, c = 12, 256, 768
+    blk = _seed_params(rarm._Block(c, 24, heads, DHD), seed=b + pos + 5)
+    w = bk.pack_block_weights(blk.cuda(), torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(pos + 13)
+    x = torch.randn((b, c), generator=g, device="cuda").bfloat16()
+    caches = []
+    for _ in range(2):
+        codes, sc = dk.quantize_rows(torch.randn((t * b, c), generator=g,
+                                                 device="cuda"))
+        caches += [codes.reshape(t, b, c), sc.reshape(t, b, 1)]
+    kc, ks, vc, vs = caches
+    q, kn, vn, out = (torch.empty_like(x) for _ in range(4))
+    knf, vnf = (torch.empty((b, c), device="cuda") for _ in range(2))
+    sms = bk.sm_count(x.device.index)
+    proj = bk.gemm_plan("qkv", b, 3 * c, c, sms, split_k=True)
+    ap = dk.attn_plan(b, heads, pos, sms)
+    lib = _build.load()
+    st = torch.cuda.current_stream().cuda_stream
+    p = [a.data_ptr() for a in (x, w["n1s"], w["n1b"], w["wqkv"])]
+    assert lib.rdm_decode_proj(*p, None, q.data_ptr(), kn.data_ptr(),
+                               vn.data_ptr(), knf.data_ptr(), vnf.data_ptr(),
+                               b, c, *proj.args, proj.ks, 1, st) == 0
+    assert lib.rdm_decode_attn(
+        *(a.data_ptr() for a in (q, kn, vn, kc, vc, ks, vs, knf, vnf, out)),
+        pos, t, b, c, heads, DHD ** -0.5 * 1.4426950408889634, ap.group,
+        ap.splits, ap.rows, 1, st) == 0
+    torch.cuda.synchronize()
+    for cache, scales, f in ((kc, ks, knf), (vc, vs, vnf)):
+        sc = (f.abs().amax(dim=-1, keepdim=True).clamp_min(1e-12).double()
+              / 127.0).float()
+        codes = torch.clamp(torch.round(f / sc), -127, 127).to(torch.int8)
+        assert torch.equal(scales[pos], sc)
+        assert torch.equal(cache[pos], codes)
 
 
 @pytest.mark.cuda

@@ -368,5 +368,5 @@ def test_plans_at_the_rarm_width(b, w8):
             assert _ks_fits(kind, n, k, b, p.ks, w8)
             assert not any(_ks_fits(kind, n, k, b, x, w8)
                            for x in range(p.ks + 1, 9))
-    with pytest.raises(ValueError, match="decode chain has no"):
-        bk.gemm_plan("qkv", 16, 3 * c, c, SMS, split_k=True)
+    with pytest.raises(ValueError, match="decode launches have no"):
+        bk.gemm_plan("post_ff", 16, c, c, SMS, split_k=True)
