@@ -75,7 +75,11 @@ exits non-zero):
                three sites of phase 3, on the same int8 weights and scales
                (the absmax of each quantized activation along the plain
                bf16 block): error, share of gated-hidden codes differing,
-               median CUDA-event times, bound.
+               median CUDA-event times, bound; for post_cross_q's three
+               and geglu_ff_q's two s8 launches of the block-GEMM core
+               each launch's device time in a CUDA graph, host us a call,
+               and a second call bit-equal to the first (the hidden codes
+               too).
  10. int8_forward  one full-width int8 U-Net forward, CUDA bf16 against the
                CPU bf16 and CPU f32 plain int8 forwards on the same int8
                weights and scales, and its distance from the bf16 forward.
@@ -231,6 +235,10 @@ GEMM_LAUNCHES = {"ln_qkv": ("qkv",),
 LONG_CONTEXT = 20  # past one 16-token chunk of the cross epilogue
 # bench.py's batch-16 op point under shared CFG: 32 images at the sites
 OP_POINT_IMAGES = 32
+# post_cross_q (three) and geglu_ff_q (two) are s8 launches of the
+# block-GEMM core (its block_gemm_s8_kernel)
+INT8_GEMM_LAUNCHES = {"post_cross_q": ("x1", "cross", "xmid"),
+                      "geglu_ff_q": ("geglu_up", "ff_down")}
 INT8_INFO = {
     "ln_qkv_q": ("rdm_tpu_torch/csrc/ln_qkv_q.cu",
                  "rdm_tpu/ops/block_kernel.py:140"),
@@ -1562,10 +1570,10 @@ def _site_int8(t: dict, s: int, heads: int) -> tuple:
     along the plain bf16 block."""
     from rdm_tpu_torch.ops import block_kernel as bk
 
-    r, c = CFG_BATCH * s, t["x"].shape[-1]
-    hd = c // heads
+    images, c = t["x"].shape[0], t["x"].shape[-1]
+    r, hd = images * s, c // heads
     x2 = t["x"].reshape(r, c)
-    q, k, v = (a.contiguous().reshape(CFG_BATCH, s, c) for a in
+    q, k, v = (a.contiguous().reshape(images, s, c) for a in
                bk.ln_qkv_reference(x2, t["n1s"], t["n1b"], t["wqkv"]))
     attn = bk.packed_attn_reference(q, k, v, heads=heads, head_dim=hd)
     x1 = t["x"] + bk._linear(attn.reshape(r, c), t["wo"], t["bo"]).reshape(
@@ -1585,6 +1593,49 @@ def _site_int8(t: dict, s: int, heads: int) -> tuple:
          for n, m in zip(bk.QSCALE_NAMES, absmax)}
     w = bk.quantize_block_weights(dict(t))
     return w, a, (q, k, v, attn, xm.reshape(r, c))
+
+
+def hidden_codes_differ(xm2: torch.Tensor, w: dict, a: dict,
+                        hidden: torch.Tensor) -> float:
+    """The share of geglu_ff_q's hidden codes (`hidden`, as a call wrote
+    them) that differ from the plain int8 math's on the card."""
+    from rdm_tpu_torch.ops import block_kernel as bk
+
+    h3q = bk.quantize_act(bk.layer_norm(xm2, w["n3s"], w["n3b"]), a["a_ff"])
+    a3 = torch.tensor(a["a_ff"], device=xm2.device)
+    av = bk._int_matmul(h3q, w["wa_q"]).float() * (a3 * w["wa_s"]) + w["ba"]
+    gv = bk._int_matmul(h3q, w["wg_q"]).float() * (a3 * w["wg_s"]) + w["bg"]
+    f = av * (0.5 * gv * (1.0 + torch.erf(gv * 0.7071067811865476)))
+    return (bk.quantize_act(f, a["h_ff"]) != hidden).float().mean().item()
+
+
+def _int8_gemm_site(name: str, kern, pos: tuple, kw: dict,
+                    hidden: torch.Tensor) -> dict:
+    """Phase 9's extra numbers of post_cross_q / geglu_ff_q at one site:
+    each s8 launch's device time in a CUDA graph, host us a call, and a
+    second call bit-equal to the first (geglu_ff_q's hidden codes too).
+    Raises where two calls differ."""
+    n = len(INT8_GEMM_LAUNCHES[name])
+    extra = {"hidden": hidden} if name == "geglu_ff_q" else {}
+    first = kern(*pos, **kw, **extra)
+    codes = hidden.clone()
+    again = kern(*pos, **kw, **extra)
+    torch.cuda.synchronize()
+    equal = torch.equal(first, again) and torch.equal(codes, hidden)
+    if not equal:
+        raise RuntimeError(f"{name}: two calls differ")
+    parts = graph_launch_ms(lambda: kern(*pos, **kw), n,
+                            "block_gemm_s8_kernel")
+    out = {"s8_launch_device_ms": None if parts is None else
+           dict(zip(INT8_GEMM_LAUNCHES[name], parts)),
+           "host_us": host_us(lambda: kern(*pos, **kw)),
+           "two_calls_bit_equal": equal}
+    launches = ("not seen by the profiler" if parts is None else ", ".join(
+        f"{k} {v:.4f}" for k, v in out["s8_launch_device_ms"].items()))
+    say("int8_kernels", f"  {name} s8 launches (device ms, CUDA graph): "
+        f"{launches}; host per call {out['host_us']:.1f} us; two calls "
+        f"bit-equal")
+    return out
 
 
 def phase_int8_kernels() -> dict:
@@ -1631,17 +1682,8 @@ def phase_int8_kernels() -> dict:
                     "rel_err": rel}
             codes = ""
             if name == "geglu_ff_q":  # the hidden codes the kernel wrote
-                h3q = bk.quantize_act(bk.layer_norm(xm2, w["n3s"], w["n3b"]),
-                                      a["a_ff"])
-                a3 = torch.tensor(a["a_ff"], device="cuda")
-                av = bk._int_matmul(h3q, w["wa_q"]).float() * (
-                    a3 * w["wa_s"]) + w["ba"]
-                gv = bk._int_matmul(h3q, w["wg_q"]).float() * (
-                    a3 * w["wg_s"]) + w["bg"]
-                f = av * (0.5 * gv * (1.0 + torch.erf(
-                    gv * 0.7071067811865476)))
-                diff = (bk.quantize_act(f, a["h_ff"]) != hidden)
-                site["hidden_codes_differ"] = diff.float().mean().item()
+                site["hidden_codes_differ"] = hidden_codes_differ(
+                    xm2, w, a, hidden)
                 codes = (f"; hidden codes differing "
                          f"{site['hidden_codes_differ']:.3e}")
             ms = median_ms(lambda: kern(*pos, **kw))
@@ -1649,6 +1691,8 @@ def phase_int8_kernels() -> dict:
             site["bound_ms"], site["bound_by"] = bound(*block_cost(name, c, s))
             site.update(ms=ms, plain_ms=plain_ms,
                         **wrapper_device(lambda: kern(*pos, **kw)))
+            if name in INT8_GEMM_LAUNCHES:
+                site.update(_int8_gemm_site(name, kern, pos, kw, hidden))
             say("int8_kernels", f"{name:14s} C={c:4d} S={s:4d} heads="
                 f"{heads:2d}: max|err| {err:.4g}, /max|ref| {rel:.3e} "
                 f"(limit {KERNEL_TOL:g}){codes}; kernel {ms:.4f} ms (device "
@@ -3017,7 +3061,10 @@ def main() -> int:
     rows = [row(n, KERNEL_INFO[n], launches, r, sites=r["sites"],
                 **core.get(n, {}))
             for n, r in kernels.items()]
-    rows += [row(n, INT8_INFO[n], int8_launches, r, sites=r["sites"])
+    for n in INT8_GEMM_LAUNCHES:
+        core[n] = {"sources": [INT8_INFO[n][0]] + GEMM_CORE}
+    rows += [row(n, INT8_INFO[n], int8_launches, r, sites=r["sites"],
+                 **core.get(n, {}))
              for n, r in int8_kernels.items()]
     apart = ("sweep_rel_err", "qkv_device_ms", "attn_device_ms",
              "library_device_ms")  # decode_attn's (and commit_rows' last)

@@ -2,9 +2,11 @@
 """Where the block-GEMM core's time goes, on one NVIDIA GPU.
 
     python3 profile_gemm.py [--decode] [--out profile_gemm.json]
-    python3 profile_gemm.py --host TREE [TREE ...] [--out FILE]
+    python3 profile_gemm.py --host TREE [TREE ...] [--int8] [--out FILE]
     python3 profile_gemm.py --tiles [--out FILE]
     python3 profile_gemm.py --attn [--out FILE]
+    python3 profile_gemm.py --int8 [--out FILE]
+    python3 profile_gemm.py --tiles8 [--out FILE]
 
 Builds the launchers of `ln_qkv`, `post_cross`, `geglu_ff`, the RARM
 decode chain `decode_post_ff` and `decode_attn` (rdm_tpu_torch/csrc/
@@ -30,7 +32,8 @@ design; only their time is read. Prints one JSON
 line per build and writes them all to --out, with the card's name and
 power limit.
 
-With --host, builds nothing of its own: for each TREE in the order given
+With --host (and --int8: the int8 block wrappers alone), builds nothing
+of its own: for each TREE in the order given
 (a checkout of this repo, such as an older commit unpacked by `git
 archive`; `.` for this one), a process of its own imports that tree's
 `rdm_tpu_torch`, builds its kernels and times its `ln_qkv`, `post_cross`
@@ -38,8 +41,11 @@ and `geglu_ff` wrappers at the same sites on the same seeded tensors, and
 its `decode_post_ff` (bf16 and int8 weights) at decode batch 16 and 32,
 and its `decode_attn` in each variant (bf16, int8 weights, int8 cache,
 both) at decode batch 16 and 32 and pos 0 / 63 / 200 / 255 (chip_smoke.py
-phase 6's tensors, C = 768, T = 256): host us a call (chip_smoke.py
-`host_us`) and device ms a call (`graph_ms`); and `decode_attn`'s two
+phase 6's tensors, C = 768, T = 256), and its int8 block wrappers
+`post_cross_q` and `geglu_ff_q` at the U-Net sites (phase 9's tensors and
+scales, with the share of hidden codes that differ from the plain int8
+math): host us a call (chip_smoke.py `host_us`) and device ms a call
+(`graph_ms`); and `decode_attn`'s two
 launches alone, both and each apart (its C entry points on arguments made
 once: the rest of a wrapper call is its Python), with each tree's mean
 over the positions. Naming two trees in turns (A B B A) compares their
@@ -64,6 +70,24 @@ bf16 and int8 caches, in CUDA graphs of 20 calls: warm (the same caches
 each call, so the rows may stay in the 50 MB L2) and cold (20 sets of
 caches in turn, 250-500 MB, as the RARM step's 18 layers read theirs);
 the uncut build also times SDPA over the same rows, warm and cold.
+
+With --int8, builds the launchers of the int8 block's `post_cross_q` and
+`geglu_ff_q` (rdm_tpu_torch/csrc/post_cross_q.cu, geglu_ff_q.cu: the
+core's s8 launches) as they are and with one part of the s8 path cut:
+the code prologue (no row loads, LayerNorm or quantization: the panel
+keeps whatever it holds), the s8 wgmma products, the epilogues, the
+GEGLU's erf. Each build, in a process of its own, times both wrappers at
+chip_smoke.py phase 9's three sites (8 images, its int8 weights and
+scales) in CUDA graphs, each launch by torch.profiler.
+
+With --tiles8, times the int8 block's s8 launches through each tile of
+their kinds (`block_kernel.GEMM_TILES` "resq8", "cross8", "residual8",
+"geglu8"), one kind's tiles forced alone at a time (ring depth and column
+tiles a CTA as `gemm_plan` sets them for it), at the three sites at 2, 8
+and 32 images: the device ms of each launch of the wrapper that runs the
+kind (post_cross_q, or geglu_ff_q for "geglu8"; "residual8" in both), in
+a CUDA graph, beside the plan `gemm_plan` picks; each output held
+against the plain version (chip_smoke.py KERNEL_TOL).
 """
 
 from __future__ import annotations
@@ -103,6 +127,23 @@ CUTS = {
 }
 LAUNCHERS = ("ln_qkv.cu", "post_cross.cu", "geglu_ff_sm90.cu",
              "decode_post_ff.cu", "decode_attn.cu")
+# (text of block_gemm_sm90.cuh, its replacement) of each cut of the s8
+# launches (--int8)
+INT8_CUTS = {
+    "kernel": None,
+    "no code prologue": (
+        "  for (int r0 = warp; r0 < BM; r0 += 2 * kWarps) {",
+        "  for (int r0 = warp; r0 < 0; r0 += 2 * kWarps) {"),
+    "no s8 wgmma": ("            wgmma_s8<BN>(acc[w][m], da,",
+                    "            if (p.R < 0) wgmma_s8<BN>(acc[w][m], da,"),
+    "no epilogue": ("    const int n0 = t * BN;  // the tile's first column\n",
+                    "    if (p.R > 0) continue;\n"
+                    "    const int n0 = t * BN;  // the tile's first column\n"),
+    "no erf": ("              av * (0.5f * gv * (1.0f + erff(gv * "
+               "0.7071067811865476f)));",
+               "              av * gv;"),
+}
+INT8_LAUNCHERS = ("post_cross_q.cu", "geglu_ff_q.cu")
 DECODE_BATCHES = (16, 32)  # chip_smoke.py RARM_BATCHES
 ATTN_POSITIONS = (0, 63, 200, 255)  # chip_smoke.py RARM_POSITIONS
 TILE_IMAGES = (2, 8, 32)
@@ -138,16 +179,17 @@ def build_dir(variant: str) -> str:
                         variant.replace(" ", "_"))
 
 
-def build(variant: str) -> subprocess.Popen:
-    """Starts nvcc on the four launchers over the cut header, in a
-    directory of the build's own (a quoted include finds the cut header
-    beside the launchers first)."""
+def build(variant: str, int8: bool = False) -> subprocess.Popen:
+    """Starts nvcc on the launchers (the int8 block's two with int8) over
+    the cut header, in a directory of the build's own (a quoted include
+    finds the cut header beside the launchers first)."""
     from rdm_tpu_torch.ops import _build
 
-    out = build_dir(variant)
+    out = build_dir(("int8 " if int8 else "") + variant)
+    launchers = INT8_LAUNCHERS if int8 else LAUNCHERS
     os.makedirs(out, exist_ok=True)
     src = (_build.CSRC / HEADER).read_text()
-    cut = CUTS[variant]
+    cut = (INT8_CUTS if int8 else CUTS)[variant]
     pairs = () if cut is None else cut if isinstance(cut[0], tuple) else (cut,)
     for old, new in pairs:
         if src.count(old) != 1:
@@ -156,13 +198,13 @@ def build(variant: str) -> subprocess.Popen:
         src = src.replace(old, new)
     with open(os.path.join(out, HEADER), "w") as f:
         f.write(src)
-    for name in LAUNCHERS:
+    for name in launchers:
         with open(os.path.join(out, name), "w") as f:
             f.write((_build.CSRC / name).read_text())
     return subprocess.Popen(
         [_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
          "-shared", "-o", os.path.join(out, "lib.so"),
-         *(os.path.join(out, n) for n in LAUNCHERS),
+         *(os.path.join(out, n) for n in launchers),
          str(_build.CSRC / "runtime.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
@@ -346,6 +388,87 @@ def run_build(variant: str, decode_only: bool) -> dict:
         bk._MAX_KS = 1
         bk.gemm_plan.cache_clear()
         out["decode_ks1"] = decode_times(cs, g)
+    return out
+
+
+def _int8_args(cs, t: dict, s: int, heads: int):
+    """post_cross_q's and geglu_ff_q's arguments on chip_smoke.py phase
+    9's int8 weights and scales of one site's tensors."""
+    w, a, (_, _, _, attn, xm2) = cs._site_int8(t, s, heads)
+    pc = (t["x"], attn, t["ck"], t["cv"], w["wo_q"], w["wo_s"], w["bo"],
+          w["n2s"], w["n2b"], w["wq2_q"], w["wq2_s"], w["wo2_q"],
+          w["wo2_s"], w["bo2"], a["o_attn1"], a["a_attn2"], a["o_attn2"])
+    ff = (xm2, w["n3s"], w["n3b"], w["wa_q"], w["wa_s"], w["wg_q"],
+          w["wg_s"], w["ba"], w["bg"], w["w2_q"], w["w2_s"], w["b2"],
+          a["a_ff"], a["h_ff"])
+    return pc, ff, w, a, xm2
+
+
+def int8_plain(cs, t: dict, s: int, heads: int) -> dict:
+    """post_cross_q's and geglu_ff_q's plain outputs, flattened."""
+    from rdm_tpu_torch.ops import block_kernel as bk
+
+    pc, ff, _, _, _ = _int8_args(cs, t, s, heads)
+    hd = t["x"].shape[-1] // heads
+    return {"post_cross_q": cs._flat(bk.post_cross_q_reference(
+                *pc, heads=heads, head_dim=hd)),
+            "geglu_ff_q": cs._flat(bk.geglu_ff_q_reference(*ff))}
+
+
+def int8_calls(cs, t: dict, s: int, heads: int) -> tuple:
+    """post_cross_q and geglu_ff_q on chip_smoke.py phase 9's int8 weights
+    and scales of one site's tensors: ({name: call}, a function that runs
+    geglu_ff_q into a hidden buffer and returns the share of its codes
+    that differ from the plain int8 math's)."""
+    import torch
+
+    from rdm_tpu_torch.ops import block_kernel as bk
+
+    pc, ff, w, a, xm2 = _int8_args(cs, t, s, heads)
+    hd = t["x"].shape[-1] // heads
+    hidden = torch.empty((xm2.shape[0], 4 * xm2.shape[1]), dtype=torch.int8,
+                         device="cuda")
+    calls = {"post_cross_q": lambda: bk.post_cross_q(*pc, heads=heads,
+                                                     head_dim=hd),
+             "geglu_ff_q": lambda: bk.geglu_ff_q(*ff)}
+
+    def differ():
+        bk.geglu_ff_q(*ff, hidden=hidden)
+        return cs.hidden_codes_differ(xm2, w, a, hidden)
+
+    return calls, differ
+
+
+def run_build_int8(variant: str) -> dict:
+    """Times post_cross_q and geglu_ff_q through the variant's library of
+    the int8 launchers, per launch, at phase 9's sites."""
+    import torch
+
+    import chip_smoke as cs
+    from rdm_tpu_torch.ops import _build
+
+    lib = ctypes.CDLL(os.path.join(build_dir("int8 " + variant), "lib.so"))
+    for name in ("rdm_post_cross_q", "rdm_geglu_ff_q"):
+        getattr(lib, name).argtypes = _build._SIGNATURES[name]
+        getattr(lib, name).restype = ctypes.c_int
+    lib.rdm_error_string.argtypes = [ctypes.c_int]
+    lib.rdm_error_string.restype = ctypes.c_char_p
+    _build._lib = lib  # the wrappers launch this build
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED + 20)
+    out = {"build": variant, "sites": []}
+    for c, s, heads in cs.SITES:
+        t = cs._site_tensors(c, s, heads, g)
+        calls, _ = int8_calls(cs, t, s, heads)
+        with torch.inference_mode():
+            for name, fn in calls.items():
+                names = cs.INT8_GEMM_LAUNCHES[name]
+                parts = cs.graph_launch_ms(fn, len(names),
+                                           "block_gemm_s8_kernel")
+                out["sites"].append({
+                    "name": name, "C": c, "S": s,
+                    "device_ms": cs.graph_ms(fn),
+                    "launch_device_ms": parts and dict(zip(names, parts))})
+        del t, calls
     return out
 
 
@@ -541,7 +664,68 @@ def run_tiles() -> dict:
     return out
 
 
-def run_host(tree: str) -> dict:
+def run_tiles8() -> dict:
+    """The s8 launches' device ms through each tile of their kinds forced
+    alone, and through gemm_plan's picks, at the sites at TILE_IMAGES
+    images."""
+    import torch
+
+    import chip_smoke as cs
+    from rdm_tpu_torch.ops import block_kernel as bk
+
+    kinds = {"resq8": ("post_cross_q",), "cross8": ("post_cross_q",),
+             "residual8": ("post_cross_q", "geglu_ff_q"),
+             "geglu8": ("geglu_ff_q",)}
+    tiles = {k: bk.GEMM_TILES[k] for k in kinds}
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED + 20)
+    out = {"tiles": tiles, "sites": []}
+
+    def launches(fn, name):
+        names = cs.INT8_GEMM_LAUNCHES[name]
+        parts = cs.graph_launch_ms(fn, len(names), "block_gemm_s8_kernel")
+        return parts and dict(zip(names, parts))
+
+    def refit():
+        bk.gemm_plan.cache_clear()
+        bk.kernel_refusal.cache_clear()
+
+    for c, s, heads in cs.SITES:
+        for images in TILE_IMAGES:
+            t = cs._site_tensors(c, s, heads, g, images=images)
+            calls, _ = int8_calls(cs, t, s, heads)
+            plain = int8_plain(cs, t, s, heads)
+            site = {"C": c, "S": s, "images": images, "R": images * s,
+                    "plan_ms": {n: launches(fn, n)
+                                for n, fn in calls.items()},
+                    "tile_ms": {}}
+            for kind, names in kinds.items():
+                for tile in tiles[kind]:
+                    bk.GEMM_TILES[kind] = (tile,)
+                    refit()
+                    for name in names:
+                        if bk.kernel_refusal(name, c, f=4 * c) is not None:
+                            continue  # the tile does not fit at this C
+                        got = cs._flat(calls[name]())
+                        want = plain[name]
+                        rel = ((got - want).abs().max()
+                               / want.abs().max()).item()
+                        if not rel <= cs.KERNEL_TOL:
+                            raise RuntimeError(
+                                f"{kind} tile {tile} at C={c}, images "
+                                f"{images}: relative error {rel}")
+                        site["tile_ms"][f"{kind} {tile} {name}"] = \
+                            launches(calls[name], name)
+                bk.GEMM_TILES[kind] = tiles[kind]
+                refit()
+            print(f"C={c:4d} images={images:2d}: plan {site['plan_ms']}; "
+                  + "; ".join(f"{k}: {v}" for k, v in
+                              site["tile_ms"].items()), flush=True)
+            out["sites"].append(site)
+            del t, calls, plain
+    return out
+
+
+def run_host(tree: str, int8_only: bool = False) -> dict:
     """Host us and device ms a wrapper call of the tree's `ln_qkv`,
     `post_cross`, `geglu_ff`, `decode_post_ff` and `decode_attn`. The
     tree's package comes first on the path; the timing helpers and tensors
@@ -561,6 +745,16 @@ def run_host(tree: str) -> dict:
     out = {"tree": tree, "module": bk.__file__, "sites": []}
     for c, s, heads in cs.SITES:
         t = cs._site_tensors(c, s, heads, g)
+        if int8_only:
+            calls8, differ = int8_calls(cs, t, s, heads)
+            with torch.inference_mode():
+                for name, fn in calls8.items():
+                    out["sites"].append({"name": name, "C": c, "S": s,
+                                         "host_us": cs.host_us(fn),
+                                         "device_ms": cs.graph_ms(fn)})
+                out["sites"][-1]["hidden_codes_differ"] = differ()
+            del t, calls8
+            continue
         attn = 0.5 * torch.randn(t["x"].shape, generator=g, device="cuda",
                                  dtype=torch.bfloat16)
         pc = (t["x"], attn, t["ck"], t["cv"], t["wo"], t["bo"], t["n2s"],
@@ -579,8 +773,14 @@ def run_host(tree: str) -> dict:
                 out["sites"].append({"name": name, "C": c, "S": s,
                                      "host_us": cs.host_us(fn),
                                      "device_ms": cs.graph_ms(fn)})
-        del t, attn, pc, ff, qkv, calls
-    for b in DECODE_BATCHES:
+            calls8, differ = int8_calls(cs, t, s, heads)
+            for name, fn in calls8.items():
+                out["sites"].append({"name": name, "C": c, "S": s,
+                                     "host_us": cs.host_us(fn),
+                                     "device_ms": cs.graph_ms(fn)})
+            out["sites"][-1]["hidden_codes_differ"] = differ()
+        del t, attn, pc, ff, qkv, calls, calls8
+    for b in () if int8_only else DECODE_BATCHES:
         with torch.inference_mode():
             for mode, fn in decode_calls(cs, g, b).items():
                 out["sites"].append({"name": f"decode_post_ff {mode}",
@@ -602,12 +802,13 @@ def run_host(tree: str) -> dict:
     return out
 
 
-def host_turns(trees, card: str, path: str) -> int:
+def host_turns(trees, card: str, path: str, int8_only: bool) -> int:
     """run_host for each tree in turn, one process each; prints a line a
     site and wrapper, writes every run to `path`."""
     results = {"card": card, "runs": []}
     for i, tree in enumerate(trees):
-        proc = subprocess.run([sys.executable, __file__, "--host-tree", tree],
+        proc = subprocess.run([sys.executable, __file__, "--host-tree", tree]
+                              + ["--int8"] * int8_only,
                               capture_output=True, text=True)
         if proc.returncode:
             raise RuntimeError(f"{tree!r} failed:\n{proc.stderr[-3000:]}")
@@ -616,6 +817,9 @@ def host_turns(trees, card: str, path: str) -> int:
         for site in r["sites"]:
             dev = (f", device {site['device_ms']:.4f} ms"
                    if "device_ms" in site else "")
+            if "hidden_codes_differ" in site:
+                dev += (f", hidden codes differing "
+                        f"{site['hidden_codes_differ']:.3e}")
             print(f"turn {i + 1} {tree:16s} {site['name']:10s} "
                   f"C={site['C']:4d} S={site['S']:4d}: host "
                   f"{site['host_us']:.1f} us a call{dev}", flush=True)
@@ -626,6 +830,34 @@ def host_turns(trees, card: str, path: str) -> int:
             print(f"turn {i + 1} {tree:16s} mean over pos {name} "
                   f"S={s:4d}: host {sum(us) / len(us):.1f} us", flush=True)
         results["runs"].append(r)
+    with open(path, "w") as f:
+        json.dump(results, f, indent=1)
+    print(f"wrote {path}", flush=True)
+    return 0
+
+
+def int8_builds(card: str, path: str) -> int:
+    """Every INT8_CUTS build at once, then run_build_int8 for each, one
+    process a build; prints a line a site and wrapper, writes `path`."""
+    procs = {v: build(v, int8=True) for v in INT8_CUTS}
+    for v, p in procs.items():
+        log = p.communicate()[0]
+        if p.returncode:
+            raise RuntimeError(f"nvcc failed for {v!r}:\n{log}")
+    results = {"card": card, "builds": []}
+    for v in INT8_CUTS:
+        proc = subprocess.run([sys.executable, __file__, "--int8-build", v],
+                              capture_output=True, text=True)
+        if proc.returncode:
+            raise RuntimeError(f"{v!r} failed:\n{proc.stderr[-3000:]}")
+        r = json.loads(proc.stdout.strip().splitlines()[-1])
+        for site in r["sites"]:
+            parts = site["launch_device_ms"]
+            print(f"{v:18s} {site['name']:12s} C={site['C']:4d}: device "
+                  f"{site['device_ms']:.4f} ms; launches "
+                  f"{parts if parts else 'not seen by the profiler'}",
+                  flush=True)
+        results["builds"].append(r)
     with open(path, "w") as f:
         json.dump(results, f, indent=1)
     print(f"wrote {path}", flush=True)
@@ -643,6 +875,11 @@ def main() -> int:
                     help="time only the decode chain in the cut builds")
     ap.add_argument("--attn", action="store_true",
                     help="time decode_attn's attention launch in cut builds")
+    ap.add_argument("--tiles8", action="store_true",
+                    help="time the s8 launches through each of their tiles")
+    ap.add_argument("--int8", action="store_true",
+                    help="time the int8 block's s8 launches in cut builds")
+    ap.add_argument("--int8-build", help=argparse.SUPPRESS)
     ap.add_argument("--attn-build", help=argparse.SUPPRESS)
     ap.add_argument("--build", help=argparse.SUPPRESS)
     ap.add_argument("--host-tree", help=argparse.SUPPRESS)
@@ -654,7 +891,7 @@ def main() -> int:
               "an NVIDIA GPU", file=sys.stderr)
         return 1
     if args.host_tree:
-        print(json.dumps(run_host(args.host_tree)), flush=True)
+        print(json.dumps(run_host(args.host_tree, args.int8)), flush=True)
         return 0
     sys.path.insert(0, HERE)
     if args.attn_build:
@@ -663,18 +900,24 @@ def main() -> int:
     if args.build:
         print(json.dumps(run_build(args.build, args.decode)), flush=True)
         return 0
+    if args.int8_build:
+        print(json.dumps(run_build_int8(args.int8_build)), flush=True)
+        return 0
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     print(card, flush=True)
     if args.host:
-        return host_turns(args.host, card, args.out)
+        return host_turns(args.host, card, args.out, args.int8)
     if args.attn:
         return attn_builds(card, args.out)
-    if args.tiles:
+    if args.int8:
+        return int8_builds(card, args.out)
+    if args.tiles or args.tiles8:
+        run = run_tiles8 if args.tiles8 else run_tiles
         with open(args.out, "w") as f:
-            json.dump({"card": card, **run_tiles()}, f, indent=1)
+            json.dump({"card": card, **run()}, f, indent=1)
         print(f"wrote {args.out}", flush=True)
         return 0
     procs = {v: build(v) for v in CUTS}  # every build at once

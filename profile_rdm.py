@@ -28,7 +28,8 @@ first request. Then measures, in this order:
             launches, device time per kernel, and the attention core's
             (packed_attn: csrc/attn_fwd_sm90.cuh) and the block-GEMM
             core's (ln_qkv, post_cross, geglu_ff:
-            csrc/block_gemm_sm90.cuh) time and share.
+            csrc/block_gemm_sm90.cuh; apart, its s8 launches of
+            post_cross_q and geglu_ff_q) time and share.
 
 Prints one line per measurement, the card's name, power limit, SM clock
 and power draw first and last, and writes everything to --out as JSON.
@@ -167,6 +168,10 @@ def main() -> int:
                       f"{a['ms_per_step']:.4f} ms {a['share']:7.2%} "
                       f"x{a['per_step']:g}", flush=True)
                 print(f"    block-GEMM core (ln_qkv, post_cross, geglu_ff): "
+                      f"{m['ms_per_step']:.4f} ms {m['share']:7.2%} "
+                      f"x{m['per_step']:g}", flush=True)
+                m = r["gemm_s8"]
+                print(f"    its s8 launches (post_cross_q, geglu_ff_q): "
                       f"{m['ms_per_step']:.4f} ms {m['share']:7.2%} "
                       f"x{m['per_step']:g}", flush=True)
     os.environ.pop("RDM_TPU_INT8_ATTN")

@@ -1,30 +1,19 @@
 // Shared pieces of the SpatialTransformer block kernels (sm_90a).
 //
-// Every block kernel is a bf16 tensor-core GEMM with its own prologue and
-// epilogue. The GEMM here is deliberately plain: nvcuda::wmma 16x16x16
-// fragments with f32 accumulation, four warps per thread block, a
-// [BM, BN] = [32, 64] output tile, and the weight streamed through shared
-// memory in [BK, BN] = [32, 64] chunks by double-buffered cp.async copies.
-// Two main loops exist:
-//
-//   panel_gemm    - the A operand is a [BM, K] row panel that already sits
-//                   in shared memory (the LayerNorm prologues need whole
-//                   rows, so the panel is normalised once and reused for
-//                   every output tile of the block);
-//   streamed_gemm - A is streamed from global memory like B (used where K
-//                   is the GEGLU hidden width, too wide for a panel).
+// The first versions' bf16 tensor-core GEMM, kept for post_ff (csrc/
+// post_ff.cu, off the default path) and, with int8_common.cuh, ln_qkv_q
+// and packed_attn_q8: nvcuda::wmma 16x16x16 fragments with f32
+// accumulation, four warps per thread block, a [BM, BN] = [32, 64] output
+// tile, and the weight streamed through shared memory in [BK, BN] =
+// [32, 64] chunks by double-buffered cp.async copies. The A operand is a
+// [BM, K] row panel that already sits in shared memory (panel_gemm: the
+// LayerNorm prologues need whole rows, so the panel is normalised once and
+// reused for every output tile of the block).
 //
 // Layout conventions: activations are row-major [rows, C] bf16, weights are
 // row-major [K, N] bf16 (x @ W), LayerNorm scales and biases are f32.
-// wgmma, TMA and warp specialisation are left for later revisions.
-//
-// Both main loops also take int8 weights [K, N] with one bf16 scale per
-// output column (the RARM int8_weights mode, rdm_tpu/ops/decode_kernel.py
-// `_wdot`): an overload of the same loop brings each [BK, BN] int8 chunk
-// in by cp.async (half the bytes of a bf16 chunk), widens it to bf16 in
-// shared memory (exact: |code| <= 127) and runs the same wmma steps; the
-// caller's epilogue multiplies the f32 product by the column's scale
-// (`wscale`). The bf16 loops are untouched by it.
+// The block-GEMM core (block_gemm_sm90.cuh, TMA + wgmma) replaced these
+// loops in every other block kernel.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -43,7 +32,6 @@ constexpr int BM = 32;         // rows of an output tile
 constexpr int BN = 64;         // columns of an output tile
 constexpr int BK = 32;         // depth of a streamed chunk
 constexpr int kLdB = BN + 8;   // shared row stride of a [BK, BN] chunk (bf16)
-constexpr int kLdA = BK + 8;   // shared row stride of a streamed [BM, BK] chunk
 constexpr int kLdC = BN + 4;   // shared row stride of the f32 staging tile
 
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
@@ -252,220 +240,6 @@ __device__ __forceinline__ void panel_gemm(FragC (&acc)[NW][2],
     __syncthreads();  // the buffer just read is refilled two chunks later
   }
   cp_async_wait<0>();
-}
-
-// acc = A[r0:r0+BM, :K] @ W[:K, n0:n0+BN], both operands streamed from
-// global memory through double-buffered shared chunks. as holds
-// 2 * BM * kLdA bf16, bs holds bchunk_bytes(1). Rows >= R read as zero.
-__device__ __forceinline__ void streamed_gemm(FragC (&acc)[2], const bf16* A,
-                                              int R, int K, const bf16* W,
-                                              int N, int r0, int n0,
-                                              bf16* as, bf16* bs) {
-  const int wm = warp_row(), wn = warp_col();
-  wmma::fill_fragment(acc[0], 0.f);
-  wmma::fill_fragment(acc[1], 0.f);
-  const int nk = K / BK;
-  auto load_a = [&](bf16* dst, int k0) {
-    // [BM, BK] = 32 x 32 bf16 = 128 16-byte vectors, one per thread
-    for (int i = threadIdx.x; i < BM * BK / 8; i += kThreads) {
-      const int r = i / (BK / 8), v = i - (i / (BK / 8)) * (BK / 8);
-      const int gr = r0 + r;
-      const bool ok = gr < R;
-      cp_async16(dst + r * kLdA + v * 8,
-                 A + (size_t)(ok ? gr : 0) * K + k0 + v * 8, ok);
-    }
-  };
-  load_a(as, 0);
-  load_bchunk_async(bs, W, N, 0, n0);
-  cp_async_commit();
-  for (int kc = 0; kc < nk; ++kc) {
-    if (kc + 1 < nk) {
-      load_a(as + ((kc + 1) & 1) * BM * kLdA, (kc + 1) * BK);
-      load_bchunk_async(bs + ((kc + 1) & 1) * BK * kLdB, W, N, (kc + 1) * BK,
-                        n0);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* ca = as + (kc & 1) * BM * kLdA;
-    const bf16* cb = bs + (kc & 1) * BK * kLdB;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      FragA fa;
-      wmma::load_matrix_sync(fa, ca + (wm * 16) * kLdA + kk, kLdA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        FragB fb;
-        wmma::load_matrix_sync(fb, cb + kk * kLdB + wn * 32 + j * 16, kLdB);
-        wmma::mma_sync(acc[j], fa, fb, acc[j]);
-      }
-    }
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-}
-
-// ------------------------------------------------- int8 weight operand
-//
-// In the bchunk_bytes(NW) region an int8 loop keeps one bf16 [BK, BN] chunk
-// per weight (NW * BK * kLdB bf16, what the wmma steps read) followed by
-// the double-buffered int8 staging (2 * NW * BK * BN bytes): 8704 * NW
-// bytes of the 9216 * NW a bf16 loop uses.
-constexpr int kChunk8 = BK * BN;  // bytes of one int8 [BK, BN] chunk
-
-__device__ __forceinline__ int8_t* stage8(bf16* bs, int n_weights) {
-  return reinterpret_cast<int8_t*>(bs + n_weights * BK * kLdB);
-}
-
-// Async copy of rows [k0, k0 + BK) x cols [n0, n0 + BN) of an int8 W ([K,
-// N] row-major, N a multiple of 16) into a dense [BK, BN] chunk: one
-// 16-byte vector per thread; columns >= N are zero-filled.
-__device__ __forceinline__ void load_bchunk_async(int8_t* bs, const int8_t* W,
-                                                  int N, int k0, int n0) {
-  for (int i = threadIdx.x; i < kChunk8 / 16; i += kThreads) {
-    const int r = i / (BN / 16), v = i - (i / (BN / 16)) * (BN / 16);
-    const int gc = n0 + v * 16;
-    const bool ok = gc < N;
-    cp_async16(bs + r * BN + v * 16,
-               W + (size_t)(k0 + r) * N + (ok ? gc : 0), ok);
-  }
-}
-
-// A dense int8 [BK, BN] chunk -> bf16 [BK, BN] at row stride kLdB.
-__device__ __forceinline__ void widen_chunk(bf16* dst, const int8_t* src) {
-  for (int i = threadIdx.x; i < kChunk8 / 16; i += kThreads) {
-    const int r = i / (BN / 16), v = i - (i / (BN / 16)) * (BN / 16);
-    const int4 u = *reinterpret_cast<const int4*>(src + r * BN + v * 16);
-    const int8_t* c = reinterpret_cast<const int8_t*>(&u);
-    uint4 o[2];
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(o);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      h[j] = __floats2bfloat162_rn((float)c[2 * j], (float)c[2 * j + 1]);
-    uint4* d = reinterpret_cast<uint4*>(dst + r * kLdB + v * 16);
-    d[0] = o[0];
-    d[1] = o[1];
-  }
-}
-
-// panel_gemm with int8 weights (unscaled f32 products; see wscale).
-template <int NW>
-__device__ __forceinline__ void panel_gemm(FragC (&acc)[NW][2],
-                                           const bf16* panel, int K,
-                                           const int8_t* const* W, int N,
-                                           int n0, bf16* bs) {
-  const int ldp = panel_ld(K);
-  const int wm = warp_row(), wn = warp_col();
-  int8_t* s8 = stage8(bs, NW);
-#pragma unroll
-  for (int w = 0; w < NW; ++w) {
-    wmma::fill_fragment(acc[w][0], 0.f);
-    wmma::fill_fragment(acc[w][1], 0.f);
-  }
-  const int nk = K / BK;
-#pragma unroll
-  for (int w = 0; w < NW; ++w)
-    load_bchunk_async(s8 + w * kChunk8, W[w], N, 0, n0);
-  cp_async_commit();
-  for (int kc = 0; kc < nk; ++kc) {
-    if (kc + 1 < nk) {
-      int8_t* nxt = s8 + ((kc + 1) & 1) * NW * kChunk8;
-#pragma unroll
-      for (int w = 0; w < NW; ++w)
-        load_bchunk_async(nxt + w * kChunk8, W[w], N, (kc + 1) * BK, n0);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // chunk kc has landed
-    __syncthreads();
-#pragma unroll
-    for (int w = 0; w < NW; ++w)
-      widen_chunk(bs + w * BK * kLdB, s8 + ((kc & 1) * NW + w) * kChunk8);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      FragA fa;
-      wmma::load_matrix_sync(fa, panel + (wm * 16) * ldp + kc * BK + kk, ldp);
-#pragma unroll
-      for (int w = 0; w < NW; ++w) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          FragB fb;
-          wmma::load_matrix_sync(
-              fb, bs + w * BK * kLdB + kk * kLdB + wn * 32 + j * 16, kLdB);
-          wmma::mma_sync(acc[w][j], fa, fb, acc[w][j]);
-        }
-      }
-    }
-    __syncthreads();  // the chunks just read are rewritten next step
-  }
-  cp_async_wait<0>();
-}
-
-// streamed_gemm with an int8 W (unscaled f32 products; see wscale); bs
-// holds bchunk_bytes(1).
-__device__ __forceinline__ void streamed_gemm(FragC (&acc)[2], const bf16* A,
-                                              int R, int K, const int8_t* W,
-                                              int N, int r0, int n0,
-                                              bf16* as, bf16* bs) {
-  const int wm = warp_row(), wn = warp_col();
-  int8_t* s8 = stage8(bs, 1);
-  wmma::fill_fragment(acc[0], 0.f);
-  wmma::fill_fragment(acc[1], 0.f);
-  const int nk = K / BK;
-  auto load_a = [&](bf16* dst, int k0) {
-    for (int i = threadIdx.x; i < BM * BK / 8; i += kThreads) {
-      const int r = i / (BK / 8), v = i - (i / (BK / 8)) * (BK / 8);
-      const int gr = r0 + r;
-      const bool ok = gr < R;
-      cp_async16(dst + r * kLdA + v * 8,
-                 A + (size_t)(ok ? gr : 0) * K + k0 + v * 8, ok);
-    }
-  };
-  load_a(as, 0);
-  load_bchunk_async(s8, W, N, 0, n0);
-  cp_async_commit();
-  for (int kc = 0; kc < nk; ++kc) {
-    if (kc + 1 < nk) {
-      load_a(as + ((kc + 1) & 1) * BM * kLdA, (kc + 1) * BK);
-      load_bchunk_async(s8 + ((kc + 1) & 1) * kChunk8, W, N, (kc + 1) * BK,
-                        n0);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    widen_chunk(bs, s8 + (kc & 1) * kChunk8);
-    __syncthreads();
-    const bf16* ca = as + (kc & 1) * BM * kLdA;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      FragA fa;
-      wmma::load_matrix_sync(fa, ca + (wm * 16) * kLdA + kk, kLdA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        FragB fb;
-        wmma::load_matrix_sync(fb, bs + kk * kLdB + wn * 32 + j * 16, kLdB);
-        wmma::mma_sync(acc[j], fa, fb, acc[j]);
-      }
-    }
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-}
-
-// The f32 product of output column `col` times its weight scale: the
-// identity for bf16 weights, v * float(s[col]) for int8 ones (`_wdot`:
-// the scale multiplies the dot output; _rn keeps ptxas from fusing it into
-// a following bias add).
-template <typename WT>
-__device__ __forceinline__ float wscale(float v, const bf16* s, int col);
-template <>
-__device__ __forceinline__ float wscale<bf16>(float v, const bf16*, int) {
-  return v;
-}
-template <>
-__device__ __forceinline__ float wscale<int8_t>(float v, const bf16* s,
-                                                int col) {
-  return __fmul_rn(v, __bfloat162float(s[col]));
 }
 
 // Spill a warp's two accumulator fragments into the [BM, BN] f32 staging

@@ -22,6 +22,12 @@
 //   kQkv       h = bf16(LN(src)); [q | k | v] = bf16(h @ Wqkv), N = 3C:
 //              each 8-column group goes to q, k or v (ln_qkv)
 //
+// and, in its s8 launches (block_gemm_s8_kernel, "the s8 launches" below),
+// the int8 block's :397 `_post_cross_kernel_q` (csrc/post_cross_q.cu, three
+// launches) and :456 `_geglu_ff_kernel_q` (csrc/geglu_ff_q.cu, two): int8
+// codes times int8 weights into int32, the same epilogues on the
+// dequantized f32 fragments.
+//
 // The roundings are the JAX block's and the first CUDA version's: x1, the
 // LayerNorm output, q2, p, o, f and q, k, v are bf16 where they were bf16
 // there, so splitting post_cross into three launches and geglu_ff into two
@@ -247,6 +253,25 @@ struct DecodeArgs : Args {
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
+}
+
+// q8(v) = clip(rint(v * inv), +-127) in the low byte of the result (inv
+// = 1 / the scale, multiplied, not divided by; the product rounded on its
+// own, so it is never contracted into anything). The clipped product plus
+// 1.5 * 2^23 rounds half to even onto an integer, as rint does, and its
+// bits are 0x4B400000 + the code: four FP32 operations where a float ->
+// int conversion runs at an eighth of their rate on sm_90.
+__device__ __forceinline__ uint32_t q8(float v, float inv) {
+  const float c = fminf(fmaxf(__fmul_rn(v, inv), -127.f), 127.f);
+  return __float_as_uint(__fadd_rn(c, 12582912.f));
+}
+// two codes in the low 16 bits (the upper ones are not zero)
+__device__ __forceinline__ uint32_t q8x2(float a, float b, float inv) {
+  return __byte_perm(q8(a, inv), q8(b, inv), 0x0040);
+}
+// the low 16 bits of a, then those of b
+__device__ __forceinline__ uint32_t lo16x2(uint32_t a, uint32_t b) {
+  return __byte_perm(a, b, 0x5410);
 }
 
 __device__ __forceinline__ float2 ld_bf16x2(const bf16* p) {
@@ -559,10 +584,11 @@ __device__ __forceinline__ void qkv_f32_rows(const float (&acc)[BN / 2],
 // warp); rows >= R compute on a clamped row and store nothing.
 constexpr int kCtx = 16;
 
-template <int BN, int HD, bool CHUNKS, bool TM = false>
+template <int BN, int HD, bool CHUNKS, bool TM = false, bool O8 = false>
 __device__ __forceinline__ void cross_epilogue(const float (&acc)[BN / 2],
                                                const Args& p, int r0, int n0,
-                                               int q) {
+                                               int q, int8_t* out8 = nullptr,
+                                               float inv_out = 0.f) {
   static_assert(HD == 32 || HD == 64, "a head is one or two 32-column groups");
   constexpr int kChunk = 4;
   constexpr int NB = HD / 8;  // n8 blocks of a head
@@ -677,12 +703,24 @@ __device__ __forceinline__ void cross_epilogue(const float (&acc)[BN / 2],
       for (int m = 0; m < HD / 32; ++m) {
         uint32_t w[4];
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-          w[jj] = attn::pack_bf16(o[2 * (4 * m + jj)], o[2 * (4 * m + jj) + 1]);
+        for (int jj = 0; jj < 4; ++jj) {
+          if constexpr (O8)  // the f32 o quantized (the s8 launches)
+            w[jj] = q8x2(o[2 * (4 * m + jj)], o[2 * (4 * m + jj) + 1],
+                         inv_out);
+          else
+            w[jj] = attn::pack_bf16(o[2 * (4 * m + jj)],
+                                    o[2 * (4 * m + jj) + 1]);
+        }
         const uint4 y = quad_transpose(w, q);
-        if (row < p.R)
-          *reinterpret_cast<uint4*>(p.out + (size_t)row * N + hcol + 32 * m +
-                                    8 * q) = y;
+        if (row < p.R) {
+          if constexpr (O8)  // four code pairs: one 8-byte store
+            *reinterpret_cast<uint2*>(out8 + (size_t)row * N + hcol +
+                                      32 * m + 8 * q) =
+                make_uint2(lo16x2(y.x, y.y), lo16x2(y.z, y.w));
+          else
+            *reinterpret_cast<uint4*>(p.out + (size_t)row * N + hcol +
+                                      32 * m + 8 * q) = y;
+        }
       }
     }
   }
@@ -1317,6 +1355,469 @@ __global__ void __launch_bounds__(128 * CW + 32,
   }
 }
 
+// ------------------------------------------------------- the s8 launches
+//
+// The int8 SpatialTransformer block (csrc/post_cross_q.cu, three launches:
+// x1, cross, xmid; csrc/geglu_ff_q.cu, two: up, down; the serving mode's
+// weight and activation int8 products): out = epilogue(A8 @ W8^T) with A8
+// [R, K] and W8 [N, K] int8 codes, wgmma m64nBNk32.s32.s8.s8 into int32
+// accumulators, dequantized in f32 as acc * (a * ws[n]), the product
+// formed first (rdm_tpu/ops/block_kernel.py `_qdot`), before the bias.
+// - 8-bit wgmma reads both operands K-major (it has no transpose bit), so
+//   W goes in as it lies, [out, in] (`quantize_block_weights`): TMA boxes
+//   of BN rows x 128 bytes of K, 128-byte swizzled, one per weight a stage;
+//   a stage is a K-step of 128 codes, four k32 instructions. A streamed
+//   (kStream8: the o codes of xmid, the hidden codes of down) comes in
+//   boxes of BM rows x 128 bytes beside them. TMA zero-fills W's columns
+//   past K, so whatever an A slot holds there adds exactly 0 (integer
+//   products); the panels the prologue writes are zeroed past K anyway.
+// - A not yet quantized (kQuant8: x1's attn; kNormQuant8: cross's x1 and
+//   up's xm, LayerNorm first) is read by the consumer warps straight from
+//   global memory, a row at a time (no bf16 panel in shared memory),
+//   normalised in registers with layer_norm_prologue's bf16x2 arithmetic,
+//   quantized, and written as codes in the layout TMA would have written
+//   (code_prologue); the panel of BM x K bytes serves every column tile
+//   of the CTA: 60 KB at K = 960, BM = 64. The launches with a prologue
+//   take 64-row tiles (`gemm_plan`'s "resq8", "cross8", "geglu8"): a CTA
+//   of more rows redoes more of its row block's prologue per column tile,
+//   and the 128-row ping-pong GEGLU tile spills (profile_gemm.py
+//   --tiles8). Sharing the prologue across a cluster of a row block's
+//   CTAs (codes written into every panel through distributed shared
+//   memory) and loading the next rows under the current rows' arithmetic
+//   were both measured slower (PERF.md §6).
+// - Epilogues on the dequantized f32 fragments: residual_epilogue as the
+//   bf16 launches run it (x1, xmid, down), cross_epilogue with the f32 o
+//   quantized to codes (O8: the TPU kernel quantizes num / den in f32,
+//   never a bf16 o), geglu_q8_epilogue (the gated hidden quantized from
+//   f32). Codes are written 8 bytes a thread after quad_transpose.
+constexpr int kBK8 = 128;  // K of an s8 ring stage: 128 codes
+enum Src8 { kStream8 = 0, kQuant8 = 1, kNormQuant8 = 2 };
+
+// Shared memory of an s8 CTA after its base is aligned to 1 KB: the code
+// panel (kQuant8, kNormQuant8: ceil(K / 128) panels of BM rows x 128
+// bytes) | the ring (stages x [one A box (kStream8) | NW W boxes of BN
+// rows x 128 bytes]) | full[stages], empty[stages]. Mirrored by
+// ops/block_kernel.py `gemm_smem` (its "*8" kinds).
+__host__ __device__ constexpr int panel8_region(int src, int bm, int K) {
+  return src == kStream8 ? 0 : (K + kBK8 - 1) / kBK8 * bm * kBK8;
+}
+__host__ __device__ constexpr int stage8_bytes(int kind, int src, int bm,
+                                               int bn) {
+  return (src == kStream8 ? bm * kBK8 : 0) + n_weights(kind) * bn * kBK8;
+}
+__host__ __device__ constexpr int smem8_bytes(int kind, int src, int bm,
+                                              int bn, int K, int stages) {
+  return 1024 + panel8_region(src, bm, K) +
+         stages * stage8_bytes(kind, src, bm, bn) + 16 * stages;
+}
+
+// An s8 launch's Args: the f32 column scales [N] of w0, w1; a, the A
+// codes' scale (inv_a = 1 / a, what the prologue quantizes its rows with);
+// inv_out, 1 / the scale of the output codes out8 [R, N] (kCross*,
+// kGeglu); src, the bf16 rows [R, K] the prologue quantizes.
+struct Q8Args : Args {
+  const float* ws0;
+  const float* ws1;
+  const bf16* src;
+  int8_t* out8;
+  float a, inv_a, inv_out;
+};
+
+// d[N / 2] (+)= A [64, 32] (shared, K-major, descriptor a) @ B^T, B [N, 32]
+// (shared, K-major, descriptor b): int8 x int8 -> int32, exact.
+template <int N>
+__device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_s8<64>(int (&d)[32], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<128>(int (&d)[64], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63 "
+      "}, %64, %65, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs_s32(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// Byte offset of codes 8v .. 8v + 7 of row r in an s8 panel region of
+// BM-row, 128-byte-swizzled K-major panels: the layout a {128, BM} TMA box
+// with CU_TENSOR_MAP_SWIZZLE_128B gives (16-byte chunk bits 4-6 XOR
+// address bits 7-9).
+__device__ __forceinline__ int panel8_offset(int r, int v, int bm) {
+  return (v >> 4) * bm * kBK8 + r * kBK8 +
+         ((((v >> 1) & 7) ^ (r & 7)) << 4) + ((v & 1) << 3);
+}
+
+// The code prologue: rows row0 .. row0 + BM of p.src [R, K] (rows past R
+// read row R - 1; their outputs are never stored), LayerNormed (LN) as
+// layer_norm_prologue does it, quantized with p.inv_a into the panel,
+// codes past K zero. A lane loads its share of two rows (vectors lane +
+// 32 i, 16 bytes each, K <= kMaxLNK) before it reduces either. Consumer
+// threads only; ends with the consumers' barrier.
+template <int CW, int BM, bool LN>
+__device__ __forceinline__ void code_prologue(unsigned char* panel,
+                                              const Q8Args& p, int row0) {
+  constexpr int kWarps = 4 * CW;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int K = p.K, nvec = K / 8;
+  const int pvec = (K + kBK8 - 1) / kBK8 * (kBK8 / 8);
+  const float inv_k = 1.0f / (float)K, inv = p.inv_a;
+  __nv_bfloat162 gs[kLNVec][4], gb[kLNVec][4];
+  if constexpr (LN) {
+#pragma unroll
+    for (int i = 0; i < kLNVec; ++i) {
+      const int v = lane + 32 * i;
+      if (v >= nvec) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * v + 2 * e;
+        gs[i][e] = __float22bfloat162_rn(
+            __ldg(reinterpret_cast<const float2*>(p.ln_s + c)));
+        gb[i][e] = __float22bfloat162_rn(
+            __ldg(reinterpret_cast<const float2*>(p.ln_b + c)));
+      }
+    }
+  }
+  for (int r0 = warp; r0 < BM; r0 += 2 * kWarps) {
+    uint4 x[2][kLNVec];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const uint4* src = reinterpret_cast<const uint4*>(
+          p.src + (size_t)min(row0 + r0 + k * kWarps, p.R - 1) * K);
+#pragma unroll
+      for (int i = 0; i < kLNVec; ++i) {
+        const int v = lane + 32 * i;
+        if (v >= nvec) break;
+        x[k][i] = __ldg(src + v);
+      }
+    }
+    if constexpr (LN) {
+      float sum[2] = {0.f, 0.f}, sq[2] = {0.f, 0.f};
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+#pragma unroll
+        for (int i = 0; i < kLNVec; ++i) {
+          const int v = lane + 32 * i;
+          if (v >= nvec) break;
+          const __nv_bfloat162* h =
+              reinterpret_cast<const __nv_bfloat162*>(&x[k][i]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 f = __bfloat1622float2(h[e]);
+            sum[k] += f.x + f.y;
+            sq[k] += f.x * f.x + f.y * f.y;
+          }
+        }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          sum[k] += __shfl_xor_sync(0xffffffffu, sum[k], o);
+          sq[k] += __shfl_xor_sync(0xffffffffu, sq[k], o);
+        }
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const float mean = sum[k] * inv_k;
+        const float var = fmaxf(sq[k] * inv_k - mean * mean, 0.f);
+        const __nv_bfloat162 mean2 = __float2bfloat162_rn(mean);
+        const __nv_bfloat162 rstd2 =
+            __float2bfloat162_rn(rsqrtf(var + 1e-5f));
+#pragma unroll
+        for (int i = 0; i < kLNVec; ++i) {
+          const int v = lane + 32 * i;
+          if (v >= nvec) break;
+          __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&x[k][i]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const __nv_bfloat162 y = __hsub2_rn(h[e], mean2);
+            h[e] = __hadd2_rn(__hmul2_rn(__hmul2_rn(y, rstd2), gs[i][e]),
+                              gb[i][e]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+#pragma unroll
+      for (int i = 0; i < kLNVec; ++i) {
+        const int v = lane + 32 * i;
+        if (v >= pvec) break;
+        uint2 c = make_uint2(0u, 0u);
+        if (v < nvec) {
+          const __nv_bfloat162* h =
+              reinterpret_cast<const __nv_bfloat162*>(&x[k][i]);
+          uint32_t w[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 f = __bfloat1622float2(h[e]);
+            w[e] = q8x2(f.x, f.y, inv);
+          }
+          c = make_uint2(lo16x2(w[0], w[1]), lo16x2(w[2], w[3]));
+        }
+        *reinterpret_cast<uint2*>(
+            panel + panel8_offset(r0 + k * kWarps, v, BM)) = c;
+      }
+  }
+  // the panel is read by wgmma (the async proxy) next
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync 1, %0;\n" ::"n"(128 * CW) : "memory");
+}
+
+// f = acc * (a * ws[col]) in f32, each product rounded on its own (the
+// int32 sum converted to f32 by round-to-nearest, as torch's .float());
+// columns past N get scale 0 and are never stored.
+template <int BN>
+__device__ __forceinline__ void dequant(float (&f)[BN / 2],
+                                        const int (&acc)[BN / 2],
+                                        const float* ws, float a, int N,
+                                        int n0, int q) {
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * q;
+    const float2 w = col < N ? __ldg(reinterpret_cast<const float2*>(ws + col))
+                             : make_float2(0.f, 0.f);
+    const float s0 = __fmul_rn(a, w.x), s1 = __fmul_rn(a, w.y);
+    f[4 * j] = __fmul_rn((float)acc[4 * j], s0);
+    f[4 * j + 1] = __fmul_rn((float)acc[4 * j + 1], s1);
+    f[4 * j + 2] = __fmul_rn((float)acc[4 * j + 2], s0);
+    f[4 * j + 3] = __fmul_rn((float)acc[4 * j + 3], s1);
+  }
+}
+
+// out8 = q8((a + ba) * gelu(g + bg), inv_out) from the dequantized value
+// and gate fragments, exact erf, f never rounded to bf16; 8 codes a store.
+template <int BN>
+__device__ __forceinline__ void geglu_q8_epilogue(const float (&a)[BN / 2],
+                                                  const float (&g)[BN / 2],
+                                                  const Q8Args& p, int r0,
+                                                  int n0, int q) {
+  const int N = p.N;
+#pragma unroll
+  for (int m = 0; m < BN / 32; ++m) {
+    if (n0 + 32 * m >= N) break;
+    float2 ba[4], bg[4];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int col = n0 + 32 * m + 8 * jj + 2 * q;
+      ba[jj] = __ldg(reinterpret_cast<const float2*>(p.bias0 + col));
+      bg[jj] = __ldg(reinterpret_cast<const float2*>(p.bias1 + col));
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t w[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        float hv[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * (4 * m + jj) + 2 * h + e;
+          const float av = __fadd_rn(a[i], e ? ba[jj].y : ba[jj].x);
+          const float gv = __fadd_rn(g[i], e ? bg[jj].y : bg[jj].x);
+          hv[e] =
+              av * (0.5f * gv * (1.0f + erff(gv * 0.7071067811865476f)));
+        }
+        w[jj] = q8x2(hv[0], hv[1], p.inv_out);
+      }
+      const uint4 y = quad_transpose(w, q);
+      const int row = r0 + 8 * h;
+      if (row < p.R)
+        *reinterpret_cast<uint2*>(p.out8 + (size_t)row * N + n0 + 32 * m +
+                                  8 * q) =
+            make_uint2(lo16x2(y.x, y.y), lo16x2(y.z, y.w));
+    }
+  }
+}
+
+// One s8 CTA: rows [BM by, + BM) and column tiles [tiles_per_cta bx,
+// + tiles_per_cta) of out, split or ping-pong warpgroups and a ring per
+// ping-pong warpgroup as block_gemm_kernel; SRC where A comes from (the
+// ring, kStream8, or the code prologue). ta: the streamed A codes [R, K],
+// box {128, BM} (kStream8; else unused); tw0, tw1: the weights [N, K],
+// box {128, BN} (tw1 only for kGeglu).
+template <int CW, int BM, int BN, bool PP, int KIND, int SRC>
+__global__ void __launch_bounds__(128 * CW + 32,
+                                  CW == 2 ? 1 : BN == 64 ? 3 : 2)
+    block_gemm_s8_kernel(const __grid_constant__ CUtensorMap ta,
+                         const __grid_constant__ CUtensorMap tw0,
+                         const __grid_constant__ CUtensorMap tw1,
+                         const Q8Args p) {
+  using namespace attn;
+  static_assert(PP ? CW == 2 && (BM == 64 || BM == 128) : BM == 64 * CW,
+                "a split tile gives each warpgroup 64 rows");
+  static_assert((KIND == kResidual) == (SRC != kNormQuant8),
+                "the LayerNorm kinds normalise their rows; a residual "
+                "launch streams its codes or quantizes its rows");
+  constexpr int kCons = 128 * CW;
+  constexpr int MT = PP ? BM / 64 : 1;  // wgmma row tiles a warpgroup
+  constexpr int NW = n_weights(KIND);
+  constexpr int kAPanel = BM * kBK8;    // a K-step of the CTA's rows
+  constexpr int kAStage = SRC == kStream8 ? kAPanel : 0;
+  constexpr int kWBox = BN * kBK8;      // a K-step of BN weight rows
+  constexpr int kStage = kAStage + NW * kWBox;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  const int ST = p.stages;
+  const uint32_t panel = base;
+  const uint32_t ring = base + panel8_region(SRC, BM, p.K);
+  const uint32_t full = ring + ST * kStage;
+  const uint32_t empty = full + 8 * ST;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = blockIdx.y * BM;
+  const int ntiles = (p.N + BN - 1) / BN;
+  const int t_begin = blockIdx.x * p.tiles_per_cta;
+  const int t_end = min(ntiles, t_begin + p.tiles_per_cta);
+  const int nkb = (p.K + kBK8 - 1) / kBK8;
+  const int RS = PP ? ST / 2 : ST;  // stages of a ring
+  const int t_step = PP ? 2 : 1;    // a ring's column tiles
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, PP ? 4 : kCons / 32);  // its reader's warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kCons / 32) {
+    // ------------------------------------------------------ the producer
+    if (lane < (PP ? 2 : 1)) {  // lane r fills ring r
+      const int r0s = lane * RS;
+      int s = 0, phase = 0, it = 0;
+      for (int t = t_begin + lane; t < t_end; t += t_step)
+        for (int kb = 0; kb < nkb; ++kb, ++it) {
+          if (it >= RS) mbar_wait(empty + 8 * (r0s + s), phase ^ 1);
+          const uint32_t st = ring + (r0s + s) * kStage;
+          const uint32_t bar = full + 8 * (r0s + s);
+          mbar_expect_tx(bar, kStage);  // boxes count whole, fill included
+          if (SRC == kStream8) tma_load_2d(&ta, st, bar, kb * kBK8, row0);
+#pragma unroll
+          for (int w = 0; w < NW; ++w)
+            tma_load_2d(w ? &tw1 : &tw0, st + kAStage + w * kWBox, bar,
+                        kb * kBK8, t * BN);
+          if (++s == RS) {
+            s = 0;
+            phase ^= 1;
+          }
+        }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------- the consumers
+  if constexpr (SRC != kStream8)
+    code_prologue<CW, BM, SRC == kNormQuant8>(gbase, p, row0);
+  const int g = warp >> 2;  // consumer warpgroup
+  const int q = lane & 3;
+  const int r_in = 16 * (warp & 3) + (lane >> 2) + (PP ? 0 : 64 * g);
+  const int r0s = PP ? g * RS : 0;  // this warpgroup's ring
+  int s = 0, phase = 0, prev = 0;
+  int acc[NW][MT][BN / 2];
+  for (int t = t_begin + (PP ? g : 0); t < t_end; t += t_step) {
+    for (int kb = 0; kb < nkb; ++kb) {
+      mbar_wait(full + 8 * (r0s + s), phase);
+      const uint32_t st = ring + (r0s + s) * kStage;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK8 / 32; ++kk) {
+        const uint32_t a_k = (SRC == kStream8 ? st : panel + kb * kAPanel) +
+                             (PP ? 0 : 64 * g * kBK8) + kk * 32;
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const uint64_t da = sw_desc<kBK8>(a_k + m * 64 * kBK8);
+#pragma unroll
+          for (int w = 0; w < NW; ++w)
+            wgmma_s8<BN>(acc[w][m], da,
+                         sw_desc<kBK8>(st + kAStage + w * kWBox + kk * 32),
+                         (kb | kk) != 0);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (kb > 0) {  // the group before this one is done with its stage
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * (r0s + prev));
+      }
+      prev = s;
+      if (++s == RS) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * (r0s + prev));
+    const int n0 = t * BN;  // the tile's first column
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      float f[NW][BN / 2];
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        fence_regs_s32(acc[w][m]);
+        dequant<BN>(f[w], acc[w][m], w ? p.ws1 : p.ws0, p.a, p.N, n0, q);
+      }
+      const int r0 = row0 + 64 * m + r_in;
+      if constexpr (KIND == kResidual)
+        residual_epilogue<BN>(f[0], p, r0, n0, q);
+      else if constexpr (KIND == kGeglu)
+        geglu_q8_epilogue<BN>(f[0], f[NW - 1], p, r0, n0, q);
+      else
+        cross_epilogue<BN, KIND == kCross64 ? 64 : 32, KIND != kCross,
+                       false, true>(f[0], p, r0, n0, q, p.out8, p.inv_out);
+    }
+  }
+}
+
 // ------------------------------------------------------------------- host
 
 // A launch's plan (ops/block_kernel.py `gemm_plan`): rows BM and columns
@@ -1347,8 +1848,9 @@ inline bool plan_ok(const Plan& pl, int kind, int K) {
 }
 
 // The tensor map of an int8 row-major [rows, cols] matrix: boxes
-// {box_cols, box_rows}, box_cols bytes a row swizzled across 64 bytes as a
-// bf16 box of 32 columns is, rows and columns past the matrix zero-filled.
+// {box_cols, box_rows}, a box's rows swizzled across their 128 bytes (the
+// s8 launches' boxes of 128 codes) or else across 64 bytes, as a bf16 box
+// of 32 columns is; rows and columns past the matrix zero-filled.
 inline bool make_map_u8(CUtensorMap* map, const void* ptr, int rows,
                         int cols, int box_cols, int box_rows) {
   const attn::EncodeTiledFn fn = attn::encode_tiled();
@@ -1359,7 +1861,9 @@ inline bool make_map_u8(CUtensorMap* map, const void* ptr, int rows,
   const cuuint32_t unit[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr),
             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            box_cols == kBK8 ? CU_TENSOR_MAP_SWIZZLE_128B
+                             : CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -1552,6 +2056,84 @@ int launch_decode(const Plan& pl, const void* a_src, const void* w0,
   cfg.numAttrs = n;
   e = cudaLaunchKernelEx(&cfg, kernel, ta, tw0, tw1, a);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+
+// ------------------------------------------------ the s8 launches, host
+
+// An s8 plan's tiles are those of `GEMM_TILES` there ("residual8": split
+// (128, 128), (64, 128), (64, 64); "resq8", "cross8": split (64, 64);
+// "geglu8": ping-pong (64, 64)).
+inline bool plan8_ok(const Plan& pl, int kind, int src, int K) {
+  const bool built =
+      kind == kResidual && src == kStream8
+          ? !pl.pp && ((pl.bm == 128 && pl.bn == 128) ||
+                       (pl.bm == 64 && (pl.bn == 64 || pl.bn == 128)))
+          : pl.pp == (kind == kGeglu) && pl.bm == 64 && pl.bn == 64;
+  return built && pl.ks == 1 && pl.tiles_per_cta >= 1 &&
+         pl.stages >= (pl.pp ? 4 : 2) && pl.stages % (pl.pp ? 2 : 1) == 0 &&
+         pl.stages <= kMaxStages &&
+         smem8_bytes(kind, src, pl.bm, pl.bn, K, pl.stages) <= kSmemLimit;
+}
+
+template <int CW, int BM, int BN, bool PP, int KIND, int SRC>
+cudaError_t launch_tile8(const CUtensorMap& ta, const CUtensorMap& tw0,
+                         const CUtensorMap& tw1, const Q8Args& a, int dev,
+                         cudaStream_t stream) {
+  static unsigned long long smem_set = 0;  // the opt-in, once per device
+  static std::mutex mu;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    const cudaError_t e = attn::allow_smem(
+        block_gemm_s8_kernel<CW, BM, BN, PP, KIND, SRC>, kSmemLimit, dev,
+        smem_set);
+    if (e != cudaSuccess) return e;
+  }
+  const int ntiles = (a.N + BN - 1) / BN;
+  const dim3 grid((ntiles + a.tiles_per_cta - 1) / a.tiles_per_cta,
+                  (a.R + BM - 1) / BM);
+  block_gemm_s8_kernel<CW, BM, BN, PP, KIND, SRC>
+      <<<grid, 128 * CW + 32, smem8_bytes(KIND, SRC, BM, BN, a.K, a.stages),
+         stream>>>(ta, tw0, tw1, a);
+  return cudaGetLastError();
+}
+
+// One s8 launch of the core: out = epilogue(A8 @ W8^T), A8 the codes
+// `a8` [R, K] (kStream8) or a.src's rows quantized by the prologue; w0
+// (and w1 for kGeglu) int8 [N, K] with a.ws0 (a.ws1) their column scales.
+// Returns a cudaError_t; cudaErrorInvalidValue for a plan or shape it does
+// not take.
+template <int KIND, int SRC>
+int launch_s8(const Plan& pl, const void* a8, const void* w0,
+              const void* w1, Q8Args a, cudaStream_t stream) {
+  if (!plan8_ok(pl, KIND, SRC, a.K) || a.R < 1 || a.N % kPW || a.K % kPW ||
+      (SRC != kStream8 && a.K > kMaxLNK))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t e = attn::bind_device(&dev);
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap ta, tw0, tw1;
+  if (!cached_map(&tw0, dev, w0, a.N, a.K, kBK8, pl.bn, 1) ||
+      !cached_map(&tw1, dev, KIND == kGeglu ? w1 : w0, a.N, a.K, kBK8, pl.bn,
+                  1) ||
+      !(SRC == kStream8 ? cached_map(&ta, dev, a8, a.R, a.K, kBK8, pl.bm, 1)
+                        : (ta = tw0, true)))
+    return (int)cudaErrorInvalidValue;
+  a.stages = pl.stages;
+  a.tiles_per_cta = pl.tiles_per_cta;
+  if constexpr (KIND == kGeglu)
+    e = launch_tile8<2, 64, 64, true, KIND, SRC>(ta, tw0, tw1, a, dev,
+                                                 stream);
+  else if (pl.bm == 64 && pl.bn == 64)
+    e = launch_tile8<1, 64, 64, false, KIND, SRC>(ta, tw0, tw1, a, dev,
+                                                  stream);
+  else if constexpr (KIND == kResidual && SRC == kStream8)
+    e = pl.bm == 128
+            ? launch_tile8<2, 128, 128, false, KIND, SRC>(ta, tw0, tw1, a,
+                                                          dev, stream)
+            : launch_tile8<1, 64, 128, false, KIND, SRC>(ta, tw0, tw1, a,
+                                                         dev, stream);
+  return (int)e;
 }
 
 }  // namespace gemm

@@ -1,7 +1,9 @@
-// Shared pieces of the int8 SpatialTransformer block kernels (sm_90a).
+// Shared pieces of the first-version int8 block kernels, ln_qkv_q and
+// packed_attn_q8 (sm_90a; post_cross_q and geglu_ff_q run on the
+// block-GEMM core's s8 path, block_gemm_sm90.cuh).
 //
-// The int8 kernels keep the bf16 kernels' [BM, BN] = [32, 64] output tile,
-// four warps and double-buffered cp.async weight streaming
+// They keep the first versions' [BM, BN] = [32, 64] output tile, four
+// warps and double-buffered cp.async weight streaming
 // (block_common.cuh), with int8 x int8 -> int32 tensor-core products:
 // mma.sync.m16n8k32.row.col.s32.s8.s8.s32 on fragments loaded as 32-bit
 // words from shared memory. Each warp owns a [16, 32] sub-tile, i.e. four
@@ -28,7 +30,6 @@ namespace rdmk {
 
 constexpr int BK8 = 64;             // depth (bytes) of a streamed int8 chunk
 constexpr int kLdB8 = BK8 + 16;     // row stride of an [BN, BK8] weight chunk
-constexpr int kLdA8 = BK8 + 16;     // row stride of a streamed [BM, BK8] chunk
 
 __host__ __device__ constexpr int panel8_ld(int k) { return k + 16; }
 
@@ -190,71 +191,6 @@ __device__ __forceinline__ void panel_gemm8(Acc8 (&acc)[NW],
     panel_gemm8_k<NW, true>(acc, panel, K, W, N, n0, bs);
   else
     panel_gemm8_k<NW, false>(acc, panel, K, W, N, n0, bs);
-}
-
-// acc = A[r0:r0+BM, :K] @ W[n0:n0+BN, :K]^T with both int8 operands streamed
-// from global memory (A [R, K] row-major, rows >= R read as zero). as
-// holds 2 * BM * kLdA8 bytes, bs bchunk8_bytes(1). TAIL as panel_gemm8_k.
-template <bool TAIL>
-__device__ __forceinline__ void streamed_gemm8_k(Acc8& acc, const int8_t* A,
-                                                 int R, int K,
-                                                 const int8_t* W, int N,
-                                                 int r0, int n0, int8_t* as,
-                                                 int8_t* bs) {
-  const int wm = warp_row(), wn = warp_col();
-  zero_acc(acc);
-  const int nk = TAIL ? (K + BK8 - 1) / BK8 : K / BK8;
-  auto load_a = [&](int8_t* dst, int k0) {
-    // [BM, BK8] = 32 x 64 bytes = 128 16-byte vectors, one per thread
-    for (int i = threadIdx.x; i < BM * BK8 / 16; i += kThreads) {
-      const int r = i / (BK8 / 16), v = i - r * (BK8 / 16);
-      const int gr = r0 + r;
-      const bool ok = gr < R && (!TAIL || k0 + v * 16 < K);
-      cp_async16(dst + r * kLdA8 + v * 16,
-                 A + (TAIL ? (ok ? (size_t)gr * K + k0 + v * 16 : 0)
-                           : (size_t)(ok ? gr : 0) * K + k0 + v * 16),
-                 ok);
-    }
-  };
-  load_a(as, 0);
-  load_bchunk8_async<TAIL>(bs, W, N, K, 0, n0);
-  cp_async_commit();
-  for (int kc = 0; kc < nk; ++kc) {
-    if (kc + 1 < nk) {
-      load_a(as + ((kc + 1) & 1) * BM * kLdA8, (kc + 1) * BK8);
-      load_bchunk8_async<TAIL>(bs + ((kc + 1) & 1) * BN * kLdB8, W, N, K,
-                               (kc + 1) * BK8, n0);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const int8_t* ca = as + (kc & 1) * BM * kLdA8;
-    const int8_t* cb = bs + (kc & 1) * BN * kLdB8;
-#pragma unroll
-    for (int kk = 0; kk < BK8; kk += 32) {
-      if (TAIL && kc * BK8 + kk >= K) break;
-      unsigned a[4];
-      frag_a8(a, ca, kLdA8, wm * 16, kk);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        unsigned b[2];
-        frag_b8(b, cb, kLdB8, wn * 32 + j * 8, kk);
-        mma_s8(acc[j], a, b);
-      }
-    }
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-}
-
-__device__ __forceinline__ void streamed_gemm8(Acc8& acc, const int8_t* A,
-                                               int R, int K, const int8_t* W,
-                                               int N, int r0, int n0,
-                                               int8_t* as, int8_t* bs) {
-  if (K % BK8)
-    streamed_gemm8_k<true>(acc, A, R, K, W, N, r0, n0, as, bs);
-  else
-    streamed_gemm8_k<false>(acc, A, R, K, W, N, r0, n0, as, bs);
 }
 
 // Dequantize a warp's accumulators into the [BM, BN] f32 staging tile:

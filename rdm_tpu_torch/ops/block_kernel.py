@@ -38,8 +38,12 @@ scales (`quantize_cols`):
                       (csrc/packed_attn_q8.cu; replaces
                       `_packed_attn_kernel_q8`; only with
                       RDM_TPU_INT8_ATTN=1, else the bf16 core runs)
-  7. `post_cross_q`   (csrc/post_cross_q.cu; replaces `_post_cross_kernel_q`)
-  8. `geglu_ff_q`     (csrc/geglu_ff_q.cu; replaces `_geglu_ff_kernel_q`)
+  7. `post_cross_q`   (csrc/post_cross_q.cu; replaces `_post_cross_kernel_q`):
+                      three s8 launches of the block-GEMM core (x1, cross
+                      with the f32 o quantized, xmid over those codes)
+  8. `geglu_ff_q`     (csrc/geglu_ff_q.cu; replaces `_geglu_ff_kernel_q`):
+                      two s8 launches (up into the int8 hidden codes,
+                      down over them)
 
 Each wrapper has its plain PyTorch version beside it, `<name>_reference`.
 A wrapper runs the plain version only for tensors on the CPU; for a CUDA
@@ -47,7 +51,8 @@ tensor it launches its kernel or raises: `_check` refuses other dtypes,
 devices and layouts, `kernel_refusal` the shapes the kernel does not take
 (heads other than 32 or 64 wide, 32 only for `packed_attn_q8`; C off a
 multiple of 32, F off 32 or post_ff's 64; a block-GEMM launch that
-`gemm_plan` cannot fit). Any number of context tokens is taken.
+`gemm_plan` cannot fit, the s8 code prologue past K = 1536, `ln_qkv_q`'s
+and `post_ff`'s shared memory). Any number of context tokens is taken.
 `fused_transformer_block` asks the same of every kernel the block will
 launch (`block_refusal`) and raises before the first launch. Each wrapper
 counts its launches in `<name>.launches`.
@@ -87,12 +92,26 @@ _LOG2E = 1.4426950408889634
 # by `profile_gemm.py --tiles` at the U-Net's sites at 2, 8 and 32 images
 # from five: the 128-row split tile where its grid fills the card, else
 # the ping-pong one (the 128-row LayerNorm panel does not fit at C = 960).
+# The s8 launches of the int8 block (the kinds ending in 8, the core's
+# s8 path): "residual8" streams its A codes (post_cross_q's xmid,
+# geglu_ff_q's down) and takes the bf16 residual's tiles; "resq8"
+# quantizes its bf16 rows in a code prologue first (post_cross_q's x1),
+# "cross8" and "geglu8" normalise and quantize them, and these take the
+# 64-row tiles alone, which ran fastest at the U-Net's sites at 8 images
+# (`profile_gemm.py --tiles8`; the 128-row ping-pong GEGLU tile spills).
 GEMM_TILES = {"residual": ((128, 128, 0), (64, 128, 0), (64, 64, 0)),
               "cross": ((64, 64, 0),),
               "geglu": ((128, 64, 1), (64, 64, 1)),
-              "qkv": ((128, 128, 0), (64, 128, 1))}
+              "qkv": ((128, 128, 0), (64, 128, 1)),
+              "residual8": ((128, 128, 0), (64, 128, 0), (64, 64, 0)),
+              "resq8": ((64, 64, 0),),
+              "cross8": ((64, 64, 0),),
+              "geglu8": ((64, 64, 1),)}
 _GEMM_STAGES = 8  # csrc/block_gemm_sm90.cuh kMaxStages
 _GEMM_BK = 64
+_GEMM_BK8 = 128  # an s8 K-step (kBK8): 128 codes
+_CODE_PROLOGUE = ("resq8", "cross8", "geglu8")  # A quantized in the CTA
+_MAX_LN_K = 1536  # kMaxLNK: a lane holds 6 vectors of 8 of a row
 # The decode chain's launches (`gemm_plan(split_k=True)`): one tile, 64
 # rows (the batch, zero-filled past it) x 64 columns, split warpgroups, K
 # split over a cluster of up to _MAX_KS CTAs (kMaxKS, the portable cluster
@@ -223,7 +242,17 @@ def gemm_smem(kind: str, bm: int, bn: int, k: int, stages: int,
     split over ks CTAs (`split_bytes`) a region of its own after the ring
     takes what rank 0 receives: ks - 1 f32 partial tiles of the warps
     that hold the launch's first `rows` rows (16 a warp; all bm rows by
-    default)."""
+    default). The s8 kinds (`GEMM_TILES`' "*8", `smem8_bytes`): the code
+    panel (the prologue kinds; K rounded up to 128, bm rows x 1 byte),
+    then `stages` x (a streamed A box of 128 codes for "residual8" + bn
+    rows x 128 codes of each weight), then the ring's barriers."""
+    if kind in GEMM_TILES and kind.endswith("8"):
+        panel = -(-k // _GEMM_BK8) * bm * _GEMM_BK8 \
+            if kind in _CODE_PROLOGUE else 0
+        a_stage = bm * _GEMM_BK8 if kind == "residual8" else 0
+        nw = 2 if kind == "geglu8" else 1
+        return (1024 + panel + stages * (a_stage + nw * bn * _GEMM_BK8)
+                + 16 * stages)
     rb = bm if rows is None else min(bm, rows)
     panel = 0 if kind == "residual" else -(-k // _GEMM_BK) * 2 * bm * 64
     a_stage = 2 * bm * 64 if kind == "residual" else 0
@@ -244,10 +273,13 @@ def sm_count(index: int) -> int:
 def _gemm_fits(kind: str, k: int) -> list:
     """(bm, bn, pp, the ring depths that fit) of each of the kind's tiles
     with room in shared memory for 3 or more stages (a ping-pong tile's
-    two rings 2 each) at K = k."""
+    two rings 2 each) at K = k; none past _MAX_LN_K for the s8 code
+    prologue, whose lanes hold a row in registers."""
     if kind not in GEMM_TILES:
         raise ValueError(f"gemm_plan: kind {kind!r} not in "
                          f"{tuple(GEMM_TILES)}")
+    if kind in _CODE_PROLOGUE and k > _MAX_LN_K:
+        return []
     fits = []
     for bm, bn, pp in GEMM_TILES[kind]:
         depths = [st for st in range(3 + pp, _GEMM_STAGES + 1, 1 + pp)
@@ -261,6 +293,9 @@ def _gemm_refusal(kind: str, k: int) -> Optional[str]:
     """gemm_plan's refusal of a launch of `kind` at K = k, or None."""
     if _gemm_fits(kind, k):
         return None
+    if kind in _CODE_PROLOGUE and k > _MAX_LN_K:
+        return (f"gemm_plan: K={k} is past the {kind} launch's code "
+                f"prologue (K <= {_MAX_LN_K})")
     return (f"gemm_plan: K={k} leaves no room in shared memory for the "
             f"{kind} launch")
 
@@ -338,7 +373,7 @@ def gemm_plan(kind: str, r: int, n: int, k: int, sms: int, *,
     def per_sm(st):
         return _per_sm(kind, bm, bn, pp, k, st)
 
-    if kind == "residual":
+    if kind in ("residual", "residual8"):
         tpc = 1
         stages = min(reversed(depths), key=lambda st: -(
             -row_blocks * ntiles // (sms * per_sm(st))))
@@ -401,7 +436,36 @@ _FF = ("geglu_ff", "post_ff", "geglu_ff_q")  # the kernels that take F
 # the block-GEMM core's launches of a wrapper: (kind, K is C or F)
 _GEMM_KINDS = {"ln_qkv": (("qkv", "C"),),
                "post_cross": (("residual", "C"), ("cross", "C")),
-               "geglu_ff": (("geglu", "C"), ("residual", "F"))}
+               "geglu_ff": (("geglu", "C"), ("residual", "F")),
+               "post_cross_q": (("resq8", "C"), ("cross8", "C"),
+                                ("residual8", "C")),
+               "geglu_ff_q": (("geglu8", "C"), ("residual8", "F"))}
+
+
+def _a128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def _ln_qkv_q_smem(c: int) -> int:
+    """Dynamic shared bytes of the first-version `ln_qkv_q` launch
+    (csrc/ln_qkv_q.cu: the bf16 and int8 row panels, the weight chunks and
+    the f32 staging tile of int8_common.cuh / block_common.cuh)."""
+    return (_a128(_BM * (c + 8) * 2) + _a128(_BM * (c + 16))
+            + _a128(2 * _BN * 80) + _a128(_BM * (_BN + 4) * 4))
+
+
+def _post_ff_smem(c: int) -> int:
+    """Dynamic shared bytes of the `post_ff` launch (csrc/post_ff.cu
+    `post_ff_smem`: the larger of its attention half, three bf16 row
+    panels, a weight chunk pair and a staging tile, and its FF half, a
+    panel, the f32 accumulator rows, two chunk pairs, two staging tiles
+    and a hidden tile)."""
+    panel = _a128(_BM * (c + 8) * 2)
+    chunk, staging = _a128(2 * 32 * (_BN + 8) * 2), _a128(_BM * (_BN + 4) * 4)
+    attn_half = 3 * panel + chunk + staging
+    ff_half = (panel + _a128(_BM * (-(-c // _BN) * _BN + 4) * 4) + 2 * chunk
+               + 2 * staging + _a128(_BM * (_BN + 8) * 2))
+    return max(attn_half, ff_half)
 
 
 def _refuse(why: Optional[str]) -> None:
@@ -434,6 +498,11 @@ def kernel_refusal(name: str, c: int, *, t: int = 1, head_dim: int = 32,
         why = _gemm_refusal(kind, c if dim == "C" else f)
         if why is not None:
             return f"{name}: {why}"
+    for first, smem in (("ln_qkv_q", _ln_qkv_q_smem),
+                        ("post_ff", _post_ff_smem)):  # their launchers'
+        if name == first and smem(c) > _SMEM_LIMIT:
+            return (f"{name}: C={c} leaves no room in shared memory "
+                    f"({smem(c)} bytes a block)")
     return None
 
 
@@ -852,7 +921,9 @@ def post_cross_q(x, attn, ck, cv, wo, wso, bo, n2s, n2b, wq2, wsq2, wo2,
                  wso2, bo2, a_o1: float, a_a2: float, a_o2: float, *,
                  heads: int, head_dim: int):
     """int8 out-proj + LN2 + cross-attention + out-proj: x, attn [B, S, C],
-    ck, cv [B, T, C] -> xmid [B, S, C]."""
+    ck, cv [B, T, C] -> xmid [B, S, C]. On CUDA three s8 launches of the
+    block-GEMM core (x1 in bf16 and the cross-attention's codes [R, C]
+    between them, scratch allocated here), counted as one call."""
     b, s, c = x.shape
     t = ck.shape[1]
     if (attn.shape != x.shape or ck.shape != (b, t, c)
@@ -870,14 +941,18 @@ def post_cross_q(x, attn, ck, cv, wo, wso, bo, n2s, n2b, wq2, wsq2, wo2,
            [(p, (c,)) for p in (wso, bo, n2s, n2b, wsq2, wso2, bo2)],
            i8=[(wo, (c, c)), (wq2, (c, c)), (wo2, (c, c))])
     _refuse(kernel_refusal("post_cross_q", c, t=t, head_dim=head_dim))
-    out = torch.empty_like(x)
+    r, sms = b * s, sm_count(x.device.index)
+    x1, out = torch.empty_like(x), torch.empty_like(x)
+    o8 = torch.empty((r, c), dtype=torch.int8, device=x.device)
     lib = _build.load()
     with torch.cuda.device(x.device):
         rc = lib.rdm_post_cross_q(
             _p(x), _p(attn), _p(ck), _p(cv), _p(wo), _p(wso), _p(bo),
             _p(n2s), _p(n2b), _p(wq2), _p(wsq2), _p(wo2), _p(wso2), _p(bo2),
-            _p(out), b * s, s, c, t, head_dim, a_o1, a_a2, a_o2,
-            head_dim ** -0.5, _stream(x))
+            _p(x1), _p(o8), _p(out), r, s, c, t, head_dim, a_o1, a_a2,
+            a_o2, head_dim ** -0.5, *gemm_plan("resq8", r, c, c, sms).args,
+            *gemm_plan("cross8", r, c, c, sms).args,
+            *gemm_plan("residual8", r, c, c, sms).args, _stream(x))
     _build.check(rc, "post_cross_q")
     post_cross_q.launches += 1
     return out
@@ -889,9 +964,10 @@ post_cross_q.launches = 0
 def geglu_ff_q(xm2, n3s, n3b, wa, wsa, wg, wsg, ba, bg, w2, ws2, b2,
                a_ff: float, h_ff: float, hidden=None):
     """int8 LN3 + GEGLU FF + residual: xm2 [R, C] -> [R, C]. On CUDA two
-    launches (gated up-projection into the int8 hidden codes [R, F], then
-    down-projection + residual), counted as one call; `hidden`, an int8
-    [R, F] buffer, keeps the codes for inspection."""
+    s8 launches of the block-GEMM core (gated up-projection into the int8
+    hidden codes [R, F], then down-projection + residual), counted as one
+    call; `hidden`, an int8 [R, F] buffer, keeps the codes for
+    inspection."""
     r, c = xm2.shape
     f = wa.shape[0]
     if wa.shape != (f, c) or wg.shape != (f, c) or w2.shape != (c, f):
@@ -910,12 +986,14 @@ def geglu_ff_q(xm2, n3s, n3b, wa, wsa, wg, wsg, ba, bg, w2, ws2, b2,
         hidden = torch.empty((r, f), dtype=torch.int8, device=xm2.device)
     _check("geglu_ff_q", [(xm2, (r, c))], i8=[(hidden, (r, f))])
     y = torch.empty_like(xm2)
+    sms = sm_count(xm2.device.index)
     lib = _build.load()
     with torch.cuda.device(xm2.device):
         rc = lib.rdm_geglu_ff_q(
             _p(xm2), _p(n3s), _p(n3b), _p(wa), _p(wsa), _p(wg), _p(wsg),
             _p(ba), _p(bg), _p(w2), _p(ws2), _p(b2), _p(hidden), _p(y), r,
-            c, f, _tiles_per_block(f, r), a_ff, h_ff, _stream(xm2))
+            c, f, a_ff, h_ff, *gemm_plan("geglu8", r, f, c, sms).args,
+            *gemm_plan("residual8", r, c, f, sms).args, _stream(xm2))
     _build.check(rc, "geglu_ff_q")
     geglu_ff_q.launches += 1
     return y

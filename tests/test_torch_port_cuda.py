@@ -22,7 +22,9 @@ context rows, also in the int8_weights / int8_kv variants, and
 decode_post_ff at C = 768 at B = 1 to 65 and 1, 4 and 20 context rows in
 both weight modes, in a CUDA graph and from a new thread; for the int8
 kernels R = 80 rows, a half-filled last 128-channel scale group, two
-512-row q scale cells and C = 672 at T = 20; for post_ff R = 80 rows and
+512-row q scale cells and C = 672 at T = 20, post_cross_q's and
+geglu_ff_q's s8 launches bit-equal over two calls and a CUDA graph, and
+the int8 gate one step past C = 1,536; for post_ff R = 80 rows and
 16 context tokens; for the kNN N not a multiple of the 64-row chunk,
 B = 17 and 40 over two and three 16-query tiles, k = 1 and 128,
 duplicate rows in different slices).
@@ -526,6 +528,99 @@ def test_int8_block_routes_through_int8_kernels(cuda, monkeypatch):
         assert torch.isfinite(got).all()
         err = _rel_err(got.cpu(), want)
         assert err <= TOL, (attn8, err)
+
+
+def _int8_pair_args(heads: int, b: int, s: int, t: int, seed: int):
+    """post_cross_q's and geglu_ff_q's arguments on one seeded int8 block."""
+    _, w, a, _, x, _ = _int8_block(heads, b, s, t, seed=seed)
+    c = heads * HD
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    rn = lambda *shape: torch.randn(shape, generator=g,  # noqa: E731
+                                    device="cuda").bfloat16()
+    pc = (x, rn(b, s, c) * 0.5, rn(b, t, c), rn(b, t, c), w["wo_q"],
+          w["wo_s"], w["bo"], w["n2s"], w["n2b"], w["wq2_q"], w["wq2_s"],
+          w["wo2_q"], w["wo2_s"], w["bo2"], a["o_attn1"], a["a_attn2"],
+          a["o_attn2"])
+    ff = (x.reshape(b * s, c), w["n3s"], w["n3b"], w["wa_q"], w["wa_s"],
+          w["wg_q"], w["wg_s"], w["ba"], w["bg"], w["w2_q"], w["w2_s"],
+          w["b2"], a["a_ff"], a["h_ff"])
+    return pc, ff
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,b,s,t", [(12, 8, 256, 4), (30, 8, 64, 4),
+                                         (21, 2, 40, 20)])
+def test_int8_s8_launches_bit_equal_in_graphs(cuda, heads, b, s, t):
+    """post_cross_q's three s8 launches and geglu_ff_q's two (the U-Net's
+    C = 384 tiles at 8 images of 256 rows, the C = 960 site, C = 672 at
+    T = 20): a second call, and a CUDA graph of a call replayed, equal
+    the first call bit for bit, the hidden codes too (int32 sums, no
+    atomics)."""
+    pc, ff = _int8_pair_args(heads, b, s, t, seed=heads + t)
+    kw = dict(heads=heads, head_dim=HD)
+    hidden = torch.empty((b * s, 4 * heads * HD), dtype=torch.int8,
+                         device="cuda")
+    xm = bk.post_cross_q(*pc, **kw)
+    y = bk.geglu_ff_q(*ff, hidden=hidden)
+    codes = hidden.clone()
+    assert torch.equal(bk.post_cross_q(*pc, **kw), xm)
+    assert torch.equal(bk.geglu_ff_q(*ff, hidden=hidden), y)
+    assert torch.equal(hidden, codes)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture
+        bk.post_cross_q(*pc, **kw)
+        bk.geglu_ff_q(*ff, hidden=hidden)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_xm = bk.post_cross_q(*pc, **kw)
+        g_y = bk.geglu_ff_q(*ff, hidden=hidden)
+    hidden.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(g_xm, xm) and torch.equal(g_y, y)
+    assert torch.equal(hidden, codes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [32, 64])
+def test_int8_gate_refuses_before_the_first_launch(cuda, head_dim):
+    """An int8 block one step past the gate's limit (C = 1536 + head_dim:
+    the s8 code prologue takes K <= 1536) raises on the card before its
+    first launch, every count 0; at C = 1536, the widest it takes, it runs
+    through the four int8 kernels and agrees with its plain versions."""
+    qscales = {k: 4.0 for k in bk.QSCALE_NAMES}
+    for c, runs in ((1536 + head_dim, False), (1536, True)):
+        heads = c // head_dim
+        torch.manual_seed(c)
+        blk = TransformerBlock(c, 48, heads, head_dim)
+        w = bk.quantize_block_weights(bk.pack_block_weights(blk,
+                                                            torch.bfloat16))
+        w = {k: v.cuda() for k, v in w.items()}
+        x = torch.randn((1, 64, c), device="cuda").bfloat16()
+        ctx = torch.randn((1, 4, 48), device="cuda").bfloat16()
+        bk.reset_launch_counts()
+        if not runs:
+            with pytest.raises(ValueError, match="code prologue"):
+                bk.fused_transformer_block(x, ctx, w, heads=heads,
+                                           head_dim=head_dim,
+                                           qscales=qscales)
+            assert sum(bk.launch_counts().values()) == 0
+            continue
+        with torch.no_grad():
+            got = bk.fused_transformer_block(x, ctx, w, heads=heads,
+                                             head_dim=head_dim,
+                                             qscales=qscales)
+            torch.cuda.synchronize()
+            counts = bk.launch_counts()
+            want = bk.fused_transformer_block(
+                x.cpu(), ctx.cpu(), {k: v.cpu() for k, v in w.items()},
+                heads=heads, head_dim=head_dim, qscales=qscales)
+        assert (counts["ln_qkv_q"], counts["packed_attn"],
+                counts["post_cross_q"], counts["geglu_ff_q"]) == (1, 1, 1, 1)
+        assert torch.isfinite(got).all()
+        assert _rel_err(got.cpu(), want) <= TOL
 
 
 # ------------------------------------------------------- RARM decode kernels

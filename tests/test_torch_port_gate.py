@@ -41,7 +41,9 @@ def _reasons(c, t, head_dim, int8, split_k3):
     """The refusals the kernels a block launches make at these shapes
     (the first that applies is the one returned): heads that do not tile
     C, and in bf16 at C = 1536 ln_qkv's plan (its LayerNorm panel). The
-    int8 first versions' shared memory is their launchers' to refuse."""
+    int8 block takes C up to 1536 (the s8 code prologue's K), every case
+    here; tests/test_torch_port_block_gemm_q8.py walks its gate over
+    C = 32 .. 4096."""
     why = []
     if c % head_dim:
         why.append("heads of")
@@ -60,6 +62,22 @@ def test_block_refusal(head_dim, t, c, int8, split_k3):
         assert got is None
     else:
         assert got is not None and any(w in got for w in why), (got, why)
+
+
+def test_post_ff_gate_mirrors_its_launcher():
+    """Under RDM_TPU_SPLIT_K3=0 the gate refuses a block where post_ff's
+    launcher would (its shared memory, csrc/post_ff.cu `post_ff_smem`),
+    so the block raises before ln_qkv's launch: C up to 960 (every RDM
+    site) runs, 992 and wider refuse."""
+    for c in range(32, 2049, 32):
+        got = bk.block_refusal(c, 4, c // 32, 32, 4 * c, int8=False,
+                               split_k3=False)
+        if c <= 960:
+            assert got is None, (c, got)
+        else:
+            assert got is not None and "shared memory" in got, (c, got)
+    assert bk.kernel_refusal("post_ff", 992, f=3968).startswith(
+        "post_ff: C=992 leaves no room in shared memory")
 
 
 def _sites(cfg: pc.UNetConfig):
