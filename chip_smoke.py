@@ -75,14 +75,20 @@ exits non-zero):
                three sites of phase 3, on the same int8 weights and scales
                (the absmax of each quantized activation along the plain
                bf16 block): error, share of gated-hidden codes differing,
-               median CUDA-event times, bound; for post_cross_q's three
-               and geglu_ff_q's two s8 launches of the block-GEMM core
-               each launch's device time in a CUDA graph, host us a call,
-               and a second call bit-equal to the first (the hidden codes
-               too).
+               median CUDA-event times, bound; for ln_qkv_q's one,
+               post_cross_q's three and geglu_ff_q's two s8 launches of
+               the block-GEMM core each launch's device time in a CUDA
+               graph, host us a call, and a second call bit-equal to the
+               first (the hidden codes too); for packed_attn_q8's three
+               launches (absmax, codes, the s8 wgmma attention) each
+               launch's device time, the exp2 floor, host us a call, two
+               calls bit-equal, and the same tensors as heads of 64
+               against the plain version.
  10. int8_forward  one full-width int8 U-Net forward, CUDA bf16 against the
                CPU bf16 and CPU f32 plain int8 forwards on the same int8
-               weights and scales, and its distance from the bf16 forward.
+               weights and scales, and its distance from the bf16 forward;
+               then one with RDM_TPU_INT8_ATTN=1 against the CPU f32 plain
+               forward of that mode (16 packed_attn_q8 launches).
  11. serve_modes   over phase 5's table, batch 4, DDIM-50, guidance 2.0,
                k = 4: bf16 requests with encoder_reuse 1 (bit-identical to
                the default), 2 and 3; an int8_weights pipeline's first
@@ -185,7 +191,9 @@ trainer's 8 steps of phase 16; knn the op point B = 16, k = 4 of phase 17
 (every case under `cases`; `library_ms` torch.topk(q @ db.T), two calls
 with no promise on tie order), `launches` over phase 18's requests and
 nn-memory build. The rows of packed_attn and flash_fwd, one core, name its
-header beside their launchers under `sources`.
+header beside their launchers under `sources`, as the rows of the core's
+launchers and packed_attn_q8's do theirs (packed_attn_q8's also its
+`exp2_floor_ms` over the sites).
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -235,10 +243,17 @@ GEMM_LAUNCHES = {"ln_qkv": ("qkv",),
 LONG_CONTEXT = 20  # past one 16-token chunk of the cross epilogue
 # bench.py's batch-16 op point under shared CFG: 32 images at the sites
 OP_POINT_IMAGES = 32
-# post_cross_q (three) and geglu_ff_q (two) are s8 launches of the
-# block-GEMM core (its block_gemm_s8_kernel)
-INT8_GEMM_LAUNCHES = {"post_cross_q": ("x1", "cross", "xmid"),
+# ln_qkv_q (one), post_cross_q (three) and geglu_ff_q (two) are s8
+# launches of the block-GEMM core (its block_gemm_s8_kernel)
+INT8_GEMM_LAUNCHES = {"ln_qkv_q": ("qkv",),
+                      "post_cross_q": ("x1", "cross", "xmid"),
                       "geglu_ff_q": ("geglu_up", "ff_down")}
+# packed_attn_q8's three launches (csrc/packed_attn_q8.cu, rdmk::attn8),
+# over the core's s8 wgmma and the attention header's PTX pieces
+ATTN8_LAUNCHES = ("absmax", "codes", "attention")
+ATTN8_SOURCES = ["rdm_tpu_torch/csrc/packed_attn_q8.cu",
+                 "rdm_tpu_torch/csrc/block_gemm_sm90.cuh",
+                 "rdm_tpu_torch/csrc/attn_fwd_sm90.cuh"]
 INT8_INFO = {
     "ln_qkv_q": ("rdm_tpu_torch/csrc/ln_qkv_q.cu",
                  "rdm_tpu/ops/block_kernel.py:140"),
@@ -1611,15 +1626,15 @@ def hidden_codes_differ(xm2: torch.Tensor, w: dict, a: dict,
 
 def _int8_gemm_site(name: str, kern, pos: tuple, kw: dict,
                     hidden: torch.Tensor) -> dict:
-    """Phase 9's extra numbers of post_cross_q / geglu_ff_q at one site:
-    each s8 launch's device time in a CUDA graph, host us a call, and a
-    second call bit-equal to the first (geglu_ff_q's hidden codes too).
-    Raises where two calls differ."""
+    """Phase 9's extra numbers of ln_qkv_q / post_cross_q / geglu_ff_q at
+    one site: each s8 launch's device time in a CUDA graph, host us a
+    call, and a second call bit-equal to the first (geglu_ff_q's hidden
+    codes too). Raises where two calls differ."""
     n = len(INT8_GEMM_LAUNCHES[name])
     extra = {"hidden": hidden} if name == "geglu_ff_q" else {}
-    first = kern(*pos, **kw, **extra)
+    first = _flat(kern(*pos, **kw, **extra))
     codes = hidden.clone()
-    again = kern(*pos, **kw, **extra)
+    again = _flat(kern(*pos, **kw, **extra))
     torch.cuda.synchronize()
     equal = torch.equal(first, again) and torch.equal(codes, hidden)
     if not equal:
@@ -1635,6 +1650,54 @@ def _int8_gemm_site(name: str, kern, pos: tuple, kw: dict,
     say("int8_kernels", f"  {name} s8 launches (device ms, CUDA graph): "
         f"{launches}; host per call {out['host_us']:.1f} us; two calls "
         f"bit-equal")
+    return out
+
+
+def _int8_attn_site(q, k, v, heads: int, hd: int) -> dict:
+    """Phase 9's extra numbers of packed_attn_q8 at one site: each of its
+    three launches' device time in a CUDA graph, the exp2 floor (one ex2 a
+    score), host us a call, a second call bit-equal to the first; and the
+    same q, k, v read as heads of 64 against the plain version, its device
+    time and exp2 floor. Raises where two calls differ or the 64-wide
+    heads miss KERNEL_TOL."""
+    from rdm_tpu_torch.ops import block_kernel as bk
+
+    b, s, c = q.shape
+    kw = dict(heads=heads, head_dim=hd)
+    first = bk.packed_attn_q8(q, k, v, **kw)
+    again = bk.packed_attn_q8(q, k, v, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(first, again):
+        raise RuntimeError(f"packed_attn_q8 at C={c}: two calls differ")
+    parts = graph_launch_ms(lambda: bk.packed_attn_q8(q, k, v, **kw),
+                            len(ATTN8_LAUNCHES), "attn8::")
+    kw64 = dict(heads=c // 64, head_dim=64)
+    got = bk.packed_attn_q8(q, k, v, **kw64)
+    torch.cuda.synchronize()
+    want = bk.packed_attn_q8_reference(q, k, v, **kw64).float()
+    rel64 = ((got.float() - want).abs().max() / want.abs().max()).item()
+    if not (torch.isfinite(got).all() and rel64 <= KERNEL_TOL):
+        raise RuntimeError(f"packed_attn_q8 head_dim 64 at C={c}: relative "
+                           f"error {rel64} > {KERNEL_TOL}")
+    out = {"attn8_launch_device_ms": None if parts is None else
+           dict(zip(ATTN8_LAUNCHES, parts)),
+           "exp2_floor_ms": exp2_floor_ms(b * heads * s * s),
+           "host_us": host_us(lambda: bk.packed_attn_q8(q, k, v, **kw)),
+           "two_calls_bit_equal": True,
+           "head_dim_64": {
+               "rel_err": rel64,
+               "kernel_device_ms": graph_ms(
+                   lambda: bk.packed_attn_q8(q, k, v, **kw64)),
+               "exp2_floor_ms": exp2_floor_ms(b * (c // 64) * s * s)}}
+    launches = ("not seen by the profiler" if parts is None else ", ".join(
+        f"{n} {t:.4f}" for n, t in out["attn8_launch_device_ms"].items()))
+    h64 = out["head_dim_64"]
+    say("int8_kernels", f"  packed_attn_q8 launches (device ms, CUDA "
+        f"graph): {launches}; exp2 floor {out['exp2_floor_ms']:.4f} ms; "
+        f"host per call {out['host_us']:.1f} us; two calls bit-equal; "
+        f"heads of 64: /max|ref| {rel64:.3e}, device "
+        f"{h64['kernel_device_ms']:.4f} ms, exp2 floor "
+        f"{h64['exp2_floor_ms']:.4f} ms")
     return out
 
 
@@ -1693,6 +1756,8 @@ def phase_int8_kernels() -> dict:
                         **wrapper_device(lambda: kern(*pos, **kw)))
             if name in INT8_GEMM_LAUNCHES:
                 site.update(_int8_gemm_site(name, kern, pos, kw, hidden))
+            if name == "packed_attn_q8":
+                site.update(_int8_attn_site(q, k, v, heads, hd))
             say("int8_kernels", f"{name:14s} C={c:4d} S={s:4d} heads="
                 f"{heads:2d}: max|err| {err:.4g}, /max|ref| {rel:.3e} "
                 f"(limit {KERNEL_TOL:g}){codes}; kernel {ms:.4f} ms (device "
@@ -1712,6 +1777,8 @@ def phase_int8_kernels() -> dict:
         _sum_bound(res, [block_cost(name, c, s) for c, s, _ in SITES])
         res["kernel_device_ms"] = sum(x["kernel_device_ms"]
                                       for x in res["sites"])
+    results["packed_attn_q8"]["exp2_floor_ms"] = sum(
+        x["exp2_floor_ms"] for x in results["packed_attn_q8"]["sites"])
     return results
 
 
@@ -1737,7 +1804,9 @@ def _unet_trio(rdm_sd: dict):
 
 def phase_int8_forward(rdm_sd: dict) -> None:
     """Phase 10: one full-width int8 U-Net forward, CUDA bf16 against the
-    CPU f32 plain int8 forward on the same int8 weights and scales."""
+    CPU plain int8 forwards (bf16 and f32) on the same int8 weights and
+    scales; then one with RDM_TPU_INT8_ATTN=1 (the int8 attention core)
+    against the CPU f32 plain forward of that mode."""
     from rdm_tpu_torch.models.layers import TransformerBlock
     from rdm_tpu_torch.ops import block_kernel as bk
     from rdm_tpu_torch.ops import quant
@@ -1797,6 +1866,25 @@ def phase_int8_forward(rdm_sd: dict) -> None:
     if counts != want_counts or n_q != n_cpu or n_q == 0:
         raise RuntimeError(f"int8 forward: launches {counts}, int8 convs "
                            f"{n_q} / {n_cpu}")
+    os.environ["RDM_TPU_INT8_ATTN"] = "1"
+    try:
+        with torch.inference_mode():
+            bk.reset_launch_counts()
+            got8 = gpu(xc, tc, cc).cpu()
+            counts = bk.launch_counts()
+            want8 = cpu(x, t, ctx)
+    finally:
+        os.environ.pop("RDM_TPU_INT8_ATTN")
+    rel8 = rel_l2(got8, want8)
+    say("int8_forward", f"RDM_TPU_INT8_ATTN=1: rel L2 err CUDA bf16 vs CPU "
+        f"f32 plain {rel8:.3e} (limit {INT8_FORWARD_TOL:g}); vs the int8 "
+        f"forward on the bf16 core {rel_l2(got8, got):.3e}; launches "
+        f"{counts}")
+    want_counts.update(packed_attn=0, packed_attn_q8=16)
+    if not (torch.isfinite(got8).all() and rel8 <= INT8_FORWARD_TOL
+            and counts == want_counts):
+        raise RuntimeError(f"int8 forward with RDM_TPU_INT8_ATTN=1: rel L2 "
+                           f"{rel8}, launches {counts}")
     del cpu, cpu_bf, gpu
     torch.cuda.empty_cache()
 
@@ -3063,6 +3151,9 @@ def main() -> int:
             for n, r in kernels.items()]
     for n in INT8_GEMM_LAUNCHES:
         core[n] = {"sources": [INT8_INFO[n][0]] + GEMM_CORE}
+    core["packed_attn_q8"] = {
+        "sources": ATTN8_SOURCES,
+        "exp2_floor_ms": int8_kernels["packed_attn_q8"]["exp2_floor_ms"]}
     rows += [row(n, INT8_INFO[n], int8_launches, r, sites=r["sites"],
                  **core.get(n, {}))
              for n, r in int8_kernels.items()]

@@ -6,7 +6,7 @@
     python3 profile_gemm.py --tiles [--out FILE]
     python3 profile_gemm.py --attn [--out FILE]
     python3 profile_gemm.py --int8 [--out FILE]
-    python3 profile_gemm.py --tiles8 [--out FILE]
+    python3 profile_gemm.py --tiles8 [KIND ...] [--out FILE]
 
 Builds the launchers of `ln_qkv`, `post_cross`, `geglu_ff`, the RARM
 decode chain `decode_post_ff` and `decode_attn` (rdm_tpu_torch/csrc/
@@ -42,9 +42,10 @@ its `decode_post_ff` (bf16 and int8 weights) at decode batch 16 and 32,
 and its `decode_attn` in each variant (bf16, int8 weights, int8 cache,
 both) at decode batch 16 and 32 and pos 0 / 63 / 200 / 255 (chip_smoke.py
 phase 6's tensors, C = 768, T = 256), and its int8 block wrappers
-`post_cross_q` and `geglu_ff_q` at the U-Net sites (phase 9's tensors and
-scales, with the share of hidden codes that differ from the plain int8
-math): host us a call (chip_smoke.py `host_us`) and device ms a call
+`ln_qkv_q`, `packed_attn_q8`, `post_cross_q` and `geglu_ff_q` at the U-Net
+sites (phase 9's tensors and scales, with the share of hidden codes that
+differ from the plain int8 math): host us a call (chip_smoke.py
+`host_us`) and device ms a call
 (`graph_ms`); and `decode_attn`'s two
 launches alone, both and each apart (its C entry points on arguments made
 once: the rest of a wrapper call is its Python), with each tree's mean
@@ -71,23 +72,30 @@ each call, so the rows may stay in the 50 MB L2) and cold (20 sets of
 caches in turn, 250-500 MB, as the RARM step's 18 layers read theirs);
 the uncut build also times SDPA over the same rows, warm and cold.
 
-With --int8, builds the launchers of the int8 block's `post_cross_q` and
-`geglu_ff_q` (rdm_tpu_torch/csrc/post_cross_q.cu, geglu_ff_q.cu: the
-core's s8 launches) as they are and with one part of the s8 path cut:
-the code prologue (no row loads, LayerNorm or quantization: the panel
-keeps whatever it holds), the s8 wgmma products, the epilogues, the
-GEGLU's erf. Each build, in a process of its own, times both wrappers at
-chip_smoke.py phase 9's three sites (8 images, its int8 weights and
-scales) in CUDA graphs, each launch by torch.profiler.
+With --int8, builds the launchers of the int8 block's `ln_qkv_q`,
+`post_cross_q` and `geglu_ff_q` (rdm_tpu_torch/csrc/ln_qkv_q.cu,
+post_cross_q.cu, geglu_ff_q.cu: the core's s8 launches) and
+`packed_attn_q8` (csrc/packed_attn_q8.cu, which only the ex2 cut touches)
+as they are and with one part cut: the code prologue (no row loads,
+LayerNorm or quantization: the panel keeps whatever it holds), the s8
+wgmma products, the epilogues, the GEGLU's erf, the int8 attention's ex2
+(p = its argument: the SFU's share), its K and V tile loads (the ring's
+barriers arrive with no copy: the TMA and L2 share) or the products of
+its first pass over the keys (the tiles still awaited). Each build, in a
+process of its
+own, times the four wrappers at chip_smoke.py phase 9's three sites (8
+images, its int8 weights and scales) in CUDA graphs, each launch by
+torch.profiler (packed_attn_q8's absmax, codes and attention).
 
 With --tiles8, times the int8 block's s8 launches through each tile of
 their kinds (`block_kernel.GEMM_TILES` "resq8", "cross8", "residual8",
-"geglu8"), one kind's tiles forced alone at a time (ring depth and column
-tiles a CTA as `gemm_plan` sets them for it), at the three sites at 2, 8
-and 32 images: the device ms of each launch of the wrapper that runs the
-kind (post_cross_q, or geglu_ff_q for "geglu8"; "residual8" in both), in
-a CUDA graph, beside the plan `gemm_plan` picks; each output held
-against the plain version (chip_smoke.py KERNEL_TOL).
+"geglu8", "qkv8"), one kind's tiles forced alone at a time (ring depth
+and column tiles a CTA as `gemm_plan` sets them for it), at the three
+sites at 2, 8 and 32 images: the device ms of each launch of the wrapper
+that runs the kind (post_cross_q, geglu_ff_q for "geglu8", ln_qkv_q for
+"qkv8"; "residual8" in post_cross_q and geglu_ff_q), in a CUDA graph,
+beside the plan `gemm_plan` picks; each output held against the plain
+version (chip_smoke.py KERNEL_TOL). Naming kinds times those alone.
 """
 
 from __future__ import annotations
@@ -142,8 +150,29 @@ INT8_CUTS = {
     "no erf": ("              av * (0.5f * gv * (1.0f + erff(gv * "
                "0.7071067811865476f)));",
                "              av * gv;"),
+    "no ex2": (
+        "          const float pe = attn::ex2(__int_as_float(cur[idx]));",
+        "          const float pe = __int_as_float(cur[idx]);"),
+    "no attention loads": (
+        "    attn::mbar_expect_tx(bar, L::kKTile + (u < nkt ? 0 : "
+        "L::kVTile));\n"
+        "    attn::tma_load(tk, st, bar, 0, h, t * kKeys, b);\n"
+        "    if (u >= nkt)\n"
+        "      attn::tma_load_2d(tv, st + L::kKTile, bar, t * kKeys, b * C + "
+        "h * D);\n",
+        "    attn::mbar_arrive(bar);\n"),
+    "no pass-1 products": (
+        "    issue_qk(sa, i);\n    issue_qk(sb, i + 1);\n",
+        "    attn::mbar_wait(full + 8 * (i % kRing), (i / kRing) & 1);\n"
+        "    attn::mbar_wait(full + 8 * ((i + 1) % kRing), "
+        "((i + 1) / kRing) & 1);\n"),
 }
-INT8_LAUNCHERS = ("post_cross_q.cu", "geglu_ff_q.cu")
+# the file a cut patches, where it is not the core's header
+CUT_FILES = {"no ex2": "packed_attn_q8.cu",
+             "no attention loads": "packed_attn_q8.cu",
+             "no pass-1 products": "packed_attn_q8.cu"}
+INT8_LAUNCHERS = ("ln_qkv_q.cu", "post_cross_q.cu", "geglu_ff_q.cu",
+                  "packed_attn_q8.cu")
 DECODE_BATCHES = (16, 32)  # chip_smoke.py RARM_BATCHES
 ATTN_POSITIONS = (0, 63, 200, 255)  # chip_smoke.py RARM_POSITIONS
 TILE_IMAGES = (2, 8, 32)
@@ -188,19 +217,20 @@ def build(variant: str, int8: bool = False) -> subprocess.Popen:
     out = build_dir(("int8 " if int8 else "") + variant)
     launchers = INT8_LAUNCHERS if int8 else LAUNCHERS
     os.makedirs(out, exist_ok=True)
-    src = (_build.CSRC / HEADER).read_text()
+    files = {n: (_build.CSRC / n).read_text() for n in (HEADER,) + launchers}
+    target = CUT_FILES.get(variant, HEADER)
+    src = files[target]
     cut = (INT8_CUTS if int8 else CUTS)[variant]
     pairs = () if cut is None else cut if isinstance(cut[0], tuple) else (cut,)
     for old, new in pairs:
         if src.count(old) != 1:
-            raise RuntimeError(f"{HEADER} changed; update profile_gemm.py's "
+            raise RuntimeError(f"{target} changed; update profile_gemm.py's "
                                f"cut {variant!r}")
         src = src.replace(old, new)
-    with open(os.path.join(out, HEADER), "w") as f:
-        f.write(src)
-    for name in launchers:
+    files[target] = src
+    for name, text in files.items():
         with open(os.path.join(out, name), "w") as f:
-            f.write((_build.CSRC / name).read_text())
+            f.write(text)
     return subprocess.Popen(
         [_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
          "-shared", "-o", os.path.join(out, "lib.so"),
@@ -393,42 +423,53 @@ def run_build(variant: str, decode_only: bool) -> dict:
 
 def _int8_args(cs, t: dict, s: int, heads: int):
     """post_cross_q's and geglu_ff_q's arguments on chip_smoke.py phase
-    9's int8 weights and scales of one site's tensors."""
-    w, a, (_, _, _, attn, xm2) = cs._site_int8(t, s, heads)
+    9's int8 weights and scales of one site's tensors, the weights, the
+    scales, xm2, ln_qkv_q's arguments and packed_attn_q8's q, k, v."""
+    w, a, (q, k, v, attn, xm2) = cs._site_int8(t, s, heads)
     pc = (t["x"], attn, t["ck"], t["cv"], w["wo_q"], w["wo_s"], w["bo"],
           w["n2s"], w["n2b"], w["wq2_q"], w["wq2_s"], w["wo2_q"],
           w["wo2_s"], w["bo2"], a["o_attn1"], a["a_attn2"], a["o_attn2"])
     ff = (xm2, w["n3s"], w["n3b"], w["wa_q"], w["wa_s"], w["wg_q"],
           w["wg_s"], w["ba"], w["bg"], w["w2_q"], w["w2_s"], w["b2"],
           a["a_ff"], a["h_ff"])
-    return pc, ff, w, a, xm2
+    c = t["x"].shape[-1]
+    qkv = (t["x"].reshape(-1, c), w["n1s"], w["n1b"], w["wqkv_q"],
+           w["wqkv_s"], a["a_qkv"])
+    return pc, ff, w, a, xm2, qkv, (q, k, v)
 
 
 def int8_plain(cs, t: dict, s: int, heads: int) -> dict:
-    """post_cross_q's and geglu_ff_q's plain outputs, flattened."""
+    """The int8 block wrappers' plain outputs, flattened."""
     from rdm_tpu_torch.ops import block_kernel as bk
 
-    pc, ff, _, _, _ = _int8_args(cs, t, s, heads)
+    pc, ff, _, _, _, qkv, attn_in = _int8_args(cs, t, s, heads)
     hd = t["x"].shape[-1] // heads
-    return {"post_cross_q": cs._flat(bk.post_cross_q_reference(
+    return {"ln_qkv_q": cs._flat(bk.ln_qkv_q_reference(*qkv)),
+            "packed_attn_q8": cs._flat(bk.packed_attn_q8_reference(
+                *attn_in, heads=heads, head_dim=hd)),
+            "post_cross_q": cs._flat(bk.post_cross_q_reference(
                 *pc, heads=heads, head_dim=hd)),
             "geglu_ff_q": cs._flat(bk.geglu_ff_q_reference(*ff))}
 
 
 def int8_calls(cs, t: dict, s: int, heads: int) -> tuple:
-    """post_cross_q and geglu_ff_q on chip_smoke.py phase 9's int8 weights
-    and scales of one site's tensors: ({name: call}, a function that runs
-    geglu_ff_q into a hidden buffer and returns the share of its codes
-    that differ from the plain int8 math's)."""
+    """The int8 block wrappers (ln_qkv_q, packed_attn_q8, post_cross_q,
+    geglu_ff_q) on chip_smoke.py phase 9's int8 weights and scales of one
+    site's tensors: ({name: call}, a function that runs geglu_ff_q into a
+    hidden buffer and returns the share of its codes that differ from the
+    plain int8 math's)."""
     import torch
 
     from rdm_tpu_torch.ops import block_kernel as bk
 
-    pc, ff, w, a, xm2 = _int8_args(cs, t, s, heads)
+    pc, ff, w, a, xm2, qkv, attn_in = _int8_args(cs, t, s, heads)
     hd = t["x"].shape[-1] // heads
     hidden = torch.empty((xm2.shape[0], 4 * xm2.shape[1]), dtype=torch.int8,
                          device="cuda")
-    calls = {"post_cross_q": lambda: bk.post_cross_q(*pc, heads=heads,
+    calls = {"ln_qkv_q": lambda: bk.ln_qkv_q(*qkv),
+             "packed_attn_q8": lambda: bk.packed_attn_q8(
+                 *attn_in, heads=heads, head_dim=hd),
+             "post_cross_q": lambda: bk.post_cross_q(*pc, heads=heads,
                                                      head_dim=hd),
              "geglu_ff_q": lambda: bk.geglu_ff_q(*ff)}
 
@@ -439,16 +480,27 @@ def int8_calls(cs, t: dict, s: int, heads: int) -> tuple:
     return calls, differ
 
 
+def _launches8(cs, name: str, fn):
+    """Each launch's device ms of an int8 wrapper's call, by name, or None
+    where the profiler saw another count."""
+    names, match = ((cs.ATTN8_LAUNCHES, "attn8::")
+                    if name == "packed_attn_q8" else
+                    (cs.INT8_GEMM_LAUNCHES[name], "block_gemm_s8_kernel"))
+    parts = cs.graph_launch_ms(fn, len(names), match)
+    return parts and dict(zip(names, parts))
+
+
 def run_build_int8(variant: str) -> dict:
-    """Times post_cross_q and geglu_ff_q through the variant's library of
-    the int8 launchers, per launch, at phase 9's sites."""
+    """Times the int8 block wrappers through the variant's library of the
+    int8 launchers, per launch, at phase 9's sites."""
     import torch
 
     import chip_smoke as cs
     from rdm_tpu_torch.ops import _build
 
     lib = ctypes.CDLL(os.path.join(build_dir("int8 " + variant), "lib.so"))
-    for name in ("rdm_post_cross_q", "rdm_geglu_ff_q"):
+    for name in ("rdm_ln_qkv_q", "rdm_packed_attn_q8", "rdm_post_cross_q",
+                 "rdm_geglu_ff_q"):
         getattr(lib, name).argtypes = _build._SIGNATURES[name]
         getattr(lib, name).restype = ctypes.c_int
     lib.rdm_error_string.argtypes = [ctypes.c_int]
@@ -461,13 +513,10 @@ def run_build_int8(variant: str) -> dict:
         calls, _ = int8_calls(cs, t, s, heads)
         with torch.inference_mode():
             for name, fn in calls.items():
-                names = cs.INT8_GEMM_LAUNCHES[name]
-                parts = cs.graph_launch_ms(fn, len(names),
-                                           "block_gemm_s8_kernel")
                 out["sites"].append({
                     "name": name, "C": c, "S": s,
                     "device_ms": cs.graph_ms(fn),
-                    "launch_device_ms": parts and dict(zip(names, parts))})
+                    "launch_device_ms": _launches8(cs, name, fn)})
         del t, calls
     return out
 
@@ -664,10 +713,10 @@ def run_tiles() -> dict:
     return out
 
 
-def run_tiles8() -> dict:
-    """The s8 launches' device ms through each tile of their kinds forced
-    alone, and through gemm_plan's picks, at the sites at TILE_IMAGES
-    images."""
+def run_tiles8(only=()) -> dict:
+    """The s8 launches' device ms through each tile of their kinds (those
+    in `only`, if any) forced alone, and through gemm_plan's picks, at the
+    sites at TILE_IMAGES images."""
     import torch
 
     import chip_smoke as cs
@@ -675,15 +724,14 @@ def run_tiles8() -> dict:
 
     kinds = {"resq8": ("post_cross_q",), "cross8": ("post_cross_q",),
              "residual8": ("post_cross_q", "geglu_ff_q"),
-             "geglu8": ("geglu_ff_q",)}
+             "geglu8": ("geglu_ff_q",), "qkv8": ("ln_qkv_q",)}
+    kinds = {k: v for k, v in kinds.items() if not only or k in only}
     tiles = {k: bk.GEMM_TILES[k] for k in kinds}
     g = torch.Generator(device="cuda").manual_seed(cs.SEED + 20)
     out = {"tiles": tiles, "sites": []}
 
     def launches(fn, name):
-        names = cs.INT8_GEMM_LAUNCHES[name]
-        parts = cs.graph_launch_ms(fn, len(names), "block_gemm_s8_kernel")
-        return parts and dict(zip(names, parts))
+        return _launches8(cs, name, fn)
 
     def refit():
         bk.gemm_plan.cache_clear()
@@ -696,7 +744,8 @@ def run_tiles8() -> dict:
             plain = int8_plain(cs, t, s, heads)
             site = {"C": c, "S": s, "images": images, "R": images * s,
                     "plan_ms": {n: launches(fn, n)
-                                for n, fn in calls.items()},
+                                for n, fn in calls.items()
+                                if any(n in v for v in kinds.values())},
                     "tile_ms": {}}
             for kind, names in kinds.items():
                 for tile in tiles[kind]:
@@ -875,8 +924,9 @@ def main() -> int:
                     help="time only the decode chain in the cut builds")
     ap.add_argument("--attn", action="store_true",
                     help="time decode_attn's attention launch in cut builds")
-    ap.add_argument("--tiles8", action="store_true",
-                    help="time the s8 launches through each of their tiles")
+    ap.add_argument("--tiles8", nargs="*", metavar="KIND",
+                    help="time the s8 launches through each of their tiles "
+                    "(of the kinds named, else of all)")
     ap.add_argument("--int8", action="store_true",
                     help="time the int8 block's s8 launches in cut builds")
     ap.add_argument("--int8-build", help=argparse.SUPPRESS)
@@ -914,10 +964,10 @@ def main() -> int:
         return attn_builds(card, args.out)
     if args.int8:
         return int8_builds(card, args.out)
-    if args.tiles or args.tiles8:
-        run = run_tiles8 if args.tiles8 else run_tiles
+    if args.tiles or args.tiles8 is not None:
+        res = run_tiles() if args.tiles else run_tiles8(args.tiles8)
         with open(args.out, "w") as f:
-            json.dump({"card": card, **run()}, f, indent=1)
+            json.dump({"card": card, **res}, f, indent=1)
         print(f"wrote {args.out}", flush=True)
         return 0
     procs = {v: build(v) for v in CUTS}  # every build at once

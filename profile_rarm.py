@@ -132,9 +132,13 @@ def profile_decode(decode, steps: int) -> dict:
     # post_cross's three and geglu_ff's two
     gemm = [v for n, v in per_kernel.items() if "block_gemm_kernel" in n]
     gemm_us = sum(t for t, _ in gemm)
-    # its s8 launches: post_cross_q's three and geglu_ff_q's two
+    # its s8 launches: ln_qkv_q's one, post_cross_q's three and geglu_ff_q's
+    # two
     gemm8 = [v for n, v in per_kernel.items() if "block_gemm_s8_kernel" in n]
     gemm8_us = sum(t for t, _ in gemm8)
+    # the int8 attention core's three launches (csrc/packed_attn_q8.cu)
+    attn8 = [v for n, v in per_kernel.items() if "attn8::" in n]
+    attn8_us = sum(t for t, _ in attn8)
     return {
         "wall_ms_per_step": wall_us / steps / 1e3,
         "device_ms_per_step": device_us / steps / 1e3,
@@ -154,7 +158,10 @@ def profile_decode(decode, steps: int) -> dict:
                       "per_step": sum(c for _, c in gemm) / steps},
         "gemm_s8": {"ms_per_step": gemm8_us / steps / 1e3,
                     "share": gemm8_us / device_us,
-                    "per_step": sum(c for _, c in gemm8) / steps}}
+                    "per_step": sum(c for _, c in gemm8) / steps},
+        "attn8": {"ms_per_step": attn8_us / steps / 1e3,
+                  "share": attn8_us / device_us,
+                  "per_step": sum(c for _, c in attn8) / steps}}
 
 
 def main() -> int:

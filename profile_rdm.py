@@ -21,7 +21,8 @@ first request. Then measures, in this order:
   profile   `torch.profiler` over one U-Net forward at the request's
             shapes (x batch 4, a (cond, uncond) context of 8 rows) per
             mode: the full forward in bf16 (also with RDM_TPU_SPLIT_K3=0)
-            and int8, and the up path alone against cached down-path
+            and int8 (also with RDM_TPU_INT8_ATTN=1), and the up path
+            alone against cached down-path
             features (encoder reuse) in bf16 and int8: device time,
             host-clock wall time of the same synchronised forward, idle
             share (1 - the union of the device intervals / wall),
@@ -29,7 +30,9 @@ first request. Then measures, in this order:
             (packed_attn: csrc/attn_fwd_sm90.cuh) and the block-GEMM
             core's (ln_qkv, post_cross, geglu_ff:
             csrc/block_gemm_sm90.cuh; apart, its s8 launches of
-            post_cross_q and geglu_ff_q) time and share.
+            ln_qkv_q, post_cross_q and geglu_ff_q) and the int8
+            attention core's (packed_attn_q8's three launches) time and
+            share.
 
 Prints one line per measurement, the card's name, power limit, SM clock
 and power draw first and last, and writes everything to --out as JSON.
@@ -94,6 +97,13 @@ def main() -> int:
                 seed=1, encoder_reuse=reuse)
         return run
 
+    def int8_attn(fn):  # fn under RDM_TPU_INT8_ATTN=1
+        def run():
+            os.environ["RDM_TPU_INT8_ATTN"] = "1"
+            fn()
+            os.environ["RDM_TPU_INT8_ATTN"] = "0"
+        return run
+
     def single_kernel(fn):  # fn under RDM_TPU_SPLIT_K3=0
         def run():
             os.environ["RDM_TPU_SPLIT_K3"] = "0"
@@ -151,6 +161,9 @@ def main() -> int:
             if mode == "bf16":
                 runs["full forward RDM_TPU_SPLIT_K3=0"] = single_kernel(
                     runs["full forward"])
+            else:
+                runs["full forward RDM_TPU_INT8_ATTN=1"] = int8_attn(
+                    runs["full forward"])
             for kind, fn in runs.items():
                 fn()
                 r = profile_decode(fn, 1)
@@ -171,7 +184,11 @@ def main() -> int:
                       f"{m['ms_per_step']:.4f} ms {m['share']:7.2%} "
                       f"x{m['per_step']:g}", flush=True)
                 m = r["gemm_s8"]
-                print(f"    its s8 launches (post_cross_q, geglu_ff_q): "
+                print(f"    its s8 launches (ln_qkv_q, post_cross_q, "
+                      f"geglu_ff_q): {m['ms_per_step']:.4f} ms "
+                      f"{m['share']:7.2%} x{m['per_step']:g}", flush=True)
+                m = r["attn8"]
+                print(f"    int8 attention core (packed_attn_q8): "
                       f"{m['ms_per_step']:.4f} ms {m['share']:7.2%} "
                       f"x{m['per_step']:g}", flush=True)
     os.environ.pop("RDM_TPU_INT8_ATTN")

@@ -834,22 +834,31 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The tensor map of a bf16 BSHD tensor [B, S, H, D]: dims {D, H, S, B}
-// innermost first, boxes {32, 1, rows, 1}, 64-byte swizzle, rows past S
-// zero-filled.
+// The tensor map of a BSHD tensor [B, S, H, D] of bf16 (esize 2) or int8
+// codes (esize 1): dims {D, H, S, B} innermost first, boxes of `rows` rows
+// of one head, {32, 1, rows, 1} in bf16 (64 bytes) and a whole head
+// {D, 1, rows, 1} in codes (32 or 64 bytes), swizzled across the box's
+// bytes; rows past S zero-filled.
 inline bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
-                     int D, int rows) {
+                     int D, int rows, int esize = 2) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
                               (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
-                                 (cuuint64_t)S * H * D * 2};
-  const cuuint32_t box[4] = {kPanel, 1, (cuuint32_t)rows, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * esize,
+                                 (cuuint64_t)H * D * esize,
+                                 (cuuint64_t)S * H * D * esize};
+  const int box_cols = esize == 2 ? kPanel : D;
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  return fn(map,
+            esize == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                       : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+            4, const_cast<void*>(ptr), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE,
+            box_cols * esize == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                   : CU_TENSOR_MAP_SWIZZLE_32B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -893,6 +902,40 @@ cudaError_t allow_smem(Kernel kernel, int bytes, int dev,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e == cudaSuccess && dev < 64) done |= 1ull << dev;
   return e;
+}
+
+// Launches `kernel` by cudaLaunchKernelEx: `grid` x `threads`, `smem` bytes
+// of dynamic shared memory, in clusters of `cluster` CTAs along x where
+// cluster > 1, and, where `pdl`, by programmatic stream serialization: it
+// may start while the launch before it in the stream finishes, and waits on
+// griddepcontrol.wait before it reads what that launch writes. Returns a
+// cudaError_t.
+template <typename Kernel, typename... A>
+int launch_ex(Kernel kernel, dim3 grid, int threads, int smem,
+              cudaStream_t stream, int cluster, bool pdl, const A&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[2];
+  int n = 0;
+  if (cluster > 1) {
+    attr[n].id = cudaLaunchAttributeClusterDimension;
+    attr[n].val.clusterDim.x = cluster;
+    attr[n].val.clusterDim.y = 1;
+    attr[n].val.clusterDim.z = 1;
+    ++n;
+  }
+  if (pdl) {
+    attr[n].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[n].val.programmaticStreamSerializationAllowed = 1;
+    ++n;
+  }
+  cfg.attrs = attr;
+  cfg.numAttrs = n;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 // q [B, Sq, H, D], k / v [B, Sk, H, D], o like q, all bf16, contiguous and

@@ -1,8 +1,8 @@
 // Shared pieces of the SpatialTransformer block kernels (sm_90a).
 //
 // The first versions' bf16 tensor-core GEMM, kept for post_ff (csrc/
-// post_ff.cu, off the default path) and, with int8_common.cuh, ln_qkv_q
-// and packed_attn_q8: nvcuda::wmma 16x16x16 fragments with f32
+// post_ff.cu, off the default path, through post_cross_common.cuh):
+// nvcuda::wmma 16x16x16 fragments with f32
 // accumulation, four warps per thread block, a [BM, BN] = [32, 64] output
 // tile, and the weight streamed through shared memory in [BK, BN] =
 // [32, 64] chunks by double-buffered cp.async copies. The A operand is a

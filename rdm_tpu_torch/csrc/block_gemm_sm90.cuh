@@ -23,10 +23,10 @@
 //              each 8-column group goes to q, k or v (ln_qkv)
 //
 // and, in its s8 launches (block_gemm_s8_kernel, "the s8 launches" below),
-// the int8 block's :397 `_post_cross_kernel_q` (csrc/post_cross_q.cu, three
-// launches) and :456 `_geglu_ff_kernel_q` (csrc/geglu_ff_q.cu, two): int8
-// codes times int8 weights into int32, the same epilogues on the
-// dequantized f32 fragments.
+// the int8 block's :140 `_ln_qkv_kernel_q` (csrc/ln_qkv_q.cu, one launch),
+// :397 `_post_cross_kernel_q` (csrc/post_cross_q.cu, three) and :456
+// `_geglu_ff_kernel_q` (csrc/geglu_ff_q.cu, two): int8 codes times int8
+// weights into int32, the same epilogues on the dequantized f32 fragments.
 //
 // The roundings are the JAX block's and the first CUDA version's: x1, the
 // LayerNorm output, q2, p, o, f and q, k, v are bf16 where they were bf16
@@ -1357,9 +1357,10 @@ __global__ void __launch_bounds__(128 * CW + 32,
 
 // ------------------------------------------------------- the s8 launches
 //
-// The int8 SpatialTransformer block (csrc/post_cross_q.cu, three launches:
-// x1, cross, xmid; csrc/geglu_ff_q.cu, two: up, down; the serving mode's
-// weight and activation int8 products): out = epilogue(A8 @ W8^T) with A8
+// The int8 SpatialTransformer block (csrc/ln_qkv_q.cu, one launch: q | k |
+// v; csrc/post_cross_q.cu, three: x1, cross, xmid; csrc/geglu_ff_q.cu,
+// two: up, down; the serving mode's weight and activation int8 products):
+// out = epilogue(A8 @ W8^T) with A8
 // [R, K] and W8 [N, K] int8 codes, wgmma m64nBNk32.s32.s8.s8 into int32
 // accumulators, dequantized in f32 as acc * (a * ws[n]), the product
 // formed first (rdm_tpu/ops/block_kernel.py `_qdot`), before the bias.
@@ -1371,25 +1372,28 @@ __global__ void __launch_bounds__(128 * CW + 32,
 //   boxes of BM rows x 128 bytes beside them. TMA zero-fills W's columns
 //   past K, so whatever an A slot holds there adds exactly 0 (integer
 //   products); the panels the prologue writes are zeroed past K anyway.
-// - A not yet quantized (kQuant8: x1's attn; kNormQuant8: cross's x1 and
-//   up's xm, LayerNorm first) is read by the consumer warps straight from
-//   global memory, a row at a time (no bf16 panel in shared memory),
-//   normalised in registers with layer_norm_prologue's bf16x2 arithmetic,
-//   quantized, and written as codes in the layout TMA would have written
-//   (code_prologue); the panel of BM x K bytes serves every column tile
-//   of the CTA: 60 KB at K = 960, BM = 64. The launches with a prologue
-//   take 64-row tiles (`gemm_plan`'s "resq8", "cross8", "geglu8"): a CTA
-//   of more rows redoes more of its row block's prologue per column tile,
-//   and the 128-row ping-pong GEGLU tile spills (profile_gemm.py
-//   --tiles8). Sharing the prologue across a cluster of a row block's
-//   CTAs (codes written into every panel through distributed shared
-//   memory) and loading the next rows under the current rows' arithmetic
-//   were both measured slower (PERF.md §6).
-// - Epilogues on the dequantized f32 fragments: residual_epilogue as the
-//   bf16 launches run it (x1, xmid, down), cross_epilogue with the f32 o
-//   quantized to codes (O8: the TPU kernel quantizes num / den in f32,
-//   never a bf16 o), geglu_q8_epilogue (the gated hidden quantized from
-//   f32). Codes are written 8 bytes a thread after quad_transpose.
+// - A not yet quantized (kQuant8: x1's attn; kNormQuant8: qkv's x, cross's
+//   x1 and up's xm, LayerNorm first) is read by the consumer warps
+//   straight from global memory, a row at a time (no bf16 panel in shared
+//   memory), normalised in registers with layer_norm_prologue's bf16x2
+//   arithmetic, quantized, and written as codes in the layout TMA would
+//   have written (code_prologue); the panel of BM x K bytes serves every
+//   column tile of the CTA: 60 KB at K = 960, BM = 64. The launches with a
+//   prologue take 64-row tiles (`gemm_plan`'s "resq8", "cross8", "geglu8",
+//   "qkv8"): a CTA of more rows redoes more of its row block's prologue
+//   per column tile, and the 128-row ping-pong GEGLU tile spills
+//   (profile_gemm.py --tiles8). kQkv's N = 3C walks many column tiles a
+//   CTA; where shared memory keeps one CTA an SM (C = 960) its ping-pong
+//   tile's eight warps share the prologue. Sharing the prologue across a
+//   cluster of a row block's CTAs (codes written into every panel through
+//   distributed shared memory) and loading the next rows under the
+//   current rows' arithmetic were both measured slower (PERF.md §6).
+// - Epilogues on the dequantized f32 fragments: qkv_epilogue and
+//   residual_epilogue as the bf16 launches run them (q | k | v; x1, xmid,
+//   down), cross_epilogue with the f32 o quantized to codes (O8: the TPU
+//   kernel quantizes num / den in f32, never a bf16 o), geglu_q8_epilogue
+//   (the gated hidden quantized from f32). Codes are written 8 bytes a
+//   thread after quad_transpose.
 constexpr int kBK8 = 128;  // K of an s8 ring stage: 128 codes
 enum Src8 { kStream8 = 0, kQuant8 = 1, kNormQuant8 = 2 };
 
@@ -1811,6 +1815,8 @@ __global__ void __launch_bounds__(128 * CW + 32,
         residual_epilogue<BN>(f[0], p, r0, n0, q);
       else if constexpr (KIND == kGeglu)
         geglu_q8_epilogue<BN>(f[0], f[NW - 1], p, r0, n0, q);
+      else if constexpr (KIND == kQkv)
+        qkv_epilogue<BN>(f[0], p, r0, n0, q);
       else
         cross_epilogue<BN, KIND == kCross64 ? 64 : 32, KIND != kCross,
                        false, true>(f[0], p, r0, n0, q, p.out8, p.inv_out);
@@ -1887,38 +1893,59 @@ inline bool make_map_flat(CUtensorMap* map, const void* ptr, int rows,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The tensor map of a row-major [rows, cols] matrix of `esize`-byte
-// elements (bf16 or int8) in boxes {box_cols, box_rows}, swizzled as the
-// core's operands are (make_map_2d, make_map_u8) or, with swizzle off,
-// flat (make_map_flat); built once per everything it encodes (device,
-// pointer, shape, box, element, swizzle) and kept: a map holds only the
+// A kept tensor map's key: (layout, device, pointer, six numbers). kMap2d's
+// are rows, cols, box_cols, box_rows, esize, swizzle (cached_map);
+// kMapBshd's B, S, H, D, rows, esize (cached_map_bshd).
+enum { kMap2d, kMapBshd };
+typedef std::tuple<int, int, uintptr_t, int, int, int, int, int, int> MapKey;
+
+// The tensor map `key` describes, built once and kept: a map holds only the
 // address, shape and box, so a new tensor at the same address with the
 // same shape is described by the same map. The weights and caches live
-// across calls; the decode launches' activations come back to the same
-// addresses from PyTorch's caching allocator, call after call.
-inline bool cached_map(CUtensorMap* map, int dev, const void* ptr, int rows,
-                       int cols, int box_cols, int box_rows, int esize,
-                       bool swizzle = true) {
-  typedef std::tuple<int, uintptr_t, int, int, int, int, int, bool> Key;
+// across calls; activations and scratch come back to the same addresses
+// from PyTorch's caching allocator, call after call.
+inline bool kept_map(CUtensorMap* map, const MapKey& key) {
   static std::mutex mu;
-  static std::map<Key, CUtensorMap> cache;
-  const Key key(dev, reinterpret_cast<uintptr_t>(ptr), rows, cols, box_cols,
-                box_rows, esize, swizzle);
+  static std::map<MapKey, CUtensorMap> cache;
   std::lock_guard<std::mutex> lock(mu);
   auto it = cache.find(key);
   if (it == cache.end()) {
+    const void* ptr = reinterpret_cast<const void*>(std::get<2>(key));
+    const int d0 = std::get<3>(key), d1 = std::get<4>(key),
+              d2 = std::get<5>(key), d3 = std::get<6>(key),
+              d4 = std::get<7>(key), d5 = std::get<8>(key);
     CUtensorMap m;
-    if (!(!swizzle ? make_map_flat(&m, ptr, rows, cols, box_cols, box_rows,
-                                   esize)
-          : esize == 2
-              ? attn::make_map_2d(&m, ptr, rows, cols, box_cols, box_rows)
-              : make_map_u8(&m, ptr, rows, cols, box_cols, box_rows)))
+    if (!(std::get<0>(key) == kMapBshd
+              ? attn::make_map(&m, ptr, d0, d1, d2, d3, d4, d5)
+          : !d5       ? make_map_flat(&m, ptr, d0, d1, d2, d3, d4)
+          : d4 == 2   ? attn::make_map_2d(&m, ptr, d0, d1, d2, d3)
+                      : make_map_u8(&m, ptr, d0, d1, d2, d3)))
       return false;
     if (cache.size() >= 4096) cache.clear();
     it = cache.emplace(key, m).first;
   }
   *map = it->second;
   return true;
+}
+
+// The kept tensor map of a row-major [rows, cols] matrix of `esize`-byte
+// elements (bf16 or int8) in boxes {box_cols, box_rows}, swizzled as the
+// core's operands are (make_map_2d, make_map_u8) or, with swizzle off,
+// flat (make_map_flat).
+inline bool cached_map(CUtensorMap* map, int dev, const void* ptr, int rows,
+                       int cols, int box_cols, int box_rows, int esize,
+                       bool swizzle = true) {
+  return kept_map(map, MapKey(kMap2d, dev, reinterpret_cast<uintptr_t>(ptr),
+                              rows, cols, box_cols, box_rows, esize,
+                              swizzle));
+}
+
+// The kept tensor map of a BSHD tensor [B, S, H, D] of `esize`-byte
+// elements in boxes of `rows` rows of one head (attn::make_map).
+inline bool cached_map_bshd(CUtensorMap* map, int dev, const void* ptr,
+                            int B, int S, int H, int D, int rows, int esize) {
+  return kept_map(map, MapKey(kMapBshd, dev, reinterpret_cast<uintptr_t>(ptr),
+                              B, S, H, D, rows, esize));
 }
 
 // The tensor map of a bf16 weight [rows, cols] (boxes {32, 64}).
@@ -2033,29 +2060,8 @@ int launch_decode(const Plan& pl, const void* a_src, const void* w0,
     e = attn::allow_smem(kernel, kSmemLimit, dev, smem_set);
     if (e != cudaSuccess) return (int)e;
   }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.N / BN * pl.ks, (a.R + BM - 1) / BM, 1);
-  cfg.blockDim = dim3(128 + 32, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[2];
-  int n = 0;
-  if (pl.ks > 1) {
-    attr[n].id = cudaLaunchAttributeClusterDimension;
-    attr[n].val.clusterDim.x = pl.ks;
-    attr[n].val.clusterDim.y = 1;
-    attr[n].val.clusterDim.z = 1;
-    ++n;
-  }
-  if (pdl) {
-    attr[n].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-    attr[n].val.programmaticStreamSerializationAllowed = 1;
-    ++n;
-  }
-  cfg.attrs = attr;
-  cfg.numAttrs = n;
-  e = cudaLaunchKernelEx(&cfg, kernel, ta, tw0, tw1, a);
-  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+  return attn::launch_ex(kernel, dim3(a.N / BN * pl.ks, (a.R + BM - 1) / BM),
+                         128 + 32, smem, stream, pl.ks, pdl, ta, tw0, tw1, a);
 }
 
 
@@ -2063,13 +2069,14 @@ int launch_decode(const Plan& pl, const void* a_src, const void* w0,
 
 // An s8 plan's tiles are those of `GEMM_TILES` there ("residual8": split
 // (128, 128), (64, 128), (64, 64); "resq8", "cross8": split (64, 64);
-// "geglu8": ping-pong (64, 64)).
+// "geglu8": ping-pong (64, 64); "qkv8": split or ping-pong (64, 128)).
 inline bool plan8_ok(const Plan& pl, int kind, int src, int K) {
   const bool built =
       kind == kResidual && src == kStream8
           ? !pl.pp && ((pl.bm == 128 && pl.bn == 128) ||
                        (pl.bm == 64 && (pl.bn == 64 || pl.bn == 128)))
-          : pl.pp == (kind == kGeglu) && pl.bm == 64 && pl.bn == 64;
+      : kind == kQkv ? pl.bm == 64 && pl.bn == 128
+                     : pl.pp == (kind == kGeglu) && pl.bm == 64 && pl.bn == 64;
   return built && pl.ks == 1 && pl.tiles_per_cta >= 1 &&
          pl.stages >= (pl.pp ? 4 : 2) && pl.stages % (pl.pp ? 2 : 1) == 0 &&
          pl.stages <= kMaxStages &&
@@ -2124,6 +2131,11 @@ int launch_s8(const Plan& pl, const void* a8, const void* w0,
   if constexpr (KIND == kGeglu)
     e = launch_tile8<2, 64, 64, true, KIND, SRC>(ta, tw0, tw1, a, dev,
                                                  stream);
+  else if constexpr (KIND == kQkv)
+    e = pl.pp ? launch_tile8<2, 64, 128, true, KIND, SRC>(ta, tw0, tw1, a,
+                                                          dev, stream)
+              : launch_tile8<1, 64, 128, false, KIND, SRC>(ta, tw0, tw1, a,
+                                                           dev, stream);
   else if (pl.bm == 64 && pl.bn == 64)
     e = launch_tile8<1, 64, 64, false, KIND, SRC>(ta, tw0, tw1, a, dev,
                                                   stream);

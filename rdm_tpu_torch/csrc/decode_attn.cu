@@ -582,30 +582,9 @@ int launch_attn(const AttnArgs& a, int T, int splits, bool pdl,
     }
     p.stages = it->second;
   }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(splits, a.C / (G * kHD), a.B);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes =
-      attn_smem(G, esize, p.stages, splits, a.rows, a.C);
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[2];
-  int n = 0;
-  if (splits > 1) {
-    attr[n].id = cudaLaunchAttributeClusterDimension;
-    attr[n].val.clusterDim.x = splits;
-    attr[n].val.clusterDim.y = 1;
-    attr[n].val.clusterDim.z = 1;
-    ++n;
-  }
-  if (pdl) {
-    attr[n].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-    attr[n].val.programmaticStreamSerializationAllowed = 1;
-    ++n;
-  }
-  cfg.attrs = attr;
-  cfg.numAttrs = n;
-  e = cudaLaunchKernelEx(&cfg, kernel, tk, tv, p);
-  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+  return attn::launch_ex(kernel, dim3(splits, a.C / (G * kHD), a.B), kThreads,
+                         attn_smem(G, esize, p.stages, splits, a.rows, a.C),
+                         stream, splits, pdl, tk, tv, p);
 }
 
 template <typename CT>

@@ -50,8 +50,8 @@ _SIGNATURES = {
     "rdm_packed_attn": [_P] * 4 + [_I, _I, _I, _I, _F, _P],
     "rdm_post_cross": [_P] * 14 + [_I] * 5 + [_F] + [_I] * 10 + [_P],
     "rdm_geglu_ff_sm90": [_P] * 11 + [_I] * 3 + [_I] * 10 + [_P],
-    "rdm_ln_qkv_q": [_P] * 8 + [_I, _I, _I, _F, _P],
-    "rdm_packed_attn_q8": [_P] * 5 + [_I, _I, _I, _I, _F, _P],
+    "rdm_ln_qkv_q": [_P] * 8 + [_I, _I, _F] + [_I] * 5 + [_P],
+    "rdm_packed_attn_q8": [_P] * 9 + [_I] * 5 + [_F, _P],
     "rdm_post_cross_q": [_P] * 17 + [_I] * 5 + [_F] * 4 + [_I] * 15 + [_P],
     "rdm_geglu_ff_q": [_P] * 14 + [_I] * 3 + [_F, _F] + [_I] * 10 + [_P],
     "rdm_post_ff": [_P] * 20 + [_I] * 6 + [_F, _P],

@@ -33,11 +33,15 @@ their int8 variants: weight and activation int8 projections with int32
 accumulation, static calibrated activation scales, per-column weight
 scales (`quantize_cols`):
 
-  5. `ln_qkv_q`       (csrc/ln_qkv_q.cu; replaces `_ln_qkv_kernel_q`)
+  5. `ln_qkv_q`       (csrc/ln_qkv_q.cu; replaces `_ln_qkv_kernel_q`): one
+                      s8 launch of the block-GEMM core (LN1 and the codes
+                      in its prologue, q | k | v in its epilogue)
   6. `packed_attn_q8` int8 q k^T and p v with per-cell absmax scales
                       (csrc/packed_attn_q8.cu; replaces
                       `_packed_attn_kernel_q8`; only with
-                      RDM_TPU_INT8_ATTN=1, else the bf16 core runs)
+                      RDM_TPU_INT8_ATTN=1, else the bf16 core runs):
+                      three launches (absmax, codes, an s8 wgmma
+                      attention over the codes)
   7. `post_cross_q`   (csrc/post_cross_q.cu; replaces `_post_cross_kernel_q`):
                       three s8 launches of the block-GEMM core (x1, cross
                       with the f32 o quantized, xmid over those codes)
@@ -49,10 +53,10 @@ Each wrapper has its plain PyTorch version beside it, `<name>_reference`.
 A wrapper runs the plain version only for tensors on the CPU; for a CUDA
 tensor it launches its kernel or raises: `_check` refuses other dtypes,
 devices and layouts, `kernel_refusal` the shapes the kernel does not take
-(heads other than 32 or 64 wide, 32 only for `packed_attn_q8`; C off a
-multiple of 32, F off 32 or post_ff's 64; a block-GEMM launch that
-`gemm_plan` cannot fit, the s8 code prologue past K = 1536, `ln_qkv_q`'s
-and `post_ff`'s shared memory). Any number of context tokens is taken.
+(heads other than 32 or 64 wide; C off a multiple of 32, F off 32 or
+post_ff's 64; a block-GEMM launch that `gemm_plan` cannot fit, the s8
+code prologue past K = 1536, `post_ff`'s shared memory). Any number of
+context tokens is taken.
 `fused_transformer_block` asks the same of every kernel the block will
 launch (`block_refusal`) and raises before the first launch. Each wrapper
 counts its launches in `<name>.launches`.
@@ -79,8 +83,7 @@ from rdm_tpu_torch.ops import _build
 from rdm_tpu_torch.ops.attention import dot_product_attention
 
 HEAD_DIMS = (32, 64)  # the head widths the attention kernels take
-_BM, _BN = 32, 64  # output tile of the first versions (csrc/block_common.cuh)
-_TARGET_BLOCKS = 528  # ~4 resident thread blocks per SM on 132 SMs
+_BM, _BN = 32, 64  # post_ff's output tile (csrc/block_common.cuh)
 _LOG2E = 1.4426950408889634
 # The block-GEMM core (csrc/block_gemm_sm90.cuh): per launch kind, the
 # tiles it may take as (rows, columns, ping-pong), the preferred first;
@@ -99,6 +102,12 @@ _LOG2E = 1.4426950408889634
 # "cross8" and "geglu8" normalise and quantize them, and these take the
 # 64-row tiles alone, which ran fastest at the U-Net's sites at 8 images
 # (`profile_gemm.py --tiles8`; the 128-row ping-pong GEGLU tile spills).
+# "qkv8" (ln_qkv_q, N = 3C) normalises and quantizes too, and takes the
+# split 64 x 128 tile where the plan keeps two of its CTAs an SM, else the
+# ping-pong one, whose two warpgroups share one prologue (`--tiles8 qkv8`
+# at 2, 8 and 32 images: the split tile ahead at C = 384 and at 2,048
+# rows of C = 576, the ping-pong one at 512 rows and at C = 960, where
+# shared memory holds one CTA an SM; 64-column tiles behind both).
 GEMM_TILES = {"residual": ((128, 128, 0), (64, 128, 0), (64, 64, 0)),
               "cross": ((64, 64, 0),),
               "geglu": ((128, 64, 1), (64, 64, 1)),
@@ -106,12 +115,17 @@ GEMM_TILES = {"residual": ((128, 128, 0), (64, 128, 0), (64, 64, 0)),
               "residual8": ((128, 128, 0), (64, 128, 0), (64, 64, 0)),
               "resq8": ((64, 64, 0),),
               "cross8": ((64, 64, 0),),
-              "geglu8": ((64, 64, 1),)}
+              "geglu8": ((64, 64, 1),),
+              "qkv8": ((64, 128, 0), (64, 128, 1))}
 _GEMM_STAGES = 8  # csrc/block_gemm_sm90.cuh kMaxStages
 _GEMM_BK = 64
 _GEMM_BK8 = 128  # an s8 K-step (kBK8): 128 codes
-_CODE_PROLOGUE = ("resq8", "cross8", "geglu8")  # A quantized in the CTA
+# the kinds whose A the CTA quantizes itself (a code prologue)
+_CODE_PROLOGUE = ("resq8", "cross8", "geglu8", "qkv8")
 _MAX_LN_K = 1536  # kMaxLNK: a lane holds 6 vectors of 8 of a row
+# consumer warps an SM that a code-prologue launch's plan keeps resident
+# where one of its tiles can (the rows' loads and reductions want warps)
+_PROLOGUE_WARPS = 8
 # The decode chain's launches (`gemm_plan(split_k=True)`): one tile, 64
 # rows (the batch, zero-filled past it) x 64 columns, split warpgroups, K
 # split over a cluster of up to _MAX_KS CTAs (kMaxKS, the portable cluster
@@ -194,16 +208,6 @@ def post_ff_reference(x, attn, ck, cv, wo, bo, n2s, n2b, wq2, wo2, bo2, n3s,
 
 
 # -------------------------------------------------------------- wrappers
-
-def _tiles_per_block(n: int, rows: int) -> int:
-    """Output tiles each block sweeps over its normalised row panel: as
-    many as keep the grid near _TARGET_BLOCKS, spread evenly."""
-    ntiles = -(-n // _BN)
-    row_tiles = -(-rows // _BM)
-    want = max(1, (ntiles * row_tiles) // _TARGET_BLOCKS)
-    chunks = -(-ntiles // min(want, ntiles))
-    return -(-ntiles // chunks)
-
 
 class GemmPlan(NamedTuple):
     """One launch of the block-GEMM core: a tile of `bm` rows and `bn`
@@ -349,7 +353,9 @@ def gemm_plan(kind: str, r: int, n: int, k: int, sms: int, *,
     """The tile of one launch on a card of `sms` SMs: the first of the
     kind's GEMM_TILES whose ring keeps 3 or more stages (a ping-pong
     tile's two rings 2 each) in shared memory and whose grid still gives
-    every SM a CTA; else the last that fits. Of the ring depths that fit,
+    every SM a CTA (for the code-prologue kinds, also with
+    _PROLOGUE_WARPS consumer warps resident an SM at the plan's ring
+    depth); else the last that fits. Of the ring depths that fit,
     the one that runs the grid in the fewest waves (CTAs resident per SM by
     shared memory and threads), the deeper on a tie. The LayerNorm kinds,
     whose prologue and epilogues are CUDA-core work that wants warps, take
@@ -367,23 +373,26 @@ def gemm_plan(kind: str, r: int, n: int, k: int, sms: int, *,
         raise ValueError(_gemm_refusal(kind, k))
     for bm, bn, pp, depths in fits:
         row_blocks, ntiles = -(-r // bm), -(-n // bn)
-        if row_blocks * ntiles >= sms or (bm, bn, pp) == fits[-1][:3]:
+
+        def per_sm(st):
+            return _per_sm(kind, bm, bn, pp, k, st)
+
+        if kind in ("residual", "residual8"):
+            tpc = 1
+            stages = min(reversed(depths), key=lambda st: -(
+                -row_blocks * ntiles // (sms * per_sm(st))))
+        else:
+            need = -(-row_blocks * ntiles // sms)  # residency worth having
+            stages = max(depths, key=lambda st: (min(per_sm(st), need), st))
+            slots = sms * per_sm(stages)
+            tpc = next((n for n in range(1, ntiles + 1)
+                        if row_blocks * -(-ntiles // n) <= slots), ntiles)
+            tpc = -(-ntiles // -(-ntiles // tpc))  # same CTAs, evened out
+        warps = per_sm(stages) * 4 * (2 if pp else bm // 64)
+        if (bm, bn, pp) == fits[-1][:3] or (
+                row_blocks * ntiles >= sms
+                and (kind not in _CODE_PROLOGUE or warps >= _PROLOGUE_WARPS)):
             break
-
-    def per_sm(st):
-        return _per_sm(kind, bm, bn, pp, k, st)
-
-    if kind in ("residual", "residual8"):
-        tpc = 1
-        stages = min(reversed(depths), key=lambda st: -(
-            -row_blocks * ntiles // (sms * per_sm(st))))
-    else:
-        need = -(-row_blocks * ntiles // sms)  # residency worth having
-        stages = max(depths, key=lambda st: (min(per_sm(st), need), st))
-        slots = sms * per_sm(stages)
-        tpc = next((n for n in range(1, ntiles + 1)
-                    if row_blocks * -(-ntiles // n) <= slots), ntiles)
-        tpc = -(-ntiles // -(-ntiles // tpc))  # the same CTAs, evened out
     return GemmPlan(bm, bn, pp, tpc, stages,
                     gemm_smem(kind, bm, bn, k, stages))
 
@@ -439,19 +448,12 @@ _GEMM_KINDS = {"ln_qkv": (("qkv", "C"),),
                "geglu_ff": (("geglu", "C"), ("residual", "F")),
                "post_cross_q": (("resq8", "C"), ("cross8", "C"),
                                 ("residual8", "C")),
-               "geglu_ff_q": (("geglu8", "C"), ("residual8", "F"))}
+               "geglu_ff_q": (("geglu8", "C"), ("residual8", "F")),
+               "ln_qkv_q": (("qkv8", "C"),)}
 
 
 def _a128(n: int) -> int:
     return -(-n // 128) * 128
-
-
-def _ln_qkv_q_smem(c: int) -> int:
-    """Dynamic shared bytes of the first-version `ln_qkv_q` launch
-    (csrc/ln_qkv_q.cu: the bf16 and int8 row panels, the weight chunks and
-    the f32 staging tile of int8_common.cuh / block_common.cuh)."""
-    return (_a128(_BM * (c + 8) * 2) + _a128(_BM * (c + 16))
-            + _a128(2 * _BN * 80) + _a128(_BM * (_BN + 4) * 4))
 
 
 def _post_ff_smem(c: int) -> int:
@@ -480,11 +482,9 @@ def kernel_refusal(name: str, c: int, *, t: int = 1, head_dim: int = 32,
     context tokens, heads of `head_dim` and FF width `f` (each where the
     kernel reads it), or None. The wrappers raise ValueError with it, and
     `block_refusal` asks it of every kernel a block would launch."""
-    if name in _ATTENTION:
-        dims = (32,) if name == "packed_attn_q8" else HEAD_DIMS
-        if head_dim not in dims:
-            return (f"{name}: the CUDA kernel takes head_dim in {dims}, got "
-                    f"{head_dim}")
+    if name in _ATTENTION and head_dim not in HEAD_DIMS:
+        return (f"{name}: the CUDA kernel takes head_dim in {HEAD_DIMS}, got "
+                f"{head_dim}")
     if name in _CONTEXT and t < 1:
         return f"{name}: context length {t} < 1"
     if name in ("packed_attn", "packed_attn_q8"):
@@ -498,11 +498,9 @@ def kernel_refusal(name: str, c: int, *, t: int = 1, head_dim: int = 32,
         why = _gemm_refusal(kind, c if dim == "C" else f)
         if why is not None:
             return f"{name}: {why}"
-    for first, smem in (("ln_qkv_q", _ln_qkv_q_smem),
-                        ("post_ff", _post_ff_smem)):  # their launchers'
-        if name == first and smem(c) > _SMEM_LIMIT:
-            return (f"{name}: C={c} leaves no room in shared memory "
-                    f"({smem(c)} bytes a block)")
+    if name == "post_ff" and _post_ff_smem(c) > _SMEM_LIMIT:  # its launcher
+        return (f"{name}: C={c} leaves no room in shared memory "
+                f"({_post_ff_smem(c)} bytes a block)")
     return None
 
 
@@ -859,7 +857,8 @@ def geglu_ff_q_reference(xm2, n3s, n3b, wa, wsa, wg, wsg, ba, bg, w2, ws2,
 # --------------------------------------------------------- int8 wrappers
 
 def ln_qkv_q(x2, n1s, n1b, wqkv, ws, a: float):
-    """int8 LN1 + q/k/v projection: x2 [R, C] -> (q, k, v) each [R, C]."""
+    """int8 LN1 + q/k/v projection: x2 [R, C] -> (q, k, v) each [R, C]. On
+    CUDA one s8 launch of the block-GEMM core."""
     r, c = x2.shape
     if wqkv.shape != (3 * c, c) or ws.shape != (3 * c,):
         raise ValueError(f"ln_qkv_q: wqkv {tuple(wqkv.shape)}, ws "
@@ -871,11 +870,12 @@ def ln_qkv_q(x2, n1s, n1b, wqkv, ws, a: float):
            i8=[(wqkv, (3 * c, c))])
     _refuse(kernel_refusal("ln_qkv_q", c))
     q, k, v = (torch.empty_like(x2) for _ in range(3))
+    plan = gemm_plan("qkv8", r, 3 * c, c, sm_count(x2.device.index))
     lib = _build.load()
     with torch.cuda.device(x2.device):
         rc = lib.rdm_ln_qkv_q(_p(x2), _p(n1s), _p(n1b), _p(wqkv), _p(ws),
-                              _p(q), _p(k), _p(v), r, c,
-                              _tiles_per_block(3 * c, r), a, _stream(x2))
+                              _p(q), _p(k), _p(v), r, c, a, *plan.args,
+                              _stream(x2))
     _build.check(rc, "ln_qkv_q")
     ln_qkv_q.launches += 1
     return q, k, v
@@ -885,9 +885,11 @@ ln_qkv_q.launches = 0
 
 
 def packed_attn_q8(q, k, v, *, heads: int, head_dim: int):
-    """int8 self-attention core: q/k/v [B, S, C] -> [B, S, C]. On CUDA two
-    launches (the per-cell absmax scales, then the attention), counted as
-    one call."""
+    """int8 self-attention core: q/k/v [B, S, C] -> [B, S, C]. On CUDA
+    three launches (the per-cell absmax scales; the codes, q and k [B, S,
+    C] and v transposed [B, C, S'] with S' = S rounded up to 64; the
+    attention, s8 wgmma over the codes), counted as one call; the scales
+    and codes live in one scratch tensor allocated here."""
     b, s, c = q.shape
     if heads * head_dim != c or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"packed_attn_q8: q/k/v {tuple(q.shape)}, "
@@ -899,15 +901,21 @@ def packed_attn_q8(q, k, v, *, heads: int, head_dim: int):
     _check("packed_attn_q8", [(a, (b, s, c)) for a in (q, k, v)])
     _refuse(kernel_refusal("packed_attn_q8", c, head_dim=head_dim))
     bq = _q8_block_rows(s)
-    groups = -(-c // 128)
-    # absmax per (image, group): q per q-block, then k, then v
-    amax = torch.zeros((b, groups, s // bq + 2), dtype=torch.float32,
-                       device=q.device)
+    groups, sp = -(-c // 128), -(-s // 64) * 64
+    # per (image, 128-channel group): the q, k, v maxima of each 64 rows,
+    # then the f32 absmax of q per q-block, of k, of v (each region
+    # 128-byte aligned); the q and k codes; v's transposed codes
+    sizes = (_a128(b * groups * sp // 64 * 3 * 4),
+             _a128(b * groups * (s // bq + 2) * 4), b * s * c, b * s * c,
+             b * c * sp)
+    scratch = torch.empty(sum(sizes), dtype=torch.int8, device=q.device)
+    ptrs = _p(scratch) + np.cumsum((0,) + sizes[:-1])
     o = torch.empty_like(q)
     lib = _build.load()
     with torch.cuda.device(q.device):
-        rc = lib.rdm_packed_attn_q8(_p(q), _p(k), _p(v), _p(amax), _p(o), b,
-                                    s, heads, bq, head_dim ** -0.5,
+        rc = lib.rdm_packed_attn_q8(_p(q), _p(k), _p(v),
+                                    *(int(x) for x in ptrs), _p(o), b, s,
+                                    heads, head_dim, bq, head_dim ** -0.5,
                                     _stream(q))
     _build.check(rc, "packed_attn_q8")
     packed_attn_q8.launches += 1

@@ -163,14 +163,22 @@ def test_wrappers_reject_other_devices():
 @pytest.mark.parametrize("n,rows", [(1152, 8192), (1728, 2048), (2880, 512),
                                     (1536, 8192), (3840, 512), (96, 3)])
 def test_tile_plan_covers_every_tile(n, rows):
-    tpb = bk._tiles_per_block(n, rows)
-    ntiles = -(-n // 64)
-    assert 1 <= tpb <= ntiles
-    blocks = -(-ntiles // tpb) * -(-rows // 32)
-    # the sweep covers every tile, and splitting the sweep further would
-    # not be needed to reach the target occupancy
-    assert -(-ntiles // tpb) * tpb >= ntiles
-    assert blocks >= min(bk._TARGET_BLOCKS // 2, ntiles * -(-rows // 32))
+    """ln_qkv_q's plan (`gemm_plan("qkv8")`, N = 3C, K = C): the column
+    tiles its CTAs walk cover every tile once, evened out, the grid runs
+    in one wave, and walking fewer tiles a CTA would not."""
+    sms = 132
+    plan = bk.gemm_plan("qkv8", rows, n, n // 3, sms)
+    ntiles = -(-n // plan.bn)
+    tpc = plan.tiles_per_cta
+    assert 1 <= tpc <= ntiles
+    chunks = -(-ntiles // tpc)
+    assert (chunks - 1) * tpc < ntiles <= chunks * tpc
+    ctas = chunks * -(-rows // plan.bm)
+    slots = sms * bk._per_sm("qkv8", plan.bm, plan.bn, plan.pp, n // 3,
+                             plan.stages)
+    assert ctas <= slots or tpc == ntiles
+    if tpc > 1:
+        assert -(-ntiles // (tpc - 1)) * -(-rows // plan.bm) > slots
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
@@ -205,13 +213,13 @@ def test_source_digest_tracks_flags(monkeypatch):
     ("short bias", ValueError, "expected shape"),
     ("misaligned", ValueError, "16-byte aligned"),
     ("strided", ValueError, "contiguous"),
-    ("head_dim 64", ValueError, "head_dim"),
+    ("head_dim 48", ValueError, "head_dim"),
 ])
 def test_kernel_input_checks(case, error, match):
     """The checks a wrapper makes before handing pointers to a kernel:
     `_check`'s dtypes, shapes and layouts, then `kernel_refusal`'s shapes
-    (here those of the int8 attention core, which takes 32-wide heads
-    only)."""
+    (here those of the int8 attention core, which takes heads 32 and 64
+    wide)."""
     bf = torch.bfloat16
     x = torch.zeros((32, 64), dtype=bf)
     bias = torch.zeros(64)
@@ -227,10 +235,11 @@ def test_kernel_input_checks(case, error, match):
     elif case == "strided":
         x = torch.zeros((64, 32), dtype=bf).t()
     else:
-        head_dim = 64
+        head_dim = 48
     with pytest.raises(error, match=match):
         bk._check("k", [(x, (32, 64))], [(bias, (64,))])
         bk._refuse(bk.kernel_refusal("packed_attn_q8", 64, head_dim=head_dim))
     bk._check("k", [(torch.zeros((32, 64), dtype=bf), (32, 64))],
               [(torch.zeros(64), (64,))])
     assert bk.kernel_refusal("packed_attn_q8", 64, head_dim=HD) is None
+    assert bk.kernel_refusal("packed_attn_q8", 64, head_dim=64) is None

@@ -1,30 +1,33 @@
 """The block-GEMM core's s8 launches (csrc/block_gemm_sm90.cuh, the int8
-block's `post_cross_q` and `geglu_ff_q`), emulated on the CPU, against the
-port's plain versions and the JAX Pallas kernels.
+block's `ln_qkv_q`, `post_cross_q` and `geglu_ff_q`), emulated on the CPU,
+against the port's plain versions and the JAX Pallas kernels.
 
-No GPU runs here, so this emulates in plain torch what the five s8
-launches add to the arithmetic of `post_cross_q` (x1, cross, xmid) and
-`geglu_ff_q` (up, down): each launch's A codes (quantized from its bf16
-rows by the code prologue, LayerNormed first for cross and up, or the
-codes the launch before wrote); the tile schedule of `gemm_plan`'s s8
-kinds (row blocks of 64 or 128 rows, 64- or 128-column tiles, column
-tiles a CTA walks, K in steps of 128 codes zero past K, ragged row and
-column edges masked); int32 tile sums, dequantized in f32 as acc * (a *
-ws[n]); the epilogues (residual; the per-head cross-attention with the
-row -> image map inside a tile, its f32 output quantized; the GEGLU with
-its f32 hidden quantized); and the round trips between launches (x1 in
-the activation dtype, the o and hidden codes in int8). Held:
+No GPU runs here, so this emulates in plain torch what the six s8
+launches add to the arithmetic of `ln_qkv_q` (one qkv8 launch),
+`post_cross_q` (x1, cross, xmid) and `geglu_ff_q` (up, down): each
+launch's A codes (quantized from its bf16 rows by the code prologue,
+LayerNormed first for qkv, cross and up, or the codes the launch before
+wrote); the tile schedule of `gemm_plan`'s s8 kinds (row blocks of 64 or
+128 rows, 64- or 128-column tiles, column tiles a CTA walks, K in steps of
+128 codes zero past K, ragged row and column edges masked); int32 tile
+sums, dequantized in f32 as acc * (a * ws[n]); the epilogues (q | k | v,
+each 8-column group of [R, 3C] to one of the three; residual; the
+per-head cross-attention with the row -> image map inside a tile, its f32
+output quantized; the GEGLU with its f32 hidden quantized); and the round
+trips between launches (x1 in the activation dtype, the o and hidden
+codes in int8). Held:
 
 - each launch's int32 sums, tile by tile, EQUAL `_int_matmul` of its A
   codes and weight;
-- the outputs against `post_cross_q_reference` / `geglu_ff_q_reference`
-  by tests/test_torch_port_int8.py's `_close_int8` rule (1e-3 x max|ref|
-  on all but 0.1% of the elements, 2e-2 x max|ref| on every one: a code
-  on a rounding edge of the two f32 computations lands one step apart),
-  in f32 and in bf16 (2e-2 x max|ref| is chip_smoke.py's card tolerance);
-- the same against JAX's `_post_cross_kernel_q` / `_geglu_ff_kernel_q` in
-  Pallas interpret mode, on the inputs a spy on `pl.pallas_call` captured
-  (`test_torch_port_int8._Spy`);
+- the outputs against `ln_qkv_q_reference` / `post_cross_q_reference` /
+  `geglu_ff_q_reference` by tests/test_torch_port_int8.py's `_close_int8`
+  rule (1e-3 x max|ref| on all but 0.1% of the elements, 2e-2 x max|ref|
+  on every one: a code on a rounding edge of the two f32 computations
+  lands one step apart), in f32 and in bf16 (2e-2 x max|ref| is
+  chip_smoke.py's card tolerance);
+- the same against JAX's `_ln_qkv_kernel_q` / `_post_cross_kernel_q` /
+  `_geglu_ff_kernel_q` in Pallas interpret mode, on the inputs a spy on
+  `pl.pallas_call` captured (`test_torch_port_int8._Spy`);
 - the plans at the U-Net sites at 2, 8 and 32 images, and the int8
   block's shape gate over C = 32 .. 4096.
 
@@ -38,12 +41,12 @@ import torch
 
 from rdm_tpu_torch.ops import block_kernel as bk
 from test_torch_port_block import HD
-from test_torch_port_int8 import _close_int8, _jax_int8_block, _t
+from test_torch_port_int8 import _close_int8, _cols, _jax_int8_block, _t
 
 CARD_TOL = 2e-2
 SMS = 132  # the H100 SXM's SMs, as `bk.sm_count` reads them on the card
 BK8 = 128  # the s8 K-step (kBK8)
-S8_KINDS = ("resq8", "cross8", "residual8", "geglu8")
+S8_KINDS = ("resq8", "cross8", "residual8", "geglu8", "qkv8")
 
 
 @pytest.fixture(autouse=True)
@@ -73,6 +76,8 @@ def _epilogue(kind, f, rows, n0, n, dtype, *, res, bias0, bias1, ck, cv, s,
     if kind in ("resq8", "residual8"):
         y = _round(f[0][:, :width] + bias0[cols].float(), dtype)
         return _round(res[rows, cols].float() + y, dtype)
+    if kind == "qkv8":  # routed to q, k, v by `_qkv_split`
+        return _round(f[0][:, :width], dtype)
     if kind == "geglu8":
         av = f[0][:, :width] + bias0[cols].float()
         gv = f[1][:, :width] + bias1[cols].float()
@@ -141,6 +146,29 @@ def _launch8(kind, codes, w8, ws, a, plan, dtype, *, res=None, bias0=None,
                 seen.append((by, t))
     out = out.to(torch.int8) if codes_out else out.to(dtype)
     return out, sums, seen
+
+
+def _qkv_split(out, c):
+    """The kQkv epilogue's routing of [R, 3C]: each 8-column group (one
+    16-byte store) to q, k or v by its first column; none straddles two
+    (C % 32 == 0)."""
+    parts = [torch.empty_like(out[:, :c]) for _ in range(3)]
+    for g0 in range(0, 3 * c, 8):
+        which = g0 // c
+        assert (g0 + 7) // c == which
+        parts[which][:, g0 - which * c:g0 - which * c + 8] = out[:, g0:g0 + 8]
+    return tuple(parts)
+
+
+def ln_qkv_q_walk(x2, n1s, n1b, wqkv, ws, a, *, plan=None):
+    """ln_qkv_q as the CUDA wrapper runs it: one qkv8 launch over the code
+    prologue's LN1 codes; returns ((q, k, v), [(A codes, weight, int32
+    sums)], the tiles it visited)."""
+    r, c = x2.shape
+    plan = plan or bk.gemm_plan("qkv8", r, 3 * c, c, SMS)
+    h = bk.quantize_act(bk.layer_norm(x2, n1s, n1b), a)
+    out, s1, t1 = _launch8("qkv8", h, [wqkv], [ws], a, plan, x2.dtype)
+    return _qkv_split(out, c), [(h, wqkv, s1[0])], (t1,)
 
 
 def post_cross_q_walk(x, attn, ck, cv, wo, wso, bo, n2s, n2b, wq2, wsq2, wo2,
@@ -224,6 +252,24 @@ def _inputs(heads, b, s, t, dtype, seed):
     return q, (x, attn, ck, cv, xm), scales
 
 
+def _qkv_args(heads, r, dtype, seed):
+    """ln_qkv_q's arguments: seeded x [R, C] (the activation dtype), f32
+    LN1 scale and bias, wqkv quantized to int8 [3C, C] codes and f32
+    scales, and a_qkv calibrated on the LN1 output."""
+    c = heads * HD
+    rng = np.random.default_rng(seed)
+
+    def rn(*shape, scale=1.0, loc=0.0):
+        return torch.from_numpy(
+            (loc + scale * rng.standard_normal(shape)).astype(np.float32))
+
+    codes, ws = bk.quantize_cols(rn(c, 3 * c, scale=c ** -0.5))
+    x2 = rn(r, c).to(dtype)
+    n1s, n1b = rn(c, scale=0.1, loc=1.0), rn(c, scale=0.1)
+    a = bk.act_scale(bk.layer_norm(x2, n1s, n1b).float().abs().max().item())
+    return x2, n1s, n1b, codes.t().contiguous(), ws, a
+
+
 def _pc_args(q, acts, scales):
     x, attn, ck, cv, _ = acts
     return (x, attn, ck, cv, q["wo"], q["wo_s"], q["bo"], q["n2s"], q["n2b"],
@@ -267,6 +313,25 @@ def test_s8_walk_matches_plain(heads, b, s, t, dtype):
     y, hq, sums, _ = geglu_ff_q_walk(*ff)
     _sums_exact(sums)
     _hold(y, bk.geglu_ff_q_reference(*ff), dtype)
+
+
+# C = 96: 3C = 288, ragged 64- and 128-column tiles; 672: K % 128 = 32;
+# R = 80 / 130 / 48 / 200: ragged 64-row blocks
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,r", [(3, 80), (12, 130), (21, 48), (6, 200)])
+def test_qkv8_walk_matches_plain(heads, r, dtype):
+    args = _qkv_args(heads, r, dtype, seed=heads + r)
+    got, sums, _ = ln_qkv_q_walk(*args)
+    _sums_exact(sums)
+    want = bk.ln_qkv_q_reference(*args)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == (r, heads * HD)
+        _hold(g, w, dtype)
+    if dtype == torch.bfloat16:  # q, k, v are the plain f32 values rounded
+        c = heads * HD
+        acc = sums[0][2][:, :].float() * (torch.tensor(args[5]) * args[4])
+        for i, g in enumerate(got):
+            assert torch.equal(g, acc[:, i * c:(i + 1) * c].to(dtype))
 
 
 def test_round_trips_are_where_the_block_rounds():
@@ -328,6 +393,12 @@ def test_every_s8_tile_covers_the_output(kind, tpc):
             y, _, sums, seen = geglu_ff_q_walk(*ff, plans=[plan, default])
             _hold(y, bk.geglu_ff_q_reference(*ff), torch.float32)
             n = 4 * c
+        elif kind == "qkv8":
+            qa = _qkv_args(heads, r, torch.float32, seed=9)
+            got, sums, seen = ln_qkv_q_walk(*qa, plan=plan)
+            for g, w in zip(got, bk.ln_qkv_q_reference(*qa)):
+                _hold(g, w, torch.float32)
+            n = 3 * c
         else:
             plans = [bk.gemm_plan(k, r, c, c, SMS)
                      for k in ("resq8", "cross8", "residual8")]
@@ -374,20 +445,31 @@ def test_s8_walk_matches_jax_kernels(monkeypatch, heads, b, s):
     _sums_exact(sums)
     _close_int8(y, np.asarray(out, np.float32))
 
+    args, out = calls["_ln_qkv_kernel_q"]
+    cp = -(-c // 128) * 128
+    wqkv, ws = _cols(args[3], args[4], c, cp, 3)
+    got, sums, _ = ln_qkv_q_walk(_t(args[0]), _t(args[1][0]),
+                                 _t(args[2][0]), wqkv, ws,
+                                 float(args[5][0, 0]))
+    _sums_exact(sums)
+    for g, o in zip(got, out):
+        _close_int8(g, np.asarray(o, np.float32)[:, :c])
+
 
 def test_s8_plans_at_the_unet_sites():
     """The s8 plans of the ImageNet U-Net's sites at 2, 8 and 32 images:
     each fits shared memory with its own layout (the code panel of the
     prologue kinds, the streamed A box of residual8), names a tile its
     kind is built for, runs the prologue kinds' grids in one wave, and
-    gives post_cross_q's launches at the C = 960 site (R = 512) 100+
-    CTAs at 8 images, where the first version ran 16."""
+    gives post_cross_q's and ln_qkv_q's launches at the C = 960 site
+    (R = 512) 100+ consumer warpgroups at 8 images, where the first
+    versions ran 16 CTAs of four warps."""
     for c, s in ((384, 1024), (576, 256), (960, 64)):
         for images in (2, 8, 32):
             r, f = images * s, 4 * c
             for kind, n, k in (("resq8", c, c), ("cross8", c, c),
                                ("residual8", c, c), ("geglu8", f, c),
-                               ("residual8", c, f)):
+                               ("residual8", c, f), ("qkv8", 3 * c, c)):
                 p = bk.gemm_plan(kind, r, n, k, SMS)
                 assert (p.bm, p.bn, p.pp) in bk.GEMM_TILES[kind]
                 assert p.ks == 1
@@ -408,7 +490,7 @@ def test_s8_plans_at_the_unet_sites():
                 if kind != "residual8" and p.tiles_per_cta < ntiles:
                     assert ctas <= SMS * per_sm  # one wave
                 if c == 960 and images == 8 and kind != "geglu8":
-                    assert ctas >= 100
+                    assert ctas * (2 if p.pp else p.bm // 64) >= 100
 
 
 def _smem_fits(kind, k):
@@ -429,10 +511,10 @@ def _smem_fits(kind, k):
 def test_int8_gate_refuses_where_a_launch_cannot_run(head_dim):
     """The int8 block over C = 32 .. 4096 (F = 4C, T = 4, the bf16
     attention core): refused exactly where one of its launches cannot run
-    (the s8 code prologue past K = 1536, a launch's shared memory,
-    `ln_qkv_q`'s first-version shared memory past C = 2208), so it takes
-    every width up to 1536, past the first versions' 1312; a width that
-    is not a multiple of the head refuses on that."""
+    (the s8 code prologue past K = 1536, `ln_qkv_q`'s qkv8 launch
+    included, a launch's shared memory), so it takes every width up to
+    1536, past the first versions' 1312; a width that is not a multiple
+    of the head refuses on that."""
     for c in range(32, 4097, 32):
         got = bk.block_refusal(c, 4, max(1, c // head_dim), head_dim, 4 * c,
                                int8=True, split_k3=True)
@@ -440,14 +522,13 @@ def test_int8_gate_refuses_where_a_launch_cannot_run(head_dim):
             assert got is not None and "heads of" in got, (c, got)
             continue
         runs = (c <= 1536 and all(_smem_fits(k, c) for k in
-                                  ("resq8", "cross8", "geglu8"))
-                and _smem_fits("residual8", 4 * c)
-                and 96 * c + 19968 <= 232448)  # ln_qkv_q.cu's launcher
+                                  ("resq8", "cross8", "geglu8", "qkv8"))
+                and _smem_fits("residual8", 4 * c))
         assert (got is None) == runs, (c, got)
         if c <= 1312:  # every width the first versions ran
             assert got is None, (c, got)
-    assert bk.kernel_refusal("ln_qkv_q", 2208) is None
-    assert "shared memory" in bk.kernel_refusal("ln_qkv_q", 2240)
+    assert bk.kernel_refusal("ln_qkv_q", 1536) is None
+    assert "code prologue" in bk.kernel_refusal("ln_qkv_q", 1568)
     assert "code prologue" in bk.kernel_refusal("post_cross_q", 1568)
     assert "code prologue" in bk.kernel_refusal("geglu_ff_q", 1568, f=6272)
     assert bk.kernel_refusal("geglu_ff_q", 1536, f=6144) is None

@@ -59,11 +59,12 @@ def cuda():
         pytest.skip("needs an NVIDIA GPU")
 
 
-def _block(heads: int, dc: int, seed: int) -> TransformerBlock:
+def _block(heads: int, dc: int, seed: int,
+           head_dim: int = HD) -> TransformerBlock:
     """A block with every parameter drawn from a seed (fan-in scaled
     weights, norm scales near 1), on the card in f32."""
     torch.manual_seed(seed)
-    blk = TransformerBlock(heads * HD, dc, heads, HD)
+    blk = TransformerBlock(heads * head_dim, dc, heads, head_dim)
     with torch.no_grad():
         for name, p in blk.named_parameters():
             if p.ndim >= 2:
@@ -430,14 +431,16 @@ def test_spatial_transformer_gate_on_card(cuda, c, head_dim, t, int8,
 
 # ---------------------------------------------------------- int8 kernels
 
-def _int8_block(heads: int, b: int, s: int, t: int, seed: int):
+def _int8_block(heads: int, b: int, s: int, t: int, seed: int,
+                head_dim: int = HD):
     """A seeded block on the card with its int8 weights and the absmax of a
     calibration forward of the unfused bf16 block on (x, ctx)."""
     from rdm_tpu_torch.ops import quant
 
-    blk = _block(heads, 48, seed=seed)
+    blk = _block(heads, 48, seed=seed, head_dim=head_dim)
     g = torch.Generator(device="cuda").manual_seed(seed)
-    x = torch.randn((b, s, heads * HD), generator=g, device="cuda").bfloat16()
+    x = torch.randn((b, s, heads * head_dim), generator=g,
+                    device="cuda").bfloat16()
     ctx = torch.randn((b, t, 48), generator=g, device="cuda").bfloat16()
     blk = blk.bfloat16()
     with quant.calibrate(), torch.no_grad():
@@ -458,15 +461,20 @@ def _int8_block(heads: int, b: int, s: int, t: int, seed: int):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["ln_qkv_q", "packed_attn_q8",
                                     "post_cross_q", "geglu_ff_q"])
-@pytest.mark.parametrize("heads,b,s,t", [(4, 2, 40, 4), (6, 3, 64, 16),
-                                         (12, 2, 1024, 4), (21, 2, 40, 20)])
-def test_int8_kernels_match_plain(cuda, kernel, heads, b, s, t):
+@pytest.mark.parametrize("heads,b,s,t,hd", [
+    (4, 2, 40, 4, 32), (6, 3, 64, 16, 32), (12, 2, 1024, 4, 32),
+    (21, 2, 40, 20, 32), (5, 1, 1000, 4, 32), (2, 2, 40, 4, 64),
+    (3, 3, 100, 16, 64), (6, 2, 1024, 4, 64), (15, 1, 1000, 4, 64)])
+def test_int8_kernels_match_plain(cuda, kernel, heads, b, s, t, hd):
     """Each int8 kernel against its plain version on the same int8 weights
     and scales: ragged rows (R = 80), a half-filled last 128-channel group
-    (6 heads), 16 and 20 context tokens, two 512-row q scale cells
-    (S = 1024), C = 672 (21 heads: K % 64 = 32, the FFHQ RDM's site)."""
-    blk, w, a, _, x, ctx = _int8_block(heads, b, s, t, seed=heads + s)
-    c = heads * HD
+    (6 heads of 32, 3 of 64), 16 and 20 context tokens, two 512-row q
+    scale cells (S = 1024), 125 cells of 8 rows (S = 1000: a 64-row tile
+    over eight of them, a ragged last key tile), S = 100, C = 672 (21
+    heads: K % 64 = 32, the FFHQ RDM's site); heads of 32 and 64."""
+    blk, w, a, _, x, ctx = _int8_block(heads, b, s, t, seed=heads + s,
+                                       head_dim=hd)
+    c = heads * hd
     g = torch.Generator(device="cuda").manual_seed(s)
     rn = lambda *shape: torch.randn(shape, generator=g,  # noqa: E731
                                     device="cuda").bfloat16()
@@ -476,12 +484,12 @@ def test_int8_kernels_match_plain(cuda, kernel, heads, b, s, t):
         args = (x2, w["n1s"], w["n1b"], w["wqkv_q"], w["wqkv_s"], a["a_qkv"])
         kw = {}
     elif kernel == "packed_attn_q8":
-        args, kw = (x, attn, rn(b, s, c)), dict(heads=heads, head_dim=HD)
+        args, kw = (x, attn, rn(b, s, c)), dict(heads=heads, head_dim=hd)
     elif kernel == "post_cross_q":
         args = (x, attn, ck, cv, w["wo_q"], w["wo_s"], w["bo"], w["n2s"],
                 w["n2b"], w["wq2_q"], w["wq2_s"], w["wo2_q"], w["wo2_s"],
                 w["bo2"], a["o_attn1"], a["a_attn2"], a["o_attn2"])
-        kw = dict(heads=heads, head_dim=HD)
+        kw = dict(heads=heads, head_dim=hd)
     else:
         args = (x2, w["n3s"], w["n3b"], w["wa_q"], w["wa_s"], w["wg_q"],
                 w["wg_s"], w["ba"], w["bg"], w["w2_q"], w["w2_s"], w["b2"],
@@ -584,13 +592,30 @@ def test_int8_s8_launches_bit_equal_in_graphs(cuda, heads, b, s, t):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("attn8", ["0", "1"])
 @pytest.mark.parametrize("head_dim", [32, 64])
-def test_int8_gate_refuses_before_the_first_launch(cuda, head_dim):
+def test_int8_gate_refuses_before_the_first_launch(cuda, head_dim, attn8,
+                                                   monkeypatch):
     """An int8 block one step past the gate's limit (C = 1536 + head_dim:
     the s8 code prologue takes K <= 1536) raises on the card before its
     first launch, every count 0; at C = 1536, the widest it takes, it runs
-    through the four int8 kernels and agrees with its plain versions."""
+    through the four int8 kernels (the int8 attention core under
+    RDM_TPU_INT8_ATTN=1) and agrees with its plain versions. A block of
+    16-wide heads (which the JAX package fuses: 16 divides 128) raises on
+    its head width before the first launch."""
+    monkeypatch.setenv("RDM_TPU_INT8_ATTN", attn8)
+    core = "packed_attn_q8" if attn8 == "1" else "packed_attn"
     qscales = {k: 4.0 for k in bk.QSCALE_NAMES}
+    blk = TransformerBlock(256, 48, 16, 16)
+    w = bk.quantize_block_weights(bk.pack_block_weights(blk, torch.bfloat16))
+    bk.reset_launch_counts()
+    with pytest.raises(ValueError, match="head_dim"):
+        bk.fused_transformer_block(
+            torch.randn((1, 64, 256), device="cuda").bfloat16(),
+            torch.randn((1, 4, 48), device="cuda").bfloat16(),
+            {k: v.cuda() for k, v in w.items()}, heads=16, head_dim=16,
+            qscales=qscales)
+    assert sum(bk.launch_counts().values()) == 0
     for c, runs in ((1536 + head_dim, False), (1536, True)):
         heads = c // head_dim
         torch.manual_seed(c)
@@ -617,8 +642,8 @@ def test_int8_gate_refuses_before_the_first_launch(cuda, head_dim):
             want = bk.fused_transformer_block(
                 x.cpu(), ctx.cpu(), {k: v.cpu() for k, v in w.items()},
                 heads=heads, head_dim=head_dim, qscales=qscales)
-        assert (counts["ln_qkv_q"], counts["packed_attn"],
-                counts["post_cross_q"], counts["geglu_ff_q"]) == (1, 1, 1, 1)
+        assert (counts["ln_qkv_q"], counts[core], counts["post_cross_q"],
+                counts["geglu_ff_q"]) == (1, 1, 1, 1)
         assert torch.isfinite(got).all()
         assert _rel_err(got.cpu(), want) <= TOL
 

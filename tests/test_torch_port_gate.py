@@ -91,7 +91,7 @@ def test_every_rdm_site_runs_fused(monkeypatch):
     """Every site of the ImageNet and FFHQ RDMs, in every mode (bf16 split
     and unsplit, int8 with either attention core), takes the fused
     kernels, at k = 4 neighbours and at 20 and 40; so do 64-wide heads at
-    the same sites (int8 on the bf16 attention core)."""
+    the same sites (int8 with either attention core)."""
     imagenet = _sites(pc.UNetConfig.imagenet_rdm())
     ffhq = _sites(pc.UNetConfig.ffhq_rdm())
     assert imagenet == [384, 576, 960] and ffhq == [448, 672, 896]
@@ -101,11 +101,12 @@ def test_every_rdm_site_runs_fused(monkeypatch):
                 imagenet + ffhq, (4, 20, 40), (False, True), (True, False)):
             assert bk.block_refusal(c, t, c // 32, 32, 4 * c, int8=int8,
                                     split_k3=split) is None, (c, t, int8)
-    monkeypatch.setenv("RDM_TPU_INT8_ATTN", "0")
-    for c, int8, split in itertools.product((384, 576, 896, 960),
-                                            (False, True), (True, False)):
-        assert bk.block_refusal(c, 4, c // 64, 64, 4 * c, int8=int8,
-                                split_k3=split) is None, (c, int8)
+    for attn8 in ("0", "1"):
+        monkeypatch.setenv("RDM_TPU_INT8_ATTN", attn8)
+        for c, int8, split in itertools.product((384, 576, 896, 960),
+                                                (False, True), (True, False)):
+            assert bk.block_refusal(c, 4, c // 64, 64, 4 * c, int8=int8,
+                                    split_k3=split) is None, (c, int8)
 
 
 def test_wrappers_refuse_with_the_gate_message(monkeypatch):
@@ -126,8 +127,13 @@ def test_wrappers_refuse_with_the_gate_message(monkeypatch):
         "post_cross: the CUDA kernel takes head_dim in (32, 64), got 16")
     monkeypatch.setenv("RDM_TPU_INT8_ATTN", "1")
     assert bk.block_refusal(256, 4, 4, 64, 1024, int8=True,
+                            split_k3=True) is None
+    assert bk.block_refusal(256, 4, 16, 16, 1024, int8=True,
                             split_k3=True) == (
-        "packed_attn_q8: the CUDA kernel takes head_dim in (32,), got 64")
+        "packed_attn_q8: the CUDA kernel takes head_dim in (32, 64), got 16")
+    for hd in (8, 16, 48, 128):
+        assert "head_dim" in bk.kernel_refusal("packed_attn_q8", 256,
+                                               head_dim=hd)
     assert "shared memory" in bk.kernel_refusal("ln_qkv", 1568)
     for name in ("ln_qkv", "packed_attn", "post_cross", "geglu_ff",
                  "post_ff", "ln_qkv_q", "post_cross_q", "geglu_ff_q"):
