@@ -56,8 +56,12 @@ exits non-zero):
                beside SDPA's device time for the attention alone, and a
                second call, a graph replay and a call with programmatic
                dependent launch off bit-equal to the first call;
-               commit_rows beside torch._foreach_copy_ over the caches'
-               row-pos views; decode_post_ff's five launches of
+               commit_rows (csrc/commit_rows.cu: TMA bulk copies under
+               programmatic dependent launch; the step's call, a
+               RowCommit built once a case, and the wrapper's) bit-equal
+               to its plain version (every other row untouched) beside
+               torch._foreach_copy_ over the caches' row-pos views, with
+               host us a call; decode_post_ff's five launches of
                the block-GEMM core (csrc/decode_post_ff.cu) each timed in
                a CUDA graph, a second call, a graph replay and a call with
                PDL off bit-equal to the first call; then decode_attn's attention output on 24
@@ -112,13 +116,20 @@ exits non-zero):
                counts checked per request; then 32 teacher-forced decode
                steps with int8_weights + int8_kv held against int8_weights
                alone (relative L2 of the logits).
- 14. post_ff   the single post-attention kernel (RDM_TPU_SPLIT_K3=0)
-               against its plain version at phase 3's sites, timed beside
-               the split pair (post_cross + geglu_ff kernels) on the same
-               inputs; a full-width U-Net forward through it against the
-               split forward; batch-4 DDIM-50 requests, split and single
-               kernel in turns, with 16 post_ff launches per forward and
-               none of the split pair's.
+ 14. post_ff   the post-attention half in one call (RDM_TPU_SPLIT_K3=0:
+               post_cross's three launches of the block-GEMM core, then
+               its FF launch over a cluster, csrc/post_ff.cu) against its
+               plain version at phase 3's sites, and against the split
+               pair (post_cross + geglu_ff kernels) on the same inputs (its
+               xm bit-equal to post_cross's, two calls bit-equal), timed
+               beside the pair: kernel ms, device ms in a CUDA graph, each
+               of its four launches' (the pair's five) and host us a call;
+               a full-width U-Net forward through it against the split
+               forward, with 16 post_ff calls, 64 block_gemm_kernel and
+               16 block_gemm_ff_kernel launches (ln_qkv's and post_cross's
+               three a block; torch.profiler) and none of the split pair's;
+               batch-4 DDIM-50 requests, split pair and post_ff in turns,
+               with 16 post_ff calls per forward.
  15. flash_kernels  the flash-attention forward and backward kernels
                against their plain versions in bf16 at the U-Net's training
                shapes [40, 1024, 12, 32] and [40, 256, 18, 32] and the
@@ -184,7 +195,7 @@ projection's `qkv_device_ms` and the attention's `attn_device_ms`, and
 SDPA's `library_device_ms` over the same rows, an int8 cache's rows
 dequantized; commit_rows' `library_ms` / `library_device_ms`
 torch._foreach_copy_ over the row-pos views); post_ff
-the sum over the sites, `launches` over phase 14's single-kernel requests;
+the sum over the sites, `launches` over phase 14's post_ff requests;
 flash_fwd / flash_bwd the sum over phase 15's three shapes (`library_ms`:
 SDPA forward, and forward + backward), `launches` over the first
 trainer's 8 steps of phase 16; knn the op point B = 16, k = 4 of phase 17
@@ -278,7 +289,8 @@ DECODE_INFO = {
                         "rdm_tpu_torch/csrc/block_gemm_sm90.cuh"]),
     "commit_rows": ("rdm_tpu_torch/csrc/commit_rows.cu",
                     "rdm_tpu/ops/decode_kernel.py:352",
-                    ["rdm_tpu_torch/csrc/commit_rows.cu"]),
+                    ["rdm_tpu_torch/csrc/commit_rows.cu",
+                     "rdm_tpu_torch/csrc/attn_fwd_sm90.cuh"]),
 }
 INT8_DECODE_INFO = {
     "decode_attn_w8": ("rdm_tpu_torch/csrc/decode_attn.cu",
@@ -299,6 +311,10 @@ INT8_DECODE_INFO = {
 DECODE_CHAIN = ("x1", "cross", "xm", "geglu_up", "ff_down")
 POST_FF_INFO = ("rdm_tpu_torch/csrc/post_ff.cu",
                 "rdm_tpu/ops/block_kernel.py:264")
+# post_ff's four launches of the core (post_cross's three, its FF launch)
+# and the split pair's five, in launch order
+POST_FF_LAUNCHES = ("x1", "cross", "xmid", "ff")
+SPLIT_PAIR_LAUNCHES = ("x1", "cross", "xmid", "geglu_up", "ff_down")
 FLASH_INFO = {
     "flash_fwd": ("rdm_tpu_torch/csrc/flash_attn_fwd.cu",
                   "rdm_tpu/ops/flash_attention.py:38"),
@@ -1275,6 +1291,7 @@ def phase_rarm_kernels() -> dict:
         t = _decode_tensors(b, g)
         caches_k = [a.clone() for a in t["caches"]]
         caches_p = [a.clone() for a in t["caches"]]
+        commit = dk.RowCommit(caches_k, t["rows"])
         keep = torch.ones(t["kc"].shape[0], dtype=torch.bool, device="cuda")
         for pos in RARM_POSITIONS:
             what = f"B={b} pos={pos}"
@@ -1297,8 +1314,9 @@ def phase_rarm_kernels() -> dict:
                     lambda: dk.decode_post_ff(*ff, heads=heads, head_dim=hd),
                     lambda: dk.decode_post_ff_reference(*ff, heads=heads,
                                                         head_dim=hd)),
+                # the step's call: a RowCommit built once a request
                 "commit_rows": (
-                    lambda: dk.commit_rows(pos, caches_k, t["rows"]),
+                    lambda: commit(pos),
                     lambda: dk.commit_rows_reference(pos, caches_p,
                                                      t["rows"])),
             }
@@ -1377,14 +1395,25 @@ def phase_rarm_kernels() -> dict:
 
                     def library():
                         torch._foreach_copy_(views, t["rows"])
+
+                    def wrapper():
+                        dk.commit_rows(pos, caches_k, t["rows"])
                     case["library_ms"] = median_ms(library)
                     case["library_device_ms"] = graph_ms(library)
+                    case["host_us"] = host_us(kern)
+                    case["wrapper_ms"] = median_ms(wrapper)
+                    case["wrapper_host_us"] = host_us(wrapper)
                     say("rarm_kernels", f"commit_rows    {what:13s}: device "
-                        f"{dev['kernel_device_ms']:.4f} ms; "
+                        f"{dev['kernel_device_ms']:.4f} ms, host "
+                        f"{case['host_us']:.1f} us a call (commit_rows' "
+                        f"checks and table each call: "
+                        f"{case['wrapper_ms']:.4f} ms, host "
+                        f"{case['wrapper_host_us']:.1f} us); "
                         f"torch._foreach_copy_ over the {len(views)} row-pos "
-                        f"views {case['library_device_ms']:.4f} ms")
+                        f"views {case['library_ms']:.4f} ms, device "
+                        f"{case['library_device_ms']:.4f} ms")
                 res["cases"].append(case)
-        del t, caches_k, caches_p, kc_k, vc_k, kc_p, vc_p
+        del t, caches_k, caches_p, kc_k, vc_k, kc_p, vc_p, commit
         torch.cuda.empty_cache()
     for res in results.values():
         n = len(res["cases"])
@@ -1396,8 +1425,9 @@ def phase_rarm_kernels() -> dict:
     _mean_chain(results["decode_post_ff"])
     _mean_apart(results["decode_attn"])
     cases = results["commit_rows"]["cases"]
-    results["commit_rows"]["library_device_ms"] = sum(
-        c["library_device_ms"] for c in cases) / len(cases)
+    for key in ("library_device_ms", "host_us", "wrapper_ms",
+                "wrapper_host_us"):
+        results["commit_rows"][key] = sum(c[key] for c in cases) / len(cases)
 
     # The attention output is the output most sensitive to rounding (the
     # softmax amplifies any difference in q), so hold it on more inputs.
@@ -2281,11 +2311,12 @@ def phase_rarm_serve_modes(rarm_sd: dict, vq_sd: dict,
 
 
 def phase_post_ff(rdm_sd: dict, vq_sd: dict, emb: torch.Tensor) -> dict:
-    """Phase 14: the single post-attention kernel; returns its results with
-    `launches`, the count over the single-kernel requests."""
+    """Phase 14: post_ff, the post-attention half in one call; returns its
+    results with `launches`, the count over the post_ff requests."""
     import os
 
     from rdm_tpu_torch.config import AutoencoderConfig, RDMConfig
+    from rdm_tpu_torch.ops import _build
     from rdm_tpu_torch.ops import block_kernel as bk
     from rdm_tpu_torch.pipeline import RDMPipeline
     from rdm_tpu_torch.retrieval.database import DataPool
@@ -2308,14 +2339,24 @@ def phase_post_ff(rdm_sd: dict, vq_sd: dict, emb: torch.Tensor) -> dict:
         plain = lambda: bk.post_ff_reference(*args, **kw)  # noqa: E731
         split = lambda: bk.geglu_ff(  # noqa: E731
             bk.post_cross(*args[:11], **kw).reshape(r, c), *args[11:])
-        got = kern()
-        pair = split().reshape(got.shape)
+        got, xm = bk._post_ff(*args, **kw)
+        xm_pair = bk.post_cross(*args[:11], **kw)
+        pair = bk.geglu_ff(xm_pair.reshape(r, c), *args[11:]).reshape(
+            got.shape)
+        again = kern()
         torch.cuda.synchronize()
         _, err, rel = _hold(f"post_ff at C={c}", [("y", got, plain())])[0]
+        # post_ff runs post_cross's launcher with its plans, so xm is
+        # post_cross's to the bit; no atomics, so two calls are bit-equal
+        if not torch.equal(xm, xm_pair):
+            raise RuntimeError(f"post_ff at C={c}: xm differs from "
+                               "post_cross's")
+        if not torch.equal(got, again):
+            raise RuntimeError(f"post_ff at C={c}: two calls differ")
         pair_err = (got.float() - pair.float()).abs().max().item()
-        # the split pair sums in the block-GEMM core's order, post_ff in the
-        # first version's, so the two agree within the kernel tolerance,
-        # not bit for bit
+        # the FF launch sums f's slices across its cluster in rank order,
+        # the pair's down launch f's K-steps in one walk, so the two agree
+        # within the kernel tolerance, not bit for bit
         pair_rel = pair_err / pair.float().abs().max().item()
         if not pair_rel <= KERNEL_TOL:
             raise RuntimeError(f"post_ff at C={c}: {pair_rel} from the split "
@@ -2324,28 +2365,59 @@ def phase_post_ff(rdm_sd: dict, vq_sd: dict, emb: torch.Tensor) -> dict:
                                                            plain))
         dev = wrapper_device(kern)
         split_dev = wrapper_device(split)["kernel_device_ms"]
+        parts = graph_launch_ms(kern, len(POST_FF_LAUNCHES), "block_gemm")
+        split_parts = graph_launch_ms(split, len(SPLIT_PAIR_LAUNCHES),
+                                      "block_gemm")
+        host, split_host = host_us(kern), host_us(split)
+        plan = bk.ff_plan(c, 4 * c, rows=r,
+                          capacity=bk.ff_capacity(got.device.index))
+        # the FF launch alone through its C entry, and post_cross's three
+        # (the profiler has missed launches in a long run): device ms
+        y = torch.empty_like(xm)
+        ff_bare = [a.data_ptr() for a in [xm] + args[11:] + [y]] + [
+            r, c, 4 * c, *plan.args]
+        lib = _build.load()
+        ff_ms = graph_ms(lambda keep=(xm, y): lib.rdm_ff(
+            *ff_bare, torch.cuda.current_stream().cuda_stream))
+        pc_ms = graph_ms(lambda: bk.post_cross(*args[:11], **kw))
         bound_ms, by = bound(*block_cost("post_ff", c, s))
         say("post_ff", f"C={c:4d} S={s:4d} heads={heads:2d}: max|err| "
             f"{err:.4g}, /max|ref| {rel:.3e} (limit {KERNEL_TOL:g}); against "
             f"the split pair's kernels max|err| {pair_err:.4g} (/max "
             f"{pair_rel:.3e}, limit {KERNEL_TOL:g})"
-            f"{' (bit-equal)' if torch.equal(got, pair) else ''}; kernel "
+            f"{' (bit-equal)' if torch.equal(got, pair) else ''}; xm "
+            f"bit-equal to post_cross's, two calls bit-equal; kernel "
             f"{ms:.4f} ms (device {dev['kernel_device_ms']:.4f}), split pair "
             f"{split_ms:.4f} ms (device {split_dev:.4f}), plain "
             f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by})")
+        say("post_ff", f"  launches (device ms, CUDA graph) "
+            f"{_launch_text(POST_FF_LAUNCHES, parts)}; split pair "
+            f"{_launch_text(SPLIT_PAIR_LAUNCHES, split_parts)}; apart in "
+            f"CUDA graphs: post_cross's three {pc_ms:.4f} ms, the FF "
+            f"launch {ff_ms:.4f} ms; host {host:.1f} us a call (split pair "
+            f"{split_host:.1f}); FF plan {plan.ranks} ranks a cluster, "
+            f"{plan.stages} stages, {plan.round_units} units a round, "
+            f"{plan.smem} bytes")
         res["max_abs_err"] = max(res["max_abs_err"], err)
         res["ms"] += ms
         res["plain_ms"] += plain_ms
         res["split_ms"] += split_ms
-        res["sites"].append({"C": c, "S": s, "heads": heads,
-                             "max_abs_err": err, "rel_err": rel,
-                             "split_pair_max_abs_err": pair_err, "ms": ms,
-                             "split_ms": split_ms, "plain_ms": plain_ms,
-                             "bound_ms": bound_ms, "bound_by": by,
-                             "split_device_ms": split_dev, **dev})
-        del t, q, k, v, attn, args, got, pair
+        res["sites"].append({
+            "C": c, "S": s, "heads": heads, "max_abs_err": err,
+            "rel_err": rel, "split_pair_max_abs_err": pair_err, "ms": ms,
+            "split_ms": split_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by, "split_device_ms": split_dev, **dev,
+            "launches_device_ms": parts and dict(zip(POST_FF_LAUNCHES,
+                                                     parts)),
+            "split_launches_device_ms": split_parts and dict(
+                zip(SPLIT_PAIR_LAUNCHES, split_parts)),
+            "host_us": host, "split_host_us": split_host,
+            "post_cross_device_ms": pc_ms, "ff_launch_device_ms": ff_ms,
+            "ff_plan": plan._asdict()})
+        del t, q, k, v, attn, args, got, pair, xm, xm_pair, again, y
     _sum_bound(res, [block_cost("post_ff", c, s) for c, s, _ in SITES])
-    for key in ("kernel_device_ms", "split_device_ms"):
+    for key in ("kernel_device_ms", "split_device_ms",
+                "ff_launch_device_ms"):
         res[key] = sum(x[key] for x in res["sites"])
     torch.cuda.empty_cache()
 
@@ -2372,15 +2444,25 @@ def phase_post_ff(rdm_sd: dict, vq_sd: dict, emb: torch.Tensor) -> dict:
                 ((16, 0, 0) if single else (0, 16, 16)):
             raise RuntimeError(f"U-Net forward, RDM_TPU_SPLIT_K3={split}: "
                                f"launches {counts}")
+        # the core's launches underneath: ln_qkv's one and post_cross's
+        # three a block, then post_ff's FF launch or geglu_ff's two
+        core = _core_launches(lambda: pipe.model.unet(x, tt, ctx))
+        if core != ((64, 16) if single else (96, 0)):
+            raise RuntimeError(f"U-Net forward, RDM_TPU_SPLIT_K3={split}: "
+                               f"block_gemm_kernel / block_gemm_ff_kernel "
+                               f"launches {core}")
+        res.setdefault("forward_core_launches", {})[split] = core
     if not torch.isfinite(outs["0"]).all():
-        raise RuntimeError("single-kernel forward not finite")
+        raise RuntimeError("RDM_TPU_SPLIT_K3=0 forward not finite")
     rel = ((outs["0"] - outs["1"]).norm() / outs["1"].norm()).item()
     say("post_ff", f"ImageNet U-Net forward, x [1,3,64,64] + context "
         f"[2,4,512], CUDA bf16: RDM_TPU_SPLIT_K3=0 vs the split forward rel "
         f"L2 {rel:.3e} (limit {FORWARD_TOL:g})"
-        f"{'; bit-equal' if torch.equal(outs['0'], outs['1']) else ''}")
+        f"{'; bit-equal' if torch.equal(outs['0'], outs['1']) else ''}; "
+        f"block_gemm_kernel / block_gemm_ff_kernel launches a forward "
+        f"{res['forward_core_launches']}")
     if not rel <= FORWARD_TOL:
-        raise RuntimeError(f"single-kernel forward rel error {rel}")
+        raise RuntimeError(f"RDM_TPU_SPLIT_K3=0 forward rel error {rel}")
     launches = 0
     for split in ("0", "1", "0", "0", "1"):  # the first one warms up
         os.environ["RDM_TPU_SPLIT_K3"] = split
@@ -2416,7 +2498,7 @@ def phase_post_ff(rdm_sd: dict, vq_sd: dict, emb: torch.Tensor) -> dict:
             f"{batch / wall:.3f} img/s; launches {counts}")
     os.environ.pop("RDM_TPU_SPLIT_K3")
     diff = np.abs(images["0"].astype(np.int32) - images["1"].astype(np.int32))
-    say("post_ff", f"single kernel vs split pair: request latency "
+    say("post_ff", f"post_ff vs split pair: request latency "
         f"{walls['0']} vs {walls['1']} s; images differ in "
         f"{(diff > 0).mean():.3e} of pixels, max {diff.max()} levels")
     res.update(launches=launches, request_s={"single": walls["0"],
@@ -2425,6 +2507,29 @@ def phase_post_ff(rdm_sd: dict, vq_sd: dict, emb: torch.Tensor) -> dict:
     del pipe
     torch.cuda.empty_cache()
     return res
+
+
+def _launch_text(names, parts) -> str:
+    return ("not seen by the profiler" if parts is None else ", ".join(
+        f"{k} {v:.4f}" for k, v in zip(names, parts)))
+
+
+def _core_launches(fn) -> tuple:
+    """(block_gemm_kernel, block_gemm_ff_kernel) launches of one fn() call
+    under inference mode, by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    return (sum("block_gemm_kernel" in n for n in names),
+            sum("block_gemm_ff_kernel" in n for n in names))
 
 
 def flash_cost(name: str, b: int, s: int, h: int, d: int, causal: bool):
@@ -3160,6 +3265,7 @@ def main() -> int:
     apart = ("sweep_rel_err", "qkv_device_ms", "attn_device_ms",
              "library_device_ms")  # decode_attn's (and commit_rows' last)
     apart += ("chain_launch_ms",)  # decode_post_ff's five launches
+    apart += ("host_us", "wrapper_ms", "wrapper_host_us")  # commit_rows'
     rows += [row(n, DECODE_INFO[n], decode_launches, r,
                  sources=DECODE_INFO[n][2], cases=r["cases"],
                  **{k: r[k] for k in apart if k in r})
@@ -3170,7 +3276,11 @@ def main() -> int:
              for n, r in int8_decode.items()]
     rows.append(row("post_ff", POST_FF_INFO,
                     {"post_ff": post_ff["launches"]}, post_ff,
-                    split_ms=post_ff["split_ms"], sites=post_ff["sites"],
+                    split_ms=post_ff["split_ms"],
+                    split_device_ms=post_ff["split_device_ms"],
+                    ff_launch_device_ms=post_ff["ff_launch_device_ms"],
+                    forward_core_launches=post_ff["forward_core_launches"],
+                    sites=post_ff["sites"],
                     request_s=post_ff["request_s"],
                     forward_rel_l2=post_ff["forward_rel_l2"]))
     rows += [row(n, FLASH_INFO[n], train["launches"], r, cases=r["cases"],

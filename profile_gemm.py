@@ -7,6 +7,7 @@
     python3 profile_gemm.py --attn [--out FILE]
     python3 profile_gemm.py --int8 [--out FILE]
     python3 profile_gemm.py --tiles8 [KIND ...] [--out FILE]
+    python3 profile_gemm.py --ff [--out FILE]
 
 Builds the launchers of `ln_qkv`, `post_cross`, `geglu_ff`, the RARM
 decode chain `decode_post_ff` and `decode_attn` (rdm_tpu_torch/csrc/
@@ -38,8 +39,12 @@ of its own: for each TREE in the order given
 archive`; `.` for this one), a process of its own imports that tree's
 `rdm_tpu_torch`, builds its kernels and times its `ln_qkv`, `post_cross`
 and `geglu_ff` wrappers at the same sites on the same seeded tensors, and
-its `decode_post_ff` (bf16 and int8 weights) at decode batch 16 and 32,
-and its `decode_attn` in each variant (bf16, int8 weights, int8 cache,
+its `post_ff` at the same sites, its `decode_post_ff` (bf16 and int8
+weights) at decode batch 16 and 32, its `commit_rows` over the 36 caches
+of a decode step at decode batch 16 and 32 and pos 0 / 63 / 200 / 255
+(the call its decode step makes, a `RowCommit` built once where the tree
+has one, and `commit_rows` itself; also kernel ms, the median CUDA-event
+time of a call), and its `decode_attn` in each variant (bf16, int8 weights, int8 cache,
 both) at decode batch 16 and 32 and pos 0 / 63 / 200 / 255 (chip_smoke.py
 phase 6's tensors, C = 768, T = 256), and its int8 block wrappers
 `ln_qkv_q`, `packed_attn_q8`, `post_cross_q` and `geglu_ff_q` at the U-Net
@@ -96,6 +101,21 @@ that runs the kind (post_cross_q, geglu_ff_q for "geglu8", ln_qkv_q for
 "qkv8"; "residual8" in post_cross_q and geglu_ff_q), in a CUDA graph,
 beside the plan `gemm_plan` picks; each output held against the plain
 version (chip_smoke.py KERNEL_TOL). Naming kinds times those alone.
+
+With --ff, builds `post_ff`'s launcher (rdm_tpu_torch/csrc/post_ff.cu,
+with post_cross.cu, whose three launches it runs first, and
+geglu_ff_sm90.cu, the split pair's other half) over the core's
+header as it is and with one part of its FF launch (block_gemm_ff_kernel)
+cut: the GEGLU epilogue (no f written: the slice keeps whatever it
+holds), the K split's sum across the cluster (no partial unit sent, an
+owner's sum its own slot alone; the cluster barriers stay), the LN3
+arithmetic (xm's rows still arrive by TMA), the wgmma products, or the
+weight loads (each ring stage's barrier arrives with no copy). Each build,
+in a process of its own, times `post_ff` at chip_smoke.py phase 3's three
+sites (8 images, its tensors): device ms a call in a CUDA graph and each
+of its four launches by torch.profiler; the uncut build also times the
+FF launch at every cluster size `ff_plan` fits at each site (the plan's
+own marked), and the split pair (`post_cross`, `geglu_ff`) beside it.
 """
 
 from __future__ import annotations
@@ -168,11 +188,45 @@ INT8_CUTS = {
         "((i + 1) / kRing) & 1);\n"),
 }
 # the file a cut patches, where it is not the core's header
-CUT_FILES = {"no ex2": "packed_attn_q8.cu",
+CUT_FILES = {"no PDL": "attn_fwd_sm90.cuh",
+             "no ex2": "packed_attn_q8.cu",
              "no attention loads": "packed_attn_q8.cu",
              "no pass-1 products": "packed_attn_q8.cu"}
 INT8_LAUNCHERS = ("ln_qkv_q.cu", "post_cross_q.cu", "geglu_ff_q.cu",
                   "packed_attn_q8.cu")
+# (text of block_gemm_sm90.cuh, its replacement), or several, of each cut
+# of post_ff's FF launch (--ff)
+FF_CUTS = {
+    "kernel": None,
+    "no GEGLU epilogue": (
+        "    ff_geglu_smem(acc, p, gbase + (fs - base), lt, (f0 + lt) * 64, "
+        "r_in, q);",
+        "    if (p.R < 0) ff_geglu_smem(acc, p, gbase + (fs - base), lt, "
+        "(f0 + lt) * 64, r_in, q);"),
+    "no reduction": (("        if (u >= u1) break;\n",
+                      "        if (u >= u1 || p.R > 0) break;\n"),
+                     ("      for (int j = 1; j < n; ++j)\n",
+                      "      for (int j = 1; j < (p.R < 0 ? n : 1); ++j)"
+                      "\n")),
+    "no LN3": CUTS["no LayerNorm arithmetic"],
+    "no wgmma": (("        wgmma_ss_mn<128>(\n            acc,\n",
+                  "        if (p.R < 0) wgmma_ss_mn<128>(\n"
+                  "            acc,\n"),
+                 ("          wgmma_ss_mn<128>(\n              acc,\n",
+                  "          if (p.R < 0) wgmma_ss_mn<128>(\n"
+                  "              acc,\n")),
+    "no weight loads": (
+        ("      mbar_expect_tx(bar, kFFStage);\n"
+         "      tma_load_2d(&twa, st, bar, col, k0);\n"
+         "      tma_load_2d(&twg, st + kFFBox, bar, col, k0);\n",
+         "      mbar_arrive(bar);\n"),
+        ("      mbar_expect_tx(bar, nbox * kFFBox);\n"
+         "      for (int b = 0; b < nbox; ++b)\n"
+         "        tma_load_2d(&tw2, st + b * kFFBox, bar, n0 + 64 * b, k0);\n",
+         "      mbar_arrive(bar);\n")),
+}
+FF_LAUNCHERS = ("post_ff.cu", "post_cross.cu", "geglu_ff_sm90.cu")
+FF_RANKS = range(2, 17)  # the cluster sizes the uncut --ff build tries
 DECODE_BATCHES = (16, 32)  # chip_smoke.py RARM_BATCHES
 ATTN_POSITIONS = (0, 63, 200, 255)  # chip_smoke.py RARM_POSITIONS
 TILE_IMAGES = (2, 8, 32)
@@ -208,19 +262,22 @@ def build_dir(variant: str) -> str:
                         variant.replace(" ", "_"))
 
 
-def build(variant: str, int8: bool = False) -> subprocess.Popen:
-    """Starts nvcc on the launchers (the int8 block's two with int8) over
-    the cut header, in a directory of the build's own (a quoted include
-    finds the cut header beside the launchers first)."""
+def build(variant: str, int8: bool = False,
+          ff: bool = False) -> subprocess.Popen:
+    """Starts nvcc on the launchers (the int8 block's with int8, post_ff's
+    with ff) over the cut header, in a directory of the build's own (a
+    quoted include finds the cut header beside the launchers first)."""
     from rdm_tpu_torch.ops import _build
 
-    out = build_dir(("int8 " if int8 else "") + variant)
-    launchers = INT8_LAUNCHERS if int8 else LAUNCHERS
+    out = build_dir(("int8 " if int8 else "ff " if ff else "") + variant)
+    launchers = (INT8_LAUNCHERS if int8 else FF_LAUNCHERS if ff
+                 else LAUNCHERS)
     os.makedirs(out, exist_ok=True)
-    files = {n: (_build.CSRC / n).read_text() for n in (HEADER,) + launchers}
     target = CUT_FILES.get(variant, HEADER)
+    files = {n: (_build.CSRC / n).read_text()
+             for n in {HEADER, target, *launchers}}
     src = files[target]
-    cut = (INT8_CUTS if int8 else CUTS)[variant]
+    cut = (INT8_CUTS if int8 else FF_CUTS if ff else CUTS)[variant]
     pairs = () if cut is None else cut if isinstance(cut[0], tuple) else (cut,)
     for old, new in pairs:
         if src.count(old) != 1:
@@ -521,6 +578,100 @@ def run_build_int8(variant: str) -> dict:
     return out
 
 
+def run_build_ff(variant: str) -> dict:
+    """Times post_ff through the variant's library of its launchers at
+    phase 3's sites: device ms a call and per launch; for the uncut build
+    the FF launch at every cluster size that fits, and the split pair."""
+    import torch
+
+    import chip_smoke as cs
+    from rdm_tpu_torch.ops import _build
+    from rdm_tpu_torch.ops import block_kernel as bk
+
+    lib = ctypes.CDLL(os.path.join(build_dir("ff " + variant), "lib.so"))
+    for name in ("rdm_post_ff", "rdm_post_cross", "rdm_geglu_ff_sm90"):
+        getattr(lib, name).argtypes = _build._SIGNATURES[name]
+        getattr(lib, name).restype = ctypes.c_int
+    lib.rdm_error_string.argtypes = [ctypes.c_int]
+    lib.rdm_error_string.restype = ctypes.c_char_p
+    _build._lib = lib  # post_ff launches this build
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED + 40)
+    out = {"build": variant, "sites": []}
+    plan = bk.ff_plan
+    for c, s, heads in cs.SITES:
+        t = cs._site_tensors(c, s, heads, g)
+        attn = 0.5 * torch.randn(t["x"].shape, generator=g, device="cuda",
+                                 dtype=torch.bfloat16)
+        args = [t["x"], attn] + [t[n] for n in (
+            "ck", "cv", "wo", "bo", "n2s", "n2b", "wq2", "wo2", "bo2", "n3s",
+            "n3b", "wa", "wg", "ba", "bg", "w2", "b2")]
+        kw = dict(heads=heads, head_dim=c // heads)
+        fn = lambda: bk.post_ff(*args, **kw)  # noqa: E731
+        site = {"name": "post_ff", "C": c, "S": s,
+                "plan": plan(c, 4 * c, rows=8 * s, capacity=bk.ff_capacity(
+                    t["x"].device.index))._asdict(),
+                "device_ms": cs.graph_ms(fn),
+                "launch_device_ms": cs.graph_launch_ms(fn, 4, "block_gemm")}
+        if variant == "kernel":
+            site["ff_ms_by_ranks"] = {}
+            for n in FF_RANKS:
+                try:
+                    forced = plan(c, 4 * c, n)
+                except ValueError:
+                    continue
+                bk.ff_plan = lambda *a, p_=forced, **k: p_
+                bk.kernel_refusal.cache_clear()
+                parts = cs.graph_launch_ms(fn, 4, "block_gemm")
+                site["ff_ms_by_ranks"][n] = {
+                    "stages": forced.stages,
+                    "ff_ms": parts and parts[3]}
+                bk.ff_plan = plan
+                bk.kernel_refusal.cache_clear()
+            r = 8 * s
+            pair = lambda: bk.geglu_ff(  # noqa: E731
+                bk.post_cross(*args[:11], **kw).reshape(r, c), *args[11:])
+            site["split_pair_device_ms"] = cs.graph_ms(pair)
+            site["split_pair_launch_device_ms"] = cs.graph_launch_ms(
+                pair, 5, "block_gemm")
+        out["sites"].append(site)
+        del t, attn, args
+    return out
+
+
+def ff_builds(card: str, path: str) -> int:
+    """Every FF_CUTS build at once, then run_build_ff for each, one process
+    a build; prints a line a site, writes `path`."""
+    procs = {v: build(v, ff=True) for v in FF_CUTS}
+    for v, p in procs.items():
+        log = p.communicate()[0]
+        if p.returncode:
+            raise RuntimeError(f"nvcc failed for {v!r}:\n{log}")
+    results = {"card": card, "builds": []}
+    for v in FF_CUTS:
+        proc = subprocess.run([sys.executable, __file__, "--ff-build", v],
+                              capture_output=True, text=True)
+        if proc.returncode:
+            raise RuntimeError(f"{v!r} failed:\n{proc.stderr[-3000:]}")
+        r = json.loads(proc.stdout.strip().splitlines()[-1])
+        for site in r["sites"]:
+            parts = site["launch_device_ms"]
+            print(f"{v:18s} post_ff C={site['C']:4d}: device "
+                  f"{site['device_ms']:.4f} ms; launches x1, cross, xm, ff "
+                  f"{parts if parts else 'not seen by the profiler'}",
+                  flush=True)
+            if "ff_ms_by_ranks" in site:
+                print(f"{v:18s} post_ff C={site['C']:4d}: plan "
+                      f"{site['plan']}; FF launch by ranks "
+                      f"{site['ff_ms_by_ranks']}; split pair device "
+                      f"{site['split_pair_device_ms']:.4f} ms, launches "
+                      f"{site['split_pair_launch_device_ms']}", flush=True)
+        results["builds"].append(r)
+    with open(path, "w") as f:
+        json.dump(results, f, indent=1)
+    print(f"wrote {path}", flush=True)
+    return 0
+
+
 DECODE_LAUNCHES = ("x1", "cross", "xm", "geglu_up", "ff_down")
 
 
@@ -816,7 +967,9 @@ def run_host(tree: str, int8_only: bool = False) -> dict:
         calls = {"ln_qkv": lambda: bk.ln_qkv(*qkv),
                  "post_cross": lambda: bk.post_cross(*pc, heads=heads,
                                                      head_dim=32),
-                 "geglu_ff": lambda: bk.geglu_ff(*ff)}
+                 "geglu_ff": lambda: bk.geglu_ff(*ff),
+                 "post_ff": lambda: bk.post_ff(*pc, *ff[1:], heads=heads,
+                                               head_dim=32)}
         with torch.inference_mode():
             for name, fn in calls.items():
                 out["sites"].append({"name": name, "C": c, "S": s,
@@ -838,6 +991,12 @@ def run_host(tree: str, int8_only: bool = False) -> dict:
                                      "device_ms": cs.graph_ms(fn)})
             t = cs._int8_layer(cs._decode_tensors(b, g))
             for pos in ATTN_POSITIONS:
+                for mode, fn in commit_calls(t, pos).items():
+                    out["sites"].append({
+                        "name": f"commit_rows {mode} pos={pos}", "C": 768,
+                        "S": b, "host_us": cs.host_us(fn),
+                        "kernel_ms": cs.median_ms(fn),
+                        "device_ms": cs.graph_ms(fn)})
                 for mode, fn in attn_calls(cs, t, pos).items():
                     out["sites"].append({
                         "name": f"decode_attn {mode} pos={pos}", "C": 768,
@@ -849,6 +1008,24 @@ def run_host(tree: str, int8_only: bool = False) -> dict:
                             "C": 768, "S": b, "host_us": cs.host_us(lfn)})
             del t
     return out
+
+
+def commit_calls(t: dict, pos: int) -> dict:
+    """commit_rows of a decode step (the 36 caches and rows of chip_smoke.py
+    phase 6's tensors at pos): the call the tree's decode step makes (a
+    `RowCommit` built once, where the tree has one; else commit_rows) and
+    commit_rows itself."""
+    from rdm_tpu_torch.ops import decode_kernel as dk
+
+    caches = [a.clone() for a in t["caches"]]
+    rows = t["rows"]
+    calls = {"wrapper": lambda: dk.commit_rows(pos, caches, rows)}
+    if hasattr(dk, "RowCommit"):
+        commit = dk.RowCommit(caches, rows)
+        calls["step"] = lambda: commit(pos)
+    else:
+        calls["step"] = calls["wrapper"]
+    return calls
 
 
 def host_turns(trees, card: str, path: str, int8_only: bool) -> int:
@@ -866,13 +1043,15 @@ def host_turns(trees, card: str, path: str, int8_only: bool) -> int:
         for site in r["sites"]:
             dev = (f", device {site['device_ms']:.4f} ms"
                    if "device_ms" in site else "")
+            if "kernel_ms" in site:
+                dev += f", kernel {site['kernel_ms']:.4f} ms"
             if "hidden_codes_differ" in site:
                 dev += (f", hidden codes differing "
                         f"{site['hidden_codes_differ']:.3e}")
             print(f"turn {i + 1} {tree:16s} {site['name']:10s} "
                   f"C={site['C']:4d} S={site['S']:4d}: host "
                   f"{site['host_us']:.1f} us a call{dev}", flush=True)
-            if site["name"].startswith("decode_attn"):
+            if site["name"].startswith(("decode_attn", "commit_rows")):
                 key = (re.sub(r" pos=\d+", "", site["name"]), site["S"])
                 means.setdefault(key, []).append(site["host_us"])
         for (name, s), us in means.items():
@@ -929,6 +1108,9 @@ def main() -> int:
                     "(of the kinds named, else of all)")
     ap.add_argument("--int8", action="store_true",
                     help="time the int8 block's s8 launches in cut builds")
+    ap.add_argument("--ff", action="store_true",
+                    help="time post_ff's FF launch in cut builds")
+    ap.add_argument("--ff-build", help=argparse.SUPPRESS)
     ap.add_argument("--int8-build", help=argparse.SUPPRESS)
     ap.add_argument("--attn-build", help=argparse.SUPPRESS)
     ap.add_argument("--build", help=argparse.SUPPRESS)
@@ -953,6 +1135,9 @@ def main() -> int:
     if args.int8_build:
         print(json.dumps(run_build_int8(args.int8_build)), flush=True)
         return 0
+    if args.ff_build:
+        print(json.dumps(run_build_ff(args.ff_build)), flush=True)
+        return 0
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -964,6 +1149,8 @@ def main() -> int:
         return attn_builds(card, args.out)
     if args.int8:
         return int8_builds(card, args.out)
+    if args.ff:
+        return ff_builds(card, args.out)
     if args.tiles or args.tiles8 is not None:
         res = run_tiles() if args.tiles else run_tiles8(args.tiles8)
         with open(args.out, "w") as f:

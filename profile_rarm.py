@@ -129,8 +129,9 @@ def profile_decode(decode, steps: int) -> dict:
     core_us = sum(t for t, _ in core)
     bwd_us = sum(t for t, _ in bwd)
     # the block-GEMM core (csrc/block_gemm_sm90.cuh): ln_qkv's launch,
-    # post_cross's three and geglu_ff's two
-    gemm = [v for n, v in per_kernel.items() if "block_gemm_kernel" in n]
+    # post_cross's three and geglu_ff's two, or post_ff's FF launch
+    gemm = [v for n, v in per_kernel.items()
+            if "block_gemm_kernel" in n or "block_gemm_ff_kernel" in n]
     gemm_us = sum(t for t, _ in gemm)
     # its s8 launches: ln_qkv_q's one, post_cross_q's three and geglu_ff_q's
     # two

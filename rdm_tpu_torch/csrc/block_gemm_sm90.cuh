@@ -4,11 +4,14 @@
 //
 //   out[R, N] = epilogue(A[R, K] @ W[K, N])     bf16 in, f32 accumulation
 //
-// Replaces the bodies of three TPU kernels of the SpatialTransformer block:
+// Replaces the bodies of four TPU kernels of the SpatialTransformer block:
 // rdm_tpu/ops/block_kernel.py:127 `_ln_qkv_kernel` (csrc/ln_qkv.cu, one
 // launch), :361 `_post_cross_kernel` (with the context folding of
-// make_cross_mats :500; csrc/post_cross.cu, three launches) and :423
-// `_geglu_ff_kernel` (csrc/geglu_ff_sm90.cu, two launches):
+// make_cross_mats :500; csrc/post_cross.cu, three launches), :423
+// `_geglu_ff_kernel` (csrc/geglu_ff_sm90.cu, two launches) and :264
+// `_post_ff_kernel` (csrc/post_ff.cu: post_cross's three launches, then
+// the FF launch below, block_gemm_ff_kernel, which keeps the GEGLU hidden
+// in shared memory across a cluster):
 //
 //   kResidual  out = res + bf16(A @ W + bias)                 A streamed
 //              (post_cross's x1 and xmid, geglu_ff's y)
@@ -65,8 +68,8 @@
 //   CTA's BM rows of src [R, K] into shared memory by TMA first (K / 32
 //   boxes of BM rows, all in flight at once, on one barrier), then the
 //   ring. The consumer warps normalise the panel in place, a warp two rows
-//   at a time, with the bf16x2 arithmetic of block_common.cuh
-//   `layer_norm_panel` (f32 statistics, each op rounded to bf16), and
+//   at a time, in bf16x2 arithmetic (f32 statistics, each op rounded to
+//   bf16, as the plain `layer_norm` of ops/block_kernel.py rounds), and
 //   fence the generic proxy's writes before wgmma reads them. (Rows read
 //   by the warps themselves would wait on one global load after another.)
 //   The panel serves every column tile of the CTA: 120 KB at BM = 64,
@@ -1352,6 +1355,360 @@ __global__ void __launch_bounds__(128 * CW + 32,
         if constexpr (DEC) qkv_f32_rows<BN>(acc[0][m], p, r0, n0, q);
       }
     }
+  }
+}
+
+// ------------------------------------------------------- the FF launch
+//
+// post_ff's fourth launch (csrc/post_ff.cu; after post_cross's three it
+// completes rdm_tpu/ops/block_kernel.py:264 `_post_ff_kernel`):
+//
+//   h3  = bf16(LN3(xm; n3s, n3b))
+//   f_r = bf16((h3 @ wa[:, F_r] + ba) * gelu(h3 @ wg[:, F_r] + bg))
+//   y   = xm + bf16(sum_r f_r @ w2[F_r, :] + b2)
+//
+// with the GEGLU hidden f never in device memory, where the split pair
+// (kGeglu, then kResidual over f) writes R x F bf16 and reads it back.
+// A cluster of n CTAs (the plan's ranks; past 8 a non-portable cluster)
+// takes one 64-row block, rank r the whole 64-column f tiles [r NT / n,
+// (r + 1) NT / n) of the NT = F / 64:
+// - kGeglu's LayerNorm prologue: xm's rows by TMA, LN3 in place (every
+//   rank normalises the same rows);
+// - per f tile the value and gate products as one m64n128k16 wgmma a k16
+//   step (a stage's wa and wg boxes, 64 K-rows x 64 columns each, 128-byte
+//   rows and swizzle, lie side by side: 128 columns, the value's n8 blocks
+//   0-7 and the gate's 8-15 of the accumulator; 128-byte boxes ran the
+//   launch 9-10% faster than the core's 64-byte ones), then
+//   the GEGLU in registers, written as bf16 into the rank's f slice in
+//   shared memory, in the panel's K-major 64-byte-swizzled layout, which
+//   the down product reads as its A operand (40-96 KB at the U-Net's
+//   sites);
+// - the down product per 128-column tile of y, K = this rank's f columns,
+//   the warpgroups on alternate tiles (each on a 64-column half of every
+//   tile took ~10% longer: as many K-steps for half the products): a
+//   partial tile of the sum over F, in registers;
+// - the K split's sum across the cluster, decode_post_ff's scheme spread
+//   over owners: 32-column unit u of y belongs to rank u mod n (every rank
+//   runs epilogues); each rank writes its f32 partial of a unit straight
+//   into a slot of the owner's shared memory (mapa, st.shared::cluster, a
+//   slot per sender) over the LayerNorm panel, which every rank has left
+//   once the first cluster barrier is passed. In rounds of `round_units`
+//   units (a multiple of n and of 4, as many as the panel's bytes hold):
+//   the round's partials written, a cluster barrier; each owner adds its
+//   units' n partials in rank order, adds b2, rounds to bf16 and adds the
+//   xm residual (residual_epilogue); a second barrier frees the slots for
+//   the next round. No atomics and no global workspace: two calls are
+//   bit-equal, and the split changes only the order of f32 sums (per f
+//   slice, then in rank order).
+// Two warpgroups a CTA on the same 64 rows and no producer warp: each
+// warpgroup has a ring of its own that runs through both products (its
+// wa | wg stages, 16 KB, then its w2 stages of 64 f rows x 64 columns),
+// its first thread issuing a load as soon as the warpgroup's four warps
+// have handed back the stage it refills, so a ring stays full across
+// tiles, products and rounds, and every thread of the cluster takes part
+// in the cluster barriers in program order. One warpgroup's epilogues and
+// waits run under the other's products (one warpgroup a CTA ran the
+// launch 5-14% longer). A producer warp filling both rings, with the sum's
+// barriers as mbarriers the CTAs arrive on across the cluster, ran it no
+// faster (within 3%): the ring's handshakes themselves cost ~0.45 us a
+// K-step (profile_gemm.py --ff with every cut applied).
+// Shared memory shapes the design: the LN3 panel (C x 128 bytes, 120 KB
+// at C = 960), the f slice (8 KB an f tile) and the ring share the 227
+// KB, so a CTA runs alone on its SM and a cluster of n takes n SMs of one
+// GPC; the card keeps fewer clusters of more CTAs resident (on an H100
+// SXM 66 of 2, 30 of 4, 7 of 9 to 16: `rdm_ff_clusters`). The plan
+// (ops/block_kernel.py `ff_plan`) takes, of the rank counts that leave the
+// ring 4 stages, the one with the fewest waves of clusters times a CTA's
+// K-steps: 2, 6 and 16 ranks at C = 384, 576, 960 (8 images).
+constexpr int kFFStage = 16384;  // a ring stage: 64 K-rows x 128 columns
+constexpr int kFFBox = 8192;     // a weight box: 64 K-rows x 64 columns
+constexpr int kFFUnit = 32;      // columns of a unit of the K split's sum
+constexpr int kFFUnitBytes = 64 * kFFUnit * 4;  // its f32 partial, 8 KB
+constexpr int kMaxFFRanks = 16;
+
+// The FF launch's Args: ln_s, ln_b = n3s, n3b; bias0 = b2; res = xm; out =
+// y; N = K = C; and the GEGLU's biases [F].
+struct FFArgs : Args {
+  const float* ba;
+  const float* bg;
+  int F, round_units;
+};
+
+// Shared memory of an FF CTA after its base is aligned to 1 KB: the LN3
+// panel, later the round's unit slots (whichever is larger) | the f slice
+// (the most f tiles a rank takes) | the ring | full[stages],
+// empty[stages], the panel's barrier. Mirrored by ops/block_kernel.py
+// `ff_smem`.
+__host__ __device__ constexpr int ff_region0(int C, int round_units) {
+  return panel_region(kGeglu, 64, C) > round_units * kFFUnitBytes
+             ? panel_region(kGeglu, 64, C)
+             : round_units * kFFUnitBytes;
+}
+__host__ __device__ constexpr int ff_f_bytes(int F, int ranks) {
+  return (F / 64 + ranks - 1) / ranks * 2 * a_panel_bytes(64);
+}
+__host__ __device__ constexpr int ff_smem_bytes(int C, int F, int ranks,
+                                                int stages,
+                                                int round_units) {
+  return 1024 + ff_region0(C, round_units) + ff_f_bytes(F, ranks) +
+         stages * kFFStage + 8 * (2 * stages + 1);
+}
+
+// The wgmma descriptor of a k16 step of a ring stage, read MN-major: two
+// 128-byte-swizzled boxes of 64 K-rows x 64 columns side by side (LBO, the
+// next 64 columns, one box on; SBO, the next 8 K-rows, 1 KB on; layout
+// type 1, the 128-byte swizzle).
+__device__ __forceinline__ uint64_t ff_w_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)(kFFBox >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+// f = bf16((acc_a + ba) * gelu(acc_g + bg)) of one 64-column f tile, exact
+// erf, into f tile `lt` of the slice at `fs` after quad_transpose: this
+// thread's rows r_in and r_in + 8, 16 bytes a store.
+__device__ __forceinline__ void ff_geglu_smem(const float (&acc)[64],
+                                              const FFArgs& p,
+                                              unsigned char* fs, int lt,
+                                              int col0, int r_in, int q) {
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    float2 ba[4], bg[4];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int col = col0 + 32 * m + 8 * jj + 2 * q;
+      ba[jj] = __ldg(reinterpret_cast<const float2*>(p.ba + col));
+      bg[jj] = __ldg(reinterpret_cast<const float2*>(p.bg + col));
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t w[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        float hv[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * (4 * m + jj) + 2 * h + e;
+          const float av = acc[i] + (e ? ba[jj].y : ba[jj].x);
+          const float gv = acc[32 + i] + (e ? bg[jj].y : bg[jj].x);
+          hv[e] = av * (0.5f * gv * (1.0f + erff(gv * 0.7071067811865476f)));
+        }
+        w[jj] = attn::pack_bf16(hv[0], hv[1]);
+      }
+      *reinterpret_cast<uint4*>(
+          fs + panel_offset(r_in + 8 * h, 4 * (2 * lt + m) + q, 64)) =
+          quad_transpose(w, q);
+    }
+  }
+}
+
+// One CTA of the FF launch: rank `cluster_rank` of row block blockIdx.y,
+// two warpgroups on the same 64 rows (g = 0, 1), each with a ring of its
+// own (stages [g ST / 2, (g + 1) ST / 2)) whose loads its first thread
+// issues: in the up products warpgroup g takes the f tiles g, g + 2, ...
+// of the rank's slice, in the down product the 128-column y tiles g, g +
+// 2, ... of each round of the sum. ta: xm [R, C], box {32, 64}; twa, twg: wa, wg [C, F]; tw2: w2
+// [F, C] (boxes {64, 64}). BM = 64 only (a template, so only post_ff.cu
+// builds it).
+template <int BM>
+__global__ void __launch_bounds__(256, 1)
+    block_gemm_ff_kernel(const __grid_constant__ CUtensorMap ta,
+                         const __grid_constant__ CUtensorMap twa,
+                         const __grid_constant__ CUtensorMap twg,
+                         const __grid_constant__ CUtensorMap tw2,
+                         const FFArgs p) {
+  using namespace attn;
+  static_assert(BM == 64, "two warpgroups on 64 rows");
+  constexpr int kAPanel = a_panel_bytes(BM);
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  const int C = p.K, ST = p.stages, RS = ST / 2, ru = p.round_units;
+  const int n = cluster_size(), rank = cluster_rank();
+  const int ntf = p.F / 64;
+  const int f0 = rank * ntf / n, nft = (rank + 1) * ntf / n - f0;
+  const int nkb = (C + kBK - 1) / kBK;  // the up products' K-steps
+  const int nu = C / kFFUnit;
+  const uint32_t panel = base;  // LN3(xm); the slots in the down phase
+  const uint32_t fs = base + ff_region0(C, ru);
+  const uint32_t ring = fs + ff_f_bytes(p.F, n);
+  const uint32_t full = ring + ST * kFFStage;
+  const uint32_t empty = full + 8 * ST;
+  const uint32_t pbar = empty + 8 * ST;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, q = lane & 3;
+  const int g = warp >> 2, tid = threadIdx.x & 127;  // warpgroup, its thread
+  const int row0 = blockIdx.y * BM;
+  const int r_in = 16 * (warp & 3) + (lane >> 2);
+  // this warpgroup's loads: its f tiles' K-steps, then its half of every
+  // y tile that has one (columns 128 ty + 64 g < C) for each f K-step
+  // y's 128-column tiles go by rounds of tr; warpgroup g takes tiles
+  // g, g + 2, ... of each round (`per` of a whole one)
+  const int nty = (C + 127) / 128, tr = ru / 4, per = (tr - g + 1) / 2;
+  int ndn = 0;
+  for (int t0 = 0; t0 < nty; t0 += tr)
+    ndn += (min(tr, nty - t0) - g + 1) / 2;
+  const int n_up = (nft - g + 1) / 2 * nkb, n_all = n_up + ndn * nft;
+  const uint32_t ring_g = ring + g * RS * kFFStage;
+  const uint32_t full_g = full + 8 * g * RS, empty_g = empty + 8 * g * RS;
+
+  // this warpgroup's ring load i into its stage: the up products' wa | wg
+  // boxes (64 K-rows of f tile f0 + g + 2 (i / nkb)), then the down
+  // product's w2 boxes (64 f rows of this rank's K-step, the 128 columns
+  // of its y tile that lie before C)
+  auto issue = [&](int i) {
+    const uint32_t st = ring_g + (i % RS) * kFFStage;
+    const uint32_t bar = full_g + 8 * (i % RS);
+    if (i < n_up) {
+      const int col = (f0 + g + 2 * (i / nkb)) * 64, k0 = (i % nkb) * kBK;
+      mbar_expect_tx(bar, kFFStage);
+      tma_load_2d(&twa, st, bar, col, k0);
+      tma_load_2d(&twg, st + kFFBox, bar, col, k0);
+    } else {
+      const int j = (i - n_up) / nft, k0 = (f0 + (i - n_up) % nft) * kBK;
+      const int n0 = 128 * (j / per * tr + g + 2 * (j % per));
+      const int nbox = n0 + 64 < C ? 2 : 1;
+      mbar_expect_tx(bar, nbox * kFFBox);
+      for (int b = 0; b < nbox; ++b)
+        tma_load_2d(&tw2, st + b * kFFBox, bar, n0 + 64 * b, k0);
+    }
+  };
+  // hand back load j's stage (this warp's products on it are done); the
+  // warpgroup's first thread refills it with load j + RS once all four of
+  // its warps have
+  auto release = [&](int j) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty_g + 8 * (j % RS));
+    if (tid == 0 && j + RS < n_all) {
+      mbar_wait(empty_g + 8 * (j % RS), (j / RS) & 1);
+      issue(j + RS);
+    }
+    __syncwarp();
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4);  // its warpgroup's warps
+    }
+    mbar_init(pbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {  // xm's rows
+    mbar_expect_tx(pbar, (C / kPW) * kAPanel);
+    for (int c = 0; c < C / kPW; ++c)
+      tma_load_2d(&ta, panel + c * kAPanel, pbar, c * kPW, row0);
+  }
+  if (tid == 0)  // each ring's first stages
+    for (int i = 0; i < min(RS, n_all); ++i) issue(i);
+  layer_norm_prologue<2, BM>(gbase, pbar, p, BM);
+
+  // the up products, f tile by f tile, f into the slice
+  float acc[64];
+  int i = 0;  // this warpgroup's ring load
+  for (int lt = g; lt < nft; lt += 2) {
+    for (int kb = 0; kb < nkb; ++kb, ++i) {
+      mbar_wait(full_g + 8 * (i % RS), (i / RS) & 1);
+      const uint32_t st = ring_g + (i % RS) * kFFStage;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        wgmma_ss_mn<128>(
+            acc,
+            sw64_desc(panel + (2 * kb + (kk >> 1)) * kAPanel + (kk & 1) * 32,
+                      16, 512),
+            ff_w_desc(st + kk * 2048), (kb | kk) != 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (kb > 0) release(i - 1);
+    }
+    wgmma_wait<0>();
+    release(i - 1);
+    fence_regs(acc);
+    ff_geglu_smem(acc, p, gbase + (fs - base), lt, (f0 + lt) * 64, r_in, q);
+  }
+  // the slice (generic writes) is read by wgmma (the async proxy) next;
+  // past this cluster barrier every rank's panel takes partial tiles
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  cluster_arrive();
+
+  // the down product, this warpgroup's y tiles of each round, and the K
+  // split's sum by rounds
+  for (int u0 = 0, rd = 0; u0 < nu; u0 += ru, ++rd) {
+    const int u1 = min(nu, u0 + ru);
+    bool waited = false;
+    for (int ty = rd * tr + g; 4 * ty < u1; ty += 2) {
+      for (int kb = 0; kb < nft; ++kb, ++i) {
+        mbar_wait(full_g + 8 * (i % RS), (i / RS) & 1);
+        const uint32_t st = ring_g + (i % RS) * kFFStage;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk)
+          wgmma_ss_mn<128>(
+              acc,
+              sw64_desc(fs + (2 * kb + (kk >> 1)) * kAPanel + (kk & 1) * 32,
+                        16, 512),
+              ff_w_desc(st + kk * 2048), (kb | kk) != 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        if (kb > 0) release(i - 1);
+      }
+      wgmma_wait<0>();
+      release(i - 1);
+      fence_regs(acc);
+      // the owners' slots are free: every rank is past its up products
+      // (the first round) or has read the round before's partials
+      if (!waited) cluster_wait();
+      waited = true;
+      // unit u's partial into slot (u - u0) / n * n + rank of its owner
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int u = 4 * ty + m;
+        if (u >= u1) break;
+        const uint32_t to = cluster_addr(
+            panel + ((u - u0) / n * n + rank) * kFFUnitBytes + 16 * tid,
+            u % n);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int a0 = 4 * (4 * m + jj);
+          st_cluster_f4(to + 2048 * jj, acc[a0], acc[a0 + 1], acc[a0 + 2],
+                        acc[a0 + 3]);
+        }
+      }
+    }
+    if (!waited) cluster_wait();
+    cluster_arrive();  // the round's partials have landed once all pass
+    cluster_wait();
+    // this rank's units of the round, alternately to the warpgroups: the
+    // n partials in rank order, then y = xm + bf16(sum + b2)
+    for (int u = u0 + rank + g * n; u < u1; u += 2 * n) {
+      const unsigned char* from = gbase + (panel - base) +
+                                  (u - u0) / n * n * kFFUnitBytes + 16 * tid;
+      float s[16];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(from + 2048 * jj);
+        s[4 * jj] = v.x;
+        s[4 * jj + 1] = v.y;
+        s[4 * jj + 2] = v.z;
+        s[4 * jj + 3] = v.w;
+      }
+      for (int j = 1; j < n; ++j)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              from + j * kFFUnitBytes + 2048 * jj);
+          s[4 * jj] += v.x;
+          s[4 * jj + 1] += v.y;
+          s[4 * jj + 2] += v.z;
+          s[4 * jj + 3] += v.w;
+        }
+      residual_epilogue<kFFUnit>(s, p, row0 + r_in, u * kFFUnit, q);
+    }
+    if (u1 < nu) cluster_arrive();  // this CTA's slots are read
   }
 }
 

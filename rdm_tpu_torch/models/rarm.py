@@ -43,7 +43,7 @@ from rdm_tpu_torch.models.layers import (CrossAttention, GEGLUFeedForward,
                                          LayerNormF32)
 from rdm_tpu_torch.ops.attention import dot_product_attention
 from rdm_tpu_torch.ops.block_kernel import pack_block_weights
-from rdm_tpu_torch.ops.decode_kernel import (INT8_WEIGHTS, commit_rows,
+from rdm_tpu_torch.ops.decode_kernel import (INT8_WEIGHTS, RowCommit,
                                              decode_layer, quantize_weight)
 
 __all__ = ["RARM", "RARMConfig", "DecodeCache", "FusedDecoder",
@@ -283,7 +283,10 @@ class FusedDecoder:
 
     batched_commit defers each step's k/v rows and writes them for all
     layers in one `commit_rows` launch (the JAX RARM_BATCHED_COMMIT=1
-    path), instead of each layer's attention launch writing its own.
+    path), instead of each layer's attention launch writing its own: the
+    layers' attention launches write the rows into one [2, depth, B, C]
+    buffer kept for the request, and a `RowCommit` built once over it and
+    the caches launches the commit each step.
     int8_kv keeps int8 caches with f32 scale caches [T, B, 1] (ones until
     a row is written, as in JAX); it commits per layer, so it refuses
     batched_commit as the JAX package does. The weights' `wqkv_s` selects
@@ -316,6 +319,13 @@ class FusedDecoder:
                          for _ in range(cfg.depth)]
         self.v_caches = [torch.zeros_like(k) for k in self.k_caches]
         self.ks_caches = self.vs_caches = [None] * cfg.depth
+        self.rows = [None] * cfg.depth
+        if batched_commit:
+            buf = torch.empty((2, cfg.depth, bb, c), dtype=dtype,
+                              device=ctx.device)
+            self.rows = list(zip(buf[0], buf[1]))
+            self.commit = RowCommit(self.k_caches + self.v_caches,
+                                    list(buf[0]) + list(buf[1]))
         if int8_kv:
             self.ks_caches = [torch.ones((cfg.seq_len, bb, 1),
                                          device=ctx.device)
@@ -326,18 +336,15 @@ class FusedDecoder:
         """tokens [B] at position pos -> logits [B, out_vocab] f32."""
         cfg = self.cfg
         x = self.emb[tokens] + self.posenc[:, pos]
-        rows_k, rows_v = [], []
         for d, w in enumerate(self.layers):
-            x, ko, vo = decode_layer(
+            x = decode_layer(
                 x, pos, self.k_caches[d], self.v_caches[d], *self.cross[d],
                 w, heads=cfg.heads, head_dim=cfg.head_dim,
                 defer_commit=self.batched_commit,
-                ks_cache=self.ks_caches[d], vs_cache=self.vs_caches[d])[:3]
-            if self.batched_commit:
-                rows_k.append(ko)
-                rows_v.append(vo)
+                ks_cache=self.ks_caches[d], vs_cache=self.vs_caches[d],
+                rows=self.rows[d])[0]
         if self.batched_commit:
-            commit_rows(pos, self.k_caches + self.v_caches, rows_k + rows_v)
+            self.commit(pos)
         return torch.addmm(self.head_b, x, self.head_w).float()
 
 

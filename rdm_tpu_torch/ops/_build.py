@@ -54,11 +54,13 @@ _SIGNATURES = {
     "rdm_packed_attn_q8": [_P] * 9 + [_I] * 5 + [_F, _P],
     "rdm_post_cross_q": [_P] * 17 + [_I] * 5 + [_F] * 4 + [_I] * 15 + [_P],
     "rdm_geglu_ff_q": [_P] * 14 + [_I] * 3 + [_F, _F] + [_I] * 10 + [_P],
-    "rdm_post_ff": [_P] * 20 + [_I] * 6 + [_F, _P],
+    "rdm_post_ff": [_P] * 23 + [_I] * 6 + [_F] + [_I] * 13 + [_P],
+    "rdm_ff": [_P] * 10 + [_I] * 6 + [_P],
+    "rdm_ff_clusters": [_I],
     "rdm_decode_proj": [_P] * 10 + [_I] * 9 + [_P],
     "rdm_decode_attn": [_P] * 10 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
     "rdm_decode_post_ff": [_P] * 30 + [_I] * 4 + [_F] + [_I] * 25 + [_P],
-    "rdm_commit_rows": [_P, _P, _I, _I, _I, _P],
+    "rdm_commit_rows": [_P] + [_I] * 5 + [_P],
     "rdm_flash_fwd": [_P] * 4 + [_I] * 6 + [_F, _P],
     "rdm_flash_bwd": [_P] * 8 + [_I] * 6 + [_F, _F, _P],
     "rdm_knn_search": [_P] * 4 + [_I] * 10 + [_P],

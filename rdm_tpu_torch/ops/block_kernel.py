@@ -24,9 +24,12 @@ each residual; reference attention.py:77-96) runs as four kernels:
 With RDM_TPU_SPLIT_K3=0 (or `split_k3=False`) kernels 3 and 4 run as one,
 as the JAX package's single kernel 3 does:
 
-  9. `post_ff`     - post_cross + geglu_ff in one launch, the GEGLU hidden
-                     kept in shared memory (csrc/post_ff.cu; replaces
-                     `_post_ff_kernel`)
+  9. `post_ff`     - post_cross + geglu_ff with the GEGLU hidden kept on
+                     chip (csrc/post_ff.cu; replaces `_post_ff_kernel`):
+                     post_cross's three launches, then one FF launch of
+                     the core over a cluster of CTAs a 64-row block,
+                     each holding a slice of the hidden in shared memory
+                     (`ff_plan`)
 
 The int8 serving mode (`fused_transformer_block(..., qscales=)`) runs
 their int8 variants: weight and activation int8 projections with int32
@@ -55,8 +58,8 @@ tensor it launches its kernel or raises: `_check` refuses other dtypes,
 devices and layouts, `kernel_refusal` the shapes the kernel does not take
 (heads other than 32 or 64 wide; C off a multiple of 32, F off 32 or
 post_ff's 64; a block-GEMM launch that `gemm_plan` cannot fit, the s8
-code prologue past K = 1536, `post_ff`'s shared memory). Any number of
-context tokens is taken.
+code prologue past K = 1536, a `post_ff` FF launch that `ff_plan` cannot
+fit). Any number of context tokens is taken.
 `fused_transformer_block` asks the same of every kernel the block will
 launch (`block_refusal`) and raises before the first launch. Each wrapper
 counts its launches in `<name>.launches`.
@@ -72,6 +75,7 @@ per-output scales.
 from __future__ import annotations
 
 import functools
+import math
 import os
 from typing import Dict, NamedTuple, Optional
 
@@ -83,7 +87,6 @@ from rdm_tpu_torch.ops import _build
 from rdm_tpu_torch.ops.attention import dot_product_attention
 
 HEAD_DIMS = (32, 64)  # the head widths the attention kernels take
-_BM, _BN = 32, 64  # post_ff's output tile (csrc/block_common.cuh)
 _LOG2E = 1.4426950408889634
 # The block-GEMM core (csrc/block_gemm_sm90.cuh): per launch kind, the
 # tiles it may take as (rows, columns, ping-pong), the preferred first;
@@ -134,6 +137,16 @@ DECODE_TILE = (64, 64, 0)
 _MAX_KS = 8
 _SMEM_LIMIT = 232448  # a CTA's opt-in maximum
 _SMEM_SM = 233472     # an SM's, each resident CTA taking 1 KB more
+# post_ff's FF launch (csrc/block_gemm_sm90.cuh `block_gemm_ff_kernel`): a
+# ring stage of 64 K-rows x 128 columns of bf16 weights; a 32-column unit
+# of the K split's sum, 64 rows of f32; an f tile of the hidden, 64 rows x
+# 64 columns of bf16; clusters of up to 16 CTAs (kMaxFFRanks; non-portable
+# past 8); the least ring depth, two stages a warpgroup's ring
+_FF_STAGE = 16384
+_FF_UNIT = 8192
+_FF_TILE = 8192
+_MAX_FF_RANKS = 16
+_FF_STAGES = 4
 
 
 # ------------------------------------------------------------ plain math
@@ -397,6 +410,136 @@ def gemm_plan(kind: str, r: int, n: int, k: int, sms: int, *,
                     gemm_smem(kind, bm, bn, k, stages))
 
 
+class FFPlan(NamedTuple):
+    """post_ff's FF launch: a cluster of `ranks` CTAs a 64-row block, each
+    taking whole 64-column f tiles of F; `stages` of its ring;
+    `round_units` 32-column units of y summed across the cluster a round
+    (a multiple of ranks and of 4); `smem` bytes a CTA. `args` are the
+    launcher's three ints."""
+    ranks: int
+    stages: int
+    round_units: int
+    smem: int
+
+    @property
+    def args(self):
+        return (self.ranks, self.stages, self.round_units)
+
+
+def _ff_panel(c: int) -> int:
+    """Bytes of the 64-row LN3 panel (the core's LayerNorm panel at K = c,
+    K rounded up to a 64-wide K-step)."""
+    return -(-c // _GEMM_BK) * 2 * 64 * 64
+
+
+def ff_smem(c: int, f: int, ranks: int, stages: int,
+            round_units: int) -> int:
+    """Shared bytes of an FF CTA (csrc/block_gemm_sm90.cuh
+    `ff_smem_bytes`): the LN3 panel, or the round's unit slots where they
+    take more (round_units x one 8 KB slot per sender rank's unit), then
+    the most f tiles a rank takes, the ring and its barriers, after up to
+    1 KB of alignment."""
+    region0 = max(_ff_panel(c), round_units * _FF_UNIT)
+    return (1024 + region0 + -(-(f // 64) // ranks) * _FF_TILE
+            + stages * _FF_STAGE + 8 * (2 * stages + 1))
+
+
+def _ff_fit(c: int, f: int, ranks: int):
+    """(stages, round_units) of the deepest ring (an even depth, half a
+    warpgroup's, _FF_STAGES at least) that fits with `ranks` CTAs a
+    cluster, or None; then as many units a round (a multiple of ranks and
+    4, no more than C's units need) as keep that ring: fewer rounds of
+    the sum, and y tiles for both warpgroups in a round."""
+    step = math.lcm(ranks, 4)
+    most = -(-(c // 32) // step) * step
+    for st in range(_GEMM_STAGES, _FF_STAGES - 1, -2):
+        if ff_smem(c, f, ranks, st, step) <= _SMEM_LIMIT:
+            ru = step
+            while (ru + step <= most
+                   and ff_smem(c, f, ranks, st, ru + step) <= _SMEM_LIMIT):
+                ru += step
+            return st, ru
+    return None
+
+
+def _ff_refusal(c: int, f: int) -> Optional[str]:
+    """ff_plan's refusal of C = c, F = f, or None."""
+    try:
+        ff_plan(c, f)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def _ff_steps(c: int, f: int, ranks: int) -> int:
+    """K-steps of the busiest FF CTA: its up products (its f tiles x C's
+    K-steps) and its down product (y's 128-column tiles x its f tiles),
+    plus as many again as one f tile's K-steps and four for its LN3,
+    ring ramp and rounds of the sum."""
+    tiles, nkb = -(-(f // 64) // ranks), -(-c // _GEMM_BK)
+    return tiles * nkb + -(-c // 128) * tiles + nkb + 4
+
+
+@functools.lru_cache(maxsize=None)
+def ff_plan(c: int, f: int, ranks: Optional[int] = None, *,
+            rows: Optional[int] = None,
+            capacity: Optional[tuple] = None) -> FFPlan:
+    """post_ff's FF launch at C = c, F = f. Of the rank counts (2 or more
+    where F has two f tiles, up to _MAX_FF_RANKS and the f tiles) whose
+    LN3 panel, f slice and ring of _FF_STAGES stages or more fit a CTA's
+    shared memory, the fewest; or, given the
+    launch's `rows` and the card's `capacity` (clusters of 1 .. 16 FF
+    CTAs it keeps resident at once, `ff_capacity`), the one that
+    minimises the waves of clusters (ceil(row blocks / capacity)) times a
+    CTA's K-steps (`_ff_steps`). Fewer ranks redo LN3 fewer times and
+    send fewer partials, but walk more K-steps a CTA; clusters of more
+    CTAs fit fewer at once (on an H100 SXM 66 of 2, 30 of 4, 15 of 8, 7
+    of 9 to 16). At the U-Net's sites (F = 4C, 8 images) on an H100: 2, 6
+    and 16 ranks at C = 384, 576, 960 (2, 4, 12 with no capacity).
+    `ranks` forces a cluster size (the profile's sweep). Raises
+    ValueError where none fits."""
+    if c % 32 or f % 64 or c < 32 or f < 64:
+        raise ValueError(f"ff_plan: C={c} and F={f} must be multiples of "
+                         "32 and 64")
+    if c > _MAX_LN_K:
+        raise ValueError(f"ff_plan: C={c} is past the LayerNorm prologue "
+                         f"(K <= {_MAX_LN_K})")
+    ntf = f // 64
+    if ranks is not None and not 1 <= ranks <= min(_MAX_FF_RANKS, ntf):
+        raise ValueError(f"ff_plan: {ranks} ranks for {ntf} f tiles")
+    cands = ([ranks] if ranks is not None
+             else range(min(2, ntf), min(_MAX_FF_RANKS, ntf) + 1))
+    fits = [(n, fit) for n in cands for fit in [_ff_fit(c, f, n)]
+            if fit is not None and (capacity is None or capacity[n - 1] > 0)]
+    if not fits:
+        raise ValueError(
+            f"ff_plan: C={c}, F={f} leaves no room in shared memory: the "
+            f"LN3 panel ({_ff_panel(c)} bytes), a {_FF_STAGES}-stage ring "
+            f"and an f slice of up to {_MAX_FF_RANKS} ranks pass "
+            f"{_SMEM_LIMIT}")
+    if rows is not None and capacity is not None:
+        blocks = -(-rows // 64)
+        n, fit = min(fits, key=lambda x: -(-blocks // capacity[x[0] - 1])
+                     * _ff_steps(c, f, x[0]))
+    else:
+        n, fit = fits[0]
+    return FFPlan(n, *fit, ff_smem(c, f, n, *fit))
+
+
+@functools.lru_cache(maxsize=None)
+def ff_capacity(index: int) -> tuple:
+    """Clusters of 1 .. _MAX_FF_RANKS FF CTAs that CUDA device `index`
+    keeps resident at once (cudaOccupancyMaxActiveClusters of the FF
+    launch at a CTA's shared-memory maximum), for `ff_plan`."""
+    lib = _build.load()
+    with torch.cuda.device(index):
+        caps = tuple(lib.rdm_ff_clusters(n)
+                     for n in range(1, _MAX_FF_RANKS + 1))
+    if min(caps) < 0:
+        _build.check(-min(caps), "post_ff (cluster capacity)")
+    return caps
+
+
 def _on_cpu(*ts: torch.Tensor) -> bool:
     dev = {t.device.type for t in ts}
     if dev == {"cpu"}:
@@ -446,6 +589,7 @@ _FF = ("geglu_ff", "post_ff", "geglu_ff_q")  # the kernels that take F
 _GEMM_KINDS = {"ln_qkv": (("qkv", "C"),),
                "post_cross": (("residual", "C"), ("cross", "C")),
                "geglu_ff": (("geglu", "C"), ("residual", "F")),
+               "post_ff": (("residual", "C"), ("cross", "C")),
                "post_cross_q": (("resq8", "C"), ("cross8", "C"),
                                 ("residual8", "C")),
                "geglu_ff_q": (("geglu8", "C"), ("residual8", "F")),
@@ -454,20 +598,6 @@ _GEMM_KINDS = {"ln_qkv": (("qkv", "C"),),
 
 def _a128(n: int) -> int:
     return -(-n // 128) * 128
-
-
-def _post_ff_smem(c: int) -> int:
-    """Dynamic shared bytes of the `post_ff` launch (csrc/post_ff.cu
-    `post_ff_smem`: the larger of its attention half, three bf16 row
-    panels, a weight chunk pair and a staging tile, and its FF half, a
-    panel, the f32 accumulator rows, two chunk pairs, two staging tiles
-    and a hidden tile)."""
-    panel = _a128(_BM * (c + 8) * 2)
-    chunk, staging = _a128(2 * 32 * (_BN + 8) * 2), _a128(_BM * (_BN + 4) * 4)
-    attn_half = 3 * panel + chunk + staging
-    ff_half = (panel + _a128(_BM * (-(-c // _BN) * _BN + 4) * 4) + 2 * chunk
-               + 2 * staging + _a128(_BM * (_BN + 8) * 2))
-    return max(attn_half, ff_half)
 
 
 def _refuse(why: Optional[str]) -> None:
@@ -489,7 +619,7 @@ def kernel_refusal(name: str, c: int, *, t: int = 1, head_dim: int = 32,
         return f"{name}: context length {t} < 1"
     if name in ("packed_attn", "packed_attn_q8"):
         return None  # any S
-    fm = _BN if name == "post_ff" else 32
+    fm = 64 if name == "post_ff" else 32
     for dim, v, m in (("C", c, 32), ("F", f, fm))[:2 if name in _FF else 1]:
         if v % m:
             return (f"{name}: the CUDA kernel takes {dim} as a multiple of "
@@ -498,9 +628,10 @@ def kernel_refusal(name: str, c: int, *, t: int = 1, head_dim: int = 32,
         why = _gemm_refusal(kind, c if dim == "C" else f)
         if why is not None:
             return f"{name}: {why}"
-    if name == "post_ff" and _post_ff_smem(c) > _SMEM_LIMIT:  # its launcher
-        return (f"{name}: C={c} leaves no room in shared memory "
-                f"({_post_ff_smem(c)} bytes a block)")
+    if name == "post_ff":  # the FF launch after post_cross's three
+        why = _ff_refusal(c, f)
+        if why is not None:
+            return f"{name}: {why}"
     return None
 
 
@@ -661,8 +792,19 @@ geglu_ff.launches = 0
 
 def post_ff(x, attn, ck, cv, wo, bo, n2s, n2b, wq2, wo2, bo2, n3s, n3b, wa,
             wg, ba, bg, w2, b2, *, heads: int, head_dim: int):
-    """post_cross + geglu_ff in one kernel: x, attn [B, S, C], ck, cv
-    [B, T, C] -> y [B, S, C]."""
+    """post_cross + geglu_ff with the GEGLU hidden kept on chip: x, attn
+    [B, S, C], ck, cv [B, T, C] -> y [B, S, C]. On CUDA post_cross's three
+    launches of the block-GEMM core, then its FF launch (`ff_plan`),
+    counted as one call."""
+    return _post_ff(x, attn, ck, cv, wo, bo, n2s, n2b, wq2, wo2, bo2, n3s,
+                    n3b, wa, wg, ba, bg, w2, b2, heads=heads,
+                    head_dim=head_dim)[0]
+
+
+def _post_ff(x, attn, ck, cv, wo, bo, n2s, n2b, wq2, wo2, bo2, n3s, n3b, wa,
+             wg, ba, bg, w2, b2, *, heads: int, head_dim: int):
+    """post_ff's (y, xm): xm [B, S, C] is post_cross's output, which the FF
+    launch reads (the plain version's on the CPU)."""
     b, s, c = x.shape
     t = ck.shape[1]
     f = wa.shape[1]
@@ -677,7 +819,9 @@ def post_ff(x, attn, ck, cv, wo, bo, n2s, n2b, wq2, wo2, bo2, n3s, n3b, wa,
     args = (x, attn, ck, cv, wo, bo, n2s, n2b, wq2, wo2, bo2, n3s, n3b, wa,
             wg, ba, bg, w2, b2)
     if _on_cpu(x, attn, ck, cv, wo, wa):
-        return post_ff_reference(*args, heads=heads, head_dim=head_dim)
+        xm = post_cross_reference(*args[:11], heads=heads, head_dim=head_dim)
+        return geglu_ff_reference(xm.reshape(b * s, c), *args[11:]).reshape(
+            b, s, c), xm
     _check("post_ff",
            [(x, (b, s, c)), (attn, (b, s, c)), (ck, (b, t, c)),
             (cv, (b, t, c)), (wo, (c, c)), (wq2, (c, c)), (wo2, (c, c)),
@@ -685,14 +829,21 @@ def post_ff(x, attn, ck, cv, wo, bo, n2s, n2b, wq2, wo2, bo2, n3s, n3b, wa,
            [(v, (c,)) for v in (bo, n2s, n2b, bo2, n3s, n3b, b2)]
            + [(ba, (f,)), (bg, (f,))])
     _refuse(kernel_refusal("post_ff", c, t=t, head_dim=head_dim, f=f))
-    out = torch.empty_like(x)
+    r, sms = b * s, sm_count(x.device.index)
+    x1, o, xm, out = (torch.empty_like(x) for _ in range(4))
     lib = _build.load()
     with torch.cuda.device(x.device):
-        rc = lib.rdm_post_ff(*(_p(a) for a in args), _p(out), b * s, s, c, t,
-                             f, head_dim, head_dim ** -0.5, _stream(x))
+        rc = lib.rdm_post_ff(
+            *(_p(a) for a in args), _p(x1), _p(o), _p(xm), _p(out), r, s, c,
+            t, f, head_dim, head_dim ** -0.5,
+            *gemm_plan("residual", r, c, c, sms).args,
+            *gemm_plan("cross", r, c, c, sms).args,
+            *ff_plan(c, f, rows=r,
+                     capacity=ff_capacity(x.device.index)).args,
+            _stream(x))
     _build.check(rc, "post_ff")
     post_ff.launches += 1
-    return out
+    return out, xm
 
 
 post_ff.launches = 0
@@ -1024,8 +1175,8 @@ def launch_counts() -> Dict[str, int]:
 
 def use_split_k3() -> bool:
     """Kernels 3 and 4 as two launches (post_cross, geglu_ff), read from
-    RDM_TPU_SPLIT_K3 as the JAX package reads it; default on, 0 runs the
-    single post_ff kernel."""
+    RDM_TPU_SPLIT_K3 as the JAX package reads it; default on, 0 runs
+    post_ff (the JAX package's single kernel 3) instead."""
     return os.environ.get("RDM_TPU_SPLIT_K3", "1") != "0"
 
 

@@ -20,8 +20,11 @@ runs as:
                         cluster where one 64-row block leaves the card
                         idle; replaces `_post_ff_kernel`)
   3. `commit_rows`    - writes one step's k/v rows of every layer into
-                        their caches at row pos in one launch
-                        (csrc/commit_rows.cu; replaces `_commit_kernel`)
+                        their caches at row pos in one launch of TMA bulk
+                        copies under programmatic dependent launch
+                        (csrc/commit_rows.cu; replaces `_commit_kernel`);
+                        `RowCommit` checks a request's caches and rows and
+                        builds the pointer table once
 
 Each wrapper has its plain PyTorch version beside it, `<name>_reference`.
 A wrapper runs the plain version only for tensors on the CPU; for a CUDA
@@ -276,7 +279,7 @@ def _attn_variant(quantized: bool, int8_kv: bool) -> str:
 
 def decode_attn(x, pos: int, k_cache, v_cache, n1s, n1b, wqkv, *,
                 heads: int, head_dim: int, commit: bool = True,
-                wqkv_s=None, ks_cache=None, vs_cache=None):
+                wqkv_s=None, ks_cache=None, vs_cache=None, rows=None):
     """LN1 + q/k/v projection + cached causal attention of one token:
     x [B, C], caches [T, B, C] -> (attn, k_new, v_new), each [B, C]. On
     CUDA this is two launches (the projection, `gemm_plan("qkv",
@@ -284,16 +287,18 @@ def decode_attn(x, pos: int, k_cache, v_cache, n1s, n1b, wqkv, *,
     `attn_plan`), counted as one call; with a bf16 in-place commit k_new
     and v_new are the caches' rows pos. wqkv_s ([3C] bf16): wqkv is int8.
     ks_cache / vs_cache ([T, B, 1] f32): the caches are int8, and the
-    attention launch commits row pos (commit must be on)."""
+    attention launch commits row pos (commit must be on). rows: with
+    commit off, the two [B, C] tensors k_new and v_new are written into
+    and returned as (new ones otherwise)."""
     return _decode_attn(x, pos, k_cache, v_cache, n1s, n1b, wqkv,
                         heads=heads, head_dim=head_dim, commit=commit,
                         wqkv_s=wqkv_s, ks_cache=ks_cache, vs_cache=vs_cache,
-                        pdl=True)
+                        rows=rows, pdl=True)
 
 
 def _decode_attn(x, pos, k_cache, v_cache, n1s, n1b, wqkv, *, heads,
                  head_dim, commit=True, wqkv_s=None, ks_cache=None,
-                 vs_cache=None, pdl: bool):
+                 vs_cache=None, rows=None, pdl: bool):
     """decode_attn; pdl: its launches may start under the launch before
     them (always, in the wrapper; off, the card tests' reference bits)."""
     b, c = x.shape
@@ -307,18 +312,27 @@ def _decode_attn(x, pos, k_cache, v_cache, n1s, n1b, wqkv, *, heads,
     if int8_kv and (not commit or vs_cache is None):
         raise ValueError("decode_attn: an int8 cache takes both scale caches "
                          "and commits in place (commit=True)")
+    if rows is not None and (commit or len(rows) != 2):
+        raise ValueError("decode_attn: rows are the two outputs of a "
+                         "deferred commit (commit=False)")
     _check_pos("decode_attn", pos, t)
     if _on_cpu(x, k_cache, v_cache, wqkv):
-        return decode_attn_reference(x, pos, k_cache, v_cache, n1s, n1b,
-                                     wqkv, heads=heads, head_dim=head_dim,
-                                     commit=commit, wqkv_s=wqkv_s,
-                                     ks_cache=ks_cache, vs_cache=vs_cache)
+        out = decode_attn_reference(x, pos, k_cache, v_cache, n1s, n1b,
+                                    wqkv, heads=heads, head_dim=head_dim,
+                                    commit=commit, wqkv_s=wqkv_s,
+                                    ks_cache=ks_cache, vs_cache=vs_cache)
+        if rows is None:
+            return out
+        for row, new in zip(rows, out[1:]):
+            row.copy_(new)
+        return (out[0], *rows)
     _check_head_dim("decode_attn", head_dim)
     quantized = wqkv_s is not None
     caches = [(k_cache, (t, b, c)), (v_cache, (t, b, c))]
     _check("decode_attn", [(x, (b, c))]
            + ([(wqkv_s, (3 * c,))] if quantized else [(wqkv, (c, 3 * c))])
-           + ([] if int8_kv else caches),
+           + ([] if int8_kv else caches)
+           + [(row, (b, c)) for row in rows or ()],
            [(n1s, (c,)), (n1b, (c,))]
            + ([(ks_cache, (t, b, 1)), (vs_cache, (t, b, 1))] if int8_kv
               else []),
@@ -330,6 +344,8 @@ def _decode_attn(x, pos, k_cache, v_cache, n1s, n1b, wqkv, *, heads,
     q, out = torch.empty_like(x), torch.empty_like(x)
     if commit and not int8_kv:
         kn, vn = k_cache[pos], v_cache[pos]
+    elif rows is not None:
+        kn, vn = rows
     else:
         kn, vn = torch.empty_like(x), torch.empty_like(x)
     knf, vnf = ((torch.empty((b, c), dtype=torch.float32, device=x.device)
@@ -423,36 +439,64 @@ def _decode_post_ff(x, attn, cross_k, cross_v, wo, bo, n2s, n2b, wq2, wo2,
     return out
 
 
+class RowCommit:
+    """One request's batched commit: for fixed caches ([T, B, C] each) and
+    rows ([B, C] or [1, B, C] each), `commit_rows`'s checks, its pointer
+    table and the caches' device, made once; then each call `(pos)`
+    writes rows[i] into caches[i] at row pos, in place and in one launch
+    (csrc/commit_rows.cu), and returns the caches. The rows are read when
+    the launch runs, so a caller may rewrite them between calls
+    (`FusedDecoder` keeps its deferred rows in one buffer a request)."""
+
+    def __init__(self, caches: Sequence[torch.Tensor],
+                 rows: Sequence[torch.Tensor]):
+        n = len(caches)
+        if n != len(rows) or n == 0:
+            raise ValueError(f"commit_rows: {n} caches, {len(rows)} rows")
+        t, b, c = caches[0].shape
+        if any(tuple(r.shape[-2:]) != (b, c) or r.numel() != b * c
+               for r in rows) or any(k.shape != (t, b, c) for k in caches):
+            raise ValueError(f"commit_rows: caches "
+                             f"{[tuple(k.shape) for k in caches]}, rows "
+                             f"{[tuple(r.shape) for r in rows]}")
+        self.caches, self.rows, self.t = list(caches), list(rows), t
+        self.cpu = _on_cpu(*caches, *rows)
+        if self.cpu:
+            return
+        _check("commit_rows", [(k, (t, b, c)) for k in caches]
+               + [(r, tuple(r.shape)) for r in rows])
+        if n > MAX_COMMIT:
+            raise ValueError(f"commit_rows: {n} caches, at most "
+                             f"{MAX_COMMIT} per launch")
+        dev = caches[0].device.index
+        table = (ctypes.c_void_p * (2 * n))(*(_p(a) for a in self.rows
+                                                + self.caches))
+        self._launch = functools.partial(_build.load().rdm_commit_rows,
+                                         table, n)
+        self._size = (b * c, sm_count(dev), dev)
+        raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+        self._stream = (functools.partial(raw, dev) if raw is not None
+                        else lambda: torch.cuda.current_stream(
+                            dev).cuda_stream)
+
+    def __call__(self, pos: int) -> List[torch.Tensor]:
+        _check_pos("commit_rows", pos, self.t)
+        if self.cpu:
+            return commit_rows_reference(pos, self.caches, self.rows)
+        rc = self._launch(pos, *self._size, self._stream())
+        if rc:
+            _build.check(rc, "commit_rows")
+        _launches["commit_rows"] += 1
+        return self.caches
+
+
 def commit_rows(pos: int, caches: Sequence[torch.Tensor],
                 rows: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """Write rows[i] ([B, C] or [1, B, C]) into caches[i] ([T, B, C]) at row
-    pos, for every i, in place and in one launch; returns the caches."""
-    n = len(caches)
-    if n != len(rows) or n == 0:
-        raise ValueError(f"commit_rows: {n} caches, {len(rows)} rows")
-    t, b, c = caches[0].shape
-    _check_pos("commit_rows", pos, t)
-    if any(tuple(r.shape[-2:]) != (b, c) or r.numel() != b * c
-           for r in rows) or any(k.shape != (t, b, c) for k in caches):
-        raise ValueError(f"commit_rows: caches "
-                         f"{[tuple(k.shape) for k in caches]}, rows "
-                         f"{[tuple(r.shape) for r in rows]}")
-    if _on_cpu(*caches, *rows):
-        return commit_rows_reference(pos, caches, rows)
-    _check("commit_rows", [(k, (t, b, c)) for k in caches]
-           + [(r, tuple(r.shape)) for r in rows])
-    if n > MAX_COMMIT:
-        raise ValueError(f"commit_rows: {n} caches, at most {MAX_COMMIT} "
-                         "per launch")
-    ptrs = ctypes.c_void_p * n
-    lib = _build.load()
-    with torch.cuda.device(caches[0].device):
-        rc = lib.rdm_commit_rows(ptrs(*(_p(r) for r in rows)),
-                                 ptrs(*(_p(k) for k in caches)), n, pos,
-                                 b * c, _stream(caches[0]))
-    _build.check(rc, "commit_rows")
-    _launches["commit_rows"] += 1
-    return list(caches)
+    pos, for every i, in place and in one launch; returns the caches. A
+    caller that commits the same tensors every step builds a `RowCommit`
+    once instead."""
+    return RowCommit(caches, rows)(pos)
 
 
 def reset_launch_counts() -> None:
@@ -471,7 +515,7 @@ def decode_layer(x: torch.Tensor, pos: int, k_cache: torch.Tensor,
                  cross_v: torch.Tensor, w: Dict[str, torch.Tensor], *,
                  heads: int, head_dim: int, defer_commit: bool = False,
                  ks_cache: Optional[torch.Tensor] = None,
-                 vs_cache: Optional[torch.Tensor] = None):
+                 vs_cache: Optional[torch.Tensor] = None, rows=None):
     """One RARM layer for one token through the decode kernels.
 
     x [B, C]; caches [T, B, C]; cross_k/v [S, B, C]; w one layer's dict
@@ -480,7 +524,8 @@ def decode_layer(x: torch.Tensor, pos: int, k_cache: torch.Tensor,
     in the int8_weights mode). Returns (x_out, k_cache, v_cache) with row
     pos of both caches written in place, or, with defer_commit, (x_out,
     k_row, v_row) with the rows [1, B, C] left for one `commit_rows` call
-    over all layers (the caches are then untouched). With ks_cache /
+    over all layers (the caches are then untouched), written into `rows`
+    ([B, C] each) where given. With ks_cache /
     vs_cache (int8 caches, [T, B, 1] f32 scales) it returns (x_out,
     k_cache, v_cache, ks_cache, vs_cache), all committed in place;
     defer_commit is refused there."""
@@ -494,7 +539,7 @@ def decode_layer(x: torch.Tensor, pos: int, k_cache: torch.Tensor,
                                w["wqkv"], heads=heads, head_dim=head_dim,
                                commit=not defer_commit,
                                wqkv_s=w.get("wqkv_s"), ks_cache=ks_cache,
-                               vs_cache=vs_cache)
+                               vs_cache=vs_cache, rows=rows)
     xo = decode_post_ff(x, attn, cross_k, cross_v, w["wo"], w["bo"],
                         w["n2s"], w["n2b"], w["wq2"], w["wo2"], w["bo2"],
                         w["n3s"], w["n3b"], w["wa"], w["wg"], w["ba"],

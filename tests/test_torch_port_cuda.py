@@ -24,8 +24,9 @@ both weight modes, in a CUDA graph and from a new thread; for the int8
 kernels R = 80 rows, a half-filled last 128-channel scale group, two
 512-row q scale cells and C = 672 at T = 20, post_cross_q's and
 geglu_ff_q's s8 launches bit-equal over two calls and a CUDA graph, and
-the int8 gate one step past C = 1,536; for post_ff R = 80 rows and
-16 context tokens; for the kNN N not a multiple of the 64-row chunk,
+the int8 gate one step past C = 1,536; for post_ff R = 80 rows, 16
+context tokens and C = 992 and 1,024 (past the first version's 960: its
+FF launch over clusters of 16 CTAs, non-portable); for the kNN N not a multiple of the 64-row chunk,
 B = 17 and 40 over two and three 16-query tiles, k = 1 and 128,
 duplicate rows in different slices).
 Tolerance: max|err| <= 2e-2 x max|ref| in bf16, as chip_smoke.py sets it
@@ -162,10 +163,12 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("heads,b,s,t", [(12, 2, 64, 4), (4, 2, 40, 16),
-                                         (30, 1, 64, 4)])
+                                         (30, 1, 64, 4), (32, 1, 64, 4),
+                                         (31, 2, 40, 4)])
 def test_post_ff_matches_plain(cuda, heads, b, s, t, monkeypatch):
-    """The single post-attention kernel against its plain version, and the
-    block's route with RDM_TPU_SPLIT_K3=0 against the split pair's."""
+    """post_ff (post_cross's three launches, then its FF launch) against
+    its plain version, and the block's route with RDM_TPU_SPLIT_K3=0
+    against the split pair's, at C up to 1,024."""
     c = heads * HD
     blk = _block(heads, c, seed=heads + 1)
     w = bk.pack_block_weights(blk, torch.bfloat16)
@@ -249,18 +252,25 @@ def test_block_gemm_kernels_match_plain(cuda, c, b, s, t):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("heads,b,s,t", [(12, 2, 64, 4), (4, 2, 40, 16),
-                                         (30, 1, 64, 4)])
+                                         (30, 1, 64, 4), (31, 2, 64, 4),
+                                         (32, 3, 40, 16)])
 def test_post_ff_matches_split_pair(cuda, heads, b, s, t):
-    """The single post_ff kernel (#9, unchanged) against geglu_ff(post_cross)
-    on the same inputs. The pair sums in the block-GEMM core's order, so
-    the two agree within TOL, no longer bit for bit."""
+    """post_ff against geglu_ff(post_cross) on the same inputs, at C up to
+    1,024 (992 and 1,024 past the first version's limit): its xm is
+    post_cross's to the bit (the same launcher and plans), y within TOL
+    (the FF launch sums f's slices across its cluster in rank order), and
+    two calls bit-equal (no atomics)."""
     c = heads * HD
     pc, ff = _gemm_inputs(c, b, s, t, seed=heads)
-    single = bk.post_ff(*pc, *ff, heads=heads, head_dim=HD)
-    pair = bk.geglu_ff(bk.post_cross(*pc, heads=heads,
-                                     head_dim=HD).reshape(b * s, c), *ff)
+    single, xm = bk._post_ff(*pc, *ff, heads=heads, head_dim=HD)
+    xm_pair = bk.post_cross(*pc, heads=heads, head_dim=HD)
+    pair = bk.geglu_ff(xm_pair.reshape(b * s, c), *ff)
+    again = bk.post_ff(*pc, *ff, heads=heads, head_dim=HD)
     torch.cuda.synchronize()
+    assert torch.equal(xm, xm_pair)
+    assert torch.isfinite(single).all()
     assert _rel_err(single, pair.reshape(b, s, c)) <= TOL
+    assert torch.equal(single, again)
 
 
 @pytest.mark.cuda
@@ -730,6 +740,43 @@ def test_decode_kernels_match_plain(cuda, b, heads, t, pos, s, commit):
     assert dk.launch_counts() == dict(
         dict.fromkeys(dk.KERNEL_NAMES, 0), decode_attn=1, decode_post_ff=1,
         commit_rows=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,t", [(16, 768, 256), (32, 768, 256),
+                                   (3, 192, 64), (1, 64, 8)])
+def test_row_commit_per_request(cuda, b, c, t):
+    """RowCommit (the step's commit: checks and pointer table once, one
+    launch of TMA bulk copies a call) over one row buffer rewritten before
+    each call, at pos 0, T - 1 and between, against the plain version bit
+    for bit, every other row untouched; one count a call; and in a CUDA
+    graph."""
+    g = torch.Generator(device="cuda").manual_seed(b + t)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").bfloat16()
+
+    n = 36 if c == 768 else 4
+    mine = [rn(t, b, c) for _ in range(n)]
+    plain = [m.clone() for m in mine]
+    buf = torch.empty((n, b, c), device="cuda", dtype=torch.bfloat16)
+    commit = dk.RowCommit(mine, list(buf))
+    dk.reset_launch_counts()
+    for pos in (0, t - 1, t // 2):
+        buf.copy_(rn(n, b, c))
+        commit(pos)
+        dk.commit_rows_reference(pos, plain, list(buf))
+    torch.cuda.synchronize()
+    assert all(torch.equal(m, p) for m, p in zip(mine, plain))
+    assert dk.launch_counts()["commit_rows"] == 3
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        commit(1)
+    buf.copy_(rn(n, b, c))
+    graph.replay()
+    dk.commit_rows_reference(1, plain, list(buf))
+    torch.cuda.synchronize()
+    assert all(torch.equal(m, p) for m, p in zip(mine, plain))
 
 
 @pytest.mark.cuda

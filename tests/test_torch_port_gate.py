@@ -66,18 +66,22 @@ def test_block_refusal(head_dim, t, c, int8, split_k3):
 
 def test_post_ff_gate_mirrors_its_launcher():
     """Under RDM_TPU_SPLIT_K3=0 the gate refuses a block where post_ff's
-    launcher would (its shared memory, csrc/post_ff.cu `post_ff_smem`),
-    so the block raises before ln_qkv's launch: C up to 960 (every RDM
-    site) runs, 992 and wider refuse."""
+    launchers would: post_cross's plans and the FF launch's (`ff_plan`:
+    the LN3 panel, an f slice and a ring of four stages in a CTA's shared
+    memory, over up to 16 ranks), so the block raises before ln_qkv's
+    launch: C up to 1,024 runs (every RDM site, and C = 992 and 1,024,
+    which the first version's shared memory refused), 1,056 and wider
+    refuse."""
     for c in range(32, 2049, 32):
         got = bk.block_refusal(c, 4, c // 32, 32, 4 * c, int8=False,
                                split_k3=False)
-        if c <= 960:
+        if c <= 1024:
             assert got is None, (c, got)
         else:
             assert got is not None and "shared memory" in got, (c, got)
-    assert bk.kernel_refusal("post_ff", 992, f=3968).startswith(
-        "post_ff: C=992 leaves no room in shared memory")
+    assert bk.kernel_refusal("post_ff", 1024, f=4096) is None
+    assert bk.kernel_refusal("post_ff", 1056, f=4224).startswith(
+        "post_ff: ff_plan: C=1056, F=4224 leaves no room in shared memory")
 
 
 def _sites(cfg: pc.UNetConfig):

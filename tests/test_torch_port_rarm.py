@@ -336,3 +336,29 @@ def test_pipeline_matches_jax_greedy(kind):
     assert images.shape == (2, 8, 8, 3) and images.dtype == np.uint8
     diff = np.abs(images.astype(np.int32) - want[key].astype(np.int32))
     assert diff.max() <= 1
+
+
+def test_row_commit_per_request_matches_jax():
+    """The per-request commit (`RowCommit`: checks and pointer table once,
+    a launch a step on the card; the plain version here) over one row
+    buffer rewritten each step, as FusedDecoder keeps it, against JAX's
+    `commit_rows` step by step; the caches updated in place."""
+    rng = np.random.default_rng(19)
+    caches = [rng.standard_normal((6, 3, 16)).astype(np.float32)
+              for _ in range(4)]
+    mine = [torch.from_numpy(a.copy()) for a in caches]
+    buf = torch.zeros((4, 3, 16))
+    commit = dk.RowCommit(mine, list(buf))
+    want = [jnp.asarray(a) for a in caches]
+    for pos in (0, 4, 5, 2):
+        rows = rng.standard_normal((4, 1, 3, 16)).astype(np.float32)
+        buf.copy_(torch.from_numpy(rows[:, 0]))
+        got = commit(pos)
+        want = jdk.commit_rows(jnp.int32(pos), want,
+                               [jnp.asarray(r) for r in rows],
+                               interpret=True)
+        for g, m, w in zip(got, mine, want):
+            assert g is m
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    with pytest.raises(ValueError, match="pos 6 outside"):
+        commit(6)
