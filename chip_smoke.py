@@ -8,8 +8,8 @@ the ImageNet RDM width (exact bf16, and the int8 and encoder-reuse serving
 modes), and KV-cached RARM token sampling at the ImageNet-dogs RARM width
 — RDM training at the ImageNet RDM width, and the CLIP-queried requests
 (captions, inpainting, adaptive re-retrieval, the nn-memory build) with a
-ViT-B/32 CLIP, through their public entry points, on random weights made
-from a seed.
+ViT-B/32 CLIP, and RARM training at the ImageNet-dogs width, through
+their public entry points, on random weights made from a seed.
 Phases (each prints one line or a few; any failure raises and the script
 exits non-zero):
 
@@ -151,9 +151,16 @@ exits non-zero):
                10 flash_fwd + 10 flash_bwd launches per step and no block
                kernel; finite loss and grad_norm; every parameter with a
                gradient; a second trainer resumes equal to the saved state
-               and continues; steps with RDM_TPU_FLASH_BWD=xla; a batch-2
-               step's gradients against the CUDA f32 plain path
-               (TRAIN_GRAD_TOL); step time, samples/s, peak memory.
+               and continues; steps with RDM_TPU_FLASH_BWD=xla; then 2
+               steps of `fit` with RDM_TPU_FUSED_BLOCK_TRAIN=1 (the fused
+               blocks' training path, fused_transformer_block_ad): 16
+               launches of each of ln_qkv, packed_attn, post_cross and
+               geglu_ff per step and no flash launch (the blocks are the
+               U-Net's only attention sites), step time and peak memory
+               beside the unfused steps (context: the default stays off);
+               a batch-2 step's gradients, unfused and fused blocks, each
+               against the CUDA f32 plain path (TRAIN_GRAD_TOL); step
+               time, samples/s, peak memory.
  17. knn       the kNN kernel pair (csrc/knn_topk.cu: a TMA + wgmma
                search, then the merge) against its plain version (f64
                sums, stable sort) over phase 5's 1,281,280 x 512 table in
@@ -177,6 +184,28 @@ exits non-zero):
                256 (top-1 the query itself unless a duplicate ties); the
                RARMPipeline's caption embedding equals the RDMPipeline's.
 
+ 19. rarm_train  RARMTrainer at the ImageNet-dogs width (depth 18, C =
+               768, 12 heads of 64, S = 256; phase 8's VQ-f16 first stage,
+               configs/rarm/dogs.yaml's batch 16, base lr 5e-6 and
+               accumulate 2, bf16 compute, f32 master weights, random
+               256^2 images, k = 4 neighbours from phase 5's table): 8
+               steps of `fit` with a checkpoint mid-way and validation; 18
+               flash_fwd launches per step (one causal self-attention a
+               block) and 18 flash_bwd where the d = 64 backward is the
+               kernel by default, 0 where it is the eager recompute, no
+               other kernel; finite loss and grad_norm; every parameter
+               with a gradient; a second trainer resumes equal to the saved
+               state and continues; one step with p_mask_max 0.25; step
+               time, samples/s and peak memory with RDM_TPU_FLASH_BWD=pallas
+               and =xla in one P X X P round; a batch-2 step's gradients
+               against the CUDA f32 plain path (RARM_TRAIN_GRAD_TOL, over
+               all of them and over each part: attn1's q, k, v and out
+               projections, the cross-attention, the FF, the norms, the
+               head, the embeddings), and the same gate refusing each of
+               RARM_GRAD_FAULTS planted in flash_bwd's output.
+
+Each phase's wall seconds follow it on a line of their own.
+
 The second-to-last line is one JSON object with the per-kernel numbers:
 name, route, source, replaces, launches, max_abs_err, ms, plain_ms,
 bound_ms (the larger of operations over the card's peak for their type
@@ -184,8 +213,9 @@ and bytes over its memory rate, for this run's shapes), bound_by and
 library_ms (scaled_dot_product_attention where it computes the same
 function, else null). For the block kernels and their int8 variants the
 times are the sum over the three sites, `max_abs_err` the largest over the
-sites, and `launches` the count over the two RDM serve requests (int8:
-over the int8 requests of phase 11); for the decode kernels the times are
+sites, and `launches` the count over the two RDM serve requests and, for
+the four bf16 block kernels, phase 16's fused-block training steps
+(`launches_by_phase` splits it; int8: over the int8 requests of phase 11); for the decode kernels the times are
 the mean over the eight (B, pos) cases, `max_abs_err` the largest, and
 `launches` the count over the two RARM requests (`commit_rows`: over the
 batched-commit decode, the path that runs it); their int8 variants the
@@ -198,7 +228,7 @@ torch._foreach_copy_ over the row-pos views); post_ff
 the sum over the sites, `launches` over phase 14's post_ff requests;
 flash_fwd / flash_bwd the sum over phase 15's three shapes (`library_ms`:
 SDPA forward, and forward + backward), `launches` over the first
-trainer's 8 steps of phase 16; knn the op point B = 16, k = 4 of phase 17
+trainers' 8 steps of phases 16 and 19 (`launches_by_phase` splits it); knn the op point B = 16, k = 4 of phase 17
 (every case under `cases`; `library_ms` torch.topk(q @ db.T), two calls
 with no promise on tie order), `launches` over phase 18's requests and
 nn-memory build. The rows of packed_attn and flash_fwd, one core, name its
@@ -350,6 +380,39 @@ FLASH_SHAPES = ((40, 1024, 12, 32, False), (40, 256, 18, 32, False),
 TRAIN_BATCH = 40   # configs/rdm/imagenet.yaml:44
 TRAIN_STEPS = 8    # the first trainer's; a checkpoint after the 5th
 FLASH_PER_STEP = 10  # ds-2 and ds-4 sites hold 5 blocks each
+# Phase 16's fit with RDM_TPU_FUSED_BLOCK_TRAIN=1: each of the four block
+# kernels once a block a step, over the U-Net's 16 blocks
+FUSED_TRAIN_STEPS = 2
+FUSED_TRAIN_KERNELS = ("ln_qkv", "packed_attn", "post_cross", "geglu_ff")
+FUSED_PER_STEP = 16
+# Phase 19: the RARM at configs/rarm/dogs.yaml's batch, 8 steps of fit (a
+# checkpoint after the 5th), one step of the mask-token augmentation, and
+# the d = 64 backward's A/B (RDM_TPU_FLASH_BWD) in one P X X P round
+RARM_TRAIN_BATCH = 16
+RARM_TRAIN_STEPS = 8
+RARM_P_MASK_MAX = 0.25
+RARM_AB_ROUNDS = ("pallas", "xla", "xla", "pallas")
+RARM_AB_STEPS = 4
+# A batch-2 RARM step, the bf16 kernel path against the CUDA f32 plain
+# path, relative L2 of all 230.9M gradients and of each part (attn1's q,
+# k, v and out projections, the cross-attention, the FF, the norms, the
+# head, the embeddings). The residual stream grows through 18 layers
+# (norm ~120 at the head at these weights) and every layer rounds it to
+# bf16: the JAX package's own bf16 step sits 3.05e-2 from its f32 step at
+# depth 18 (tests/test_torch_port_rarm_train.py's slow test, on the CPU at
+# C = 128 with 2 heads, where the port's sits 2.8e-2 from its own). On an NVIDIA H100
+# 80GB HBM3 at 700 W the sound runs measured 3.0e-2 to 3.9e-2 over all and
+# 2.8e-2 to 4.6e-2 in the parts; the planted faults below put their worst
+# part at 0.85 to 1.0 and the whole at 0.19 to 0.65. The limit sits
+# between: 8e-2, not the RDM's TRAIN_GRAD_TOL.
+RARM_TRAIN_GRAD_TOL = 8e-2
+# Faults planted in the flash backward kernel's (dq, dk, dv) for the
+# batch-2 step above: the gate must refuse each of them
+RARM_GRAD_FAULTS = {
+    "dq zeroed": lambda dq, dk, dv: (torch.zeros_like(dq), dk, dv),
+    "dk zeroed": lambda dq, dk, dv: (dq, torch.zeros_like(dk), dv),
+    "dv halved": lambda dq, dk, dv: (dq, dk, dv * 0.5),
+}
 # One full-width train step at batch 2, the bf16 kernel path against the
 # CUDA f32 plain path (RDM_TPU_FLASH=0) on the same draws, relative L2 of
 # all 400.9M gradients: bf16 activations through the U-Net's ~60 residual
@@ -2722,10 +2785,11 @@ def phase_train(rdm_sd: dict, vq_sd: dict, emb: torch.Tensor) -> dict:
         tr.step_fn = counted
         return tr
 
-    def check_counts(steps, fwd, bwd, what):
+    def check_counts(steps, fwd, bwd, what, blocks=0):
         for c in steps:
             want = dict.fromkeys(c, 0)
             want.update(flash_fwd=fwd, flash_bwd=bwd)
+            want.update(dict.fromkeys(FUSED_TRAIN_KERNELS, blocks))
             if c != want:
                 raise RuntimeError(f"{what}: launches per step {c}, "
                                    f"expected {want}")
@@ -2807,21 +2871,56 @@ def phase_train(rdm_sd: dict, vq_sd: dict, emb: torch.Tensor) -> dict:
             f"{batch / xla_med:.2f} samples/s, against {med * 1e3:.1f} ms "
             f"with the backward kernel")
 
-        # one batch-2 step, bf16 kernel path against CUDA f32 plain path
+        # the fused blocks in training (RDM_TPU_FUSED_BLOCK_TRAIN=1, off by
+        # default): context only, beside the unfused steps above
+        os.environ["RDM_TPU_FUSED_BLOCK_TRAIN"] = "1"
+        per_step.clear()
+        step_s.clear()
+        torch.cuda.reset_peak_memory_stats()
+        tr2.ckpt.save = lambda *a, **k: None  # nothing reads these
+        state2 = tr2.fit(_Take(batches, FUSED_TRAIN_STEPS), state=state2,
+                         max_steps=state2.step + FUSED_TRAIN_STEPS)
+        fused_peak = torch.cuda.max_memory_allocated() / 2**30
+        os.environ.pop("RDM_TPU_FUSED_BLOCK_TRAIN")
+        check_counts(per_step, 0, 0, "RDM_TPU_FUSED_BLOCK_TRAIN=1",
+                     blocks=FUSED_PER_STEP)
+        fused_launches = {n: sum(c[n] for c in per_step)
+                          for n in FUSED_TRAIN_KERNELS}
+        fused_ms = [t * 1e3 for t in step_s]
+        say("train", f"RDM_TPU_FUSED_BLOCK_TRAIN=1: {FUSED_TRAIN_STEPS} steps "
+            f"of fit at batch {batch}, {FUSED_PER_STEP} launches of each of "
+            f"{', '.join(FUSED_TRAIN_KERNELS)} per step (the U-Net's 16 "
+            "blocks), no flash_fwd / flash_bwd (the blocks are the U-Net's "
+            "only attention sites); step " + " / ".join(
+                f"{t:.1f}" for t in fused_ms) + f" ms against the unfused "
+            f"{med * 1e3:.1f} ms median; peak device memory "
+            f"{fused_peak:.2f} GiB (the unfused fit's {peak_gib:.2f})")
+
+        # one batch-2 step, the bf16 kernel paths (unfused blocks, fused
+        # blocks) against the CUDA f32 plain path on the same draws
         model = state2.model
         z, nns = tr2.prepare_batch(next(_train_batches(emb, 2, SEED + 61)))
         z = z.float()
         grads, losses = {}, {}
-        for path in ("bf16", "f32"):
+        for path in ("bf16", "fused", "f32"):
+            if path == "fused":
+                os.environ["RDM_TPU_FUSED_BLOCK_TRAIN"] = "1"
             if path == "f32":
                 os.environ["RDM_TPU_FLASH"] = "0"
                 model.unet.dtype = torch.float32
             fa.reset_launch_counts()
+            bk.reset_launch_counts()
             loss, _, g = compute_grads(model, z, nns,
                                        fold_in(SEED, 0, "cuda"), tr2.schedule)
-            counts = fa.launch_counts()
-            want = ({"flash_fwd": FLASH_PER_STEP, "flash_bwd": FLASH_PER_STEP}
-                    if path == "bf16" else {"flash_fwd": 0, "flash_bwd": 0})
+            os.environ.pop("RDM_TPU_FUSED_BLOCK_TRAIN", None)
+            counts = {**fa.launch_counts(), **bk.launch_counts()}
+            want = dict.fromkeys(counts, 0)
+            if path == "bf16":
+                want.update(flash_fwd=FLASH_PER_STEP,
+                            flash_bwd=FLASH_PER_STEP)
+            if path == "fused":
+                want.update(dict.fromkeys(FUSED_TRAIN_KERNELS,
+                                          FUSED_PER_STEP))
             if counts != want:
                 raise RuntimeError(f"{path} step: launches {counts}")
             losses[path] = loss.item()
@@ -2830,21 +2929,31 @@ def phase_train(rdm_sd: dict, vq_sd: dict, emb: torch.Tensor) -> dict:
                 .float() for n, p in model.named_parameters()])
         os.environ.pop("RDM_TPU_FLASH")
         model.unet.dtype = torch.bfloat16
-        gb, gf = grads["bf16"], grads["f32"]
-        rel = ((gb - gf).norm() / gf.norm()).item()
-        loss_rel = abs(losses["bf16"] - losses["f32"]) / abs(losses["f32"])
-        say("train", f"batch-2 step, bf16 kernel path vs CUDA f32 plain path"
-            f" (RDM_TPU_FLASH=0), same draws: loss {losses['bf16']:.6f} vs "
-            f"{losses['f32']:.6f} (rel {loss_rel:.3e}); gradients rel L2 "
-            f"{rel:.3e} (limit {TRAIN_GRAD_TOL:g}), cosine "
-            f"{torch.nn.functional.cosine_similarity(gb, gf, dim=0).item():.6f}")
-        if not (rel <= TRAIN_GRAD_TOL and torch.isfinite(gb).all()):
-            raise RuntimeError(f"bf16 gradients rel L2 {rel} > "
-                               f"{TRAIN_GRAD_TOL}")
+        gf = grads["f32"]
+        rels, loss_rels = {}, {}
+        for path in ("bf16", "fused"):
+            gb = grads[path]
+            rels[path] = ((gb - gf).norm() / gf.norm()).item()
+            loss_rels[path] = (abs(losses[path] - losses["f32"])
+                               / abs(losses["f32"]))
+            say("train", f"batch-2 step, bf16 kernel path "
+                f"({'fused blocks' if path == 'fused' else 'unfused blocks'})"
+                f" vs CUDA f32 plain path (RDM_TPU_FLASH=0), same draws: "
+                f"loss {losses[path]:.6f} vs {losses['f32']:.6f} (rel "
+                f"{loss_rels[path]:.3e}); gradients rel L2 {rels[path]:.3e} "
+                f"(limit {TRAIN_GRAD_TOL:g}), cosine "
+                f"{torch.nn.functional.cosine_similarity(gb, gf, dim=0).item():.6f}")
+            if not (rels[path] <= TRAIN_GRAD_TOL
+                    and torch.isfinite(gb).all()):
+                raise RuntimeError(f"{path} gradients rel L2 {rels[path]} > "
+                                   f"{TRAIN_GRAD_TOL}")
         return {"launches": launches, "step_ms": med * 1e3,
                 "samples_per_s": batch / med, "xla_bwd_step_ms":
-                xla_med * 1e3, "peak_gib": peak_gib, "grad_rel_l2": rel,
-                "loss_rel": loss_rel, "batch": batch}
+                xla_med * 1e3, "peak_gib": peak_gib,
+                "grad_rel_l2": rels["bf16"], "loss_rel": loss_rels["bf16"],
+                "batch": batch, "fused_launches": fused_launches,
+                "fused_step_ms": fused_ms, "fused_peak_gib": fused_peak,
+                "fused_grad_rel_l2": rels["fused"]}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
@@ -3187,6 +3296,323 @@ def phase_clip_serve(rdm_sd: dict, vq_sd: dict, emb: torch.Tensor,
     return out
 
 
+def _rarm_part(name: str) -> str:
+    """The part of the RARM a parameter belongs to, for the gradient
+    gate: each of attn1's projections, the cross-attention, the FF, the
+    norms, the head and the embeddings."""
+    if name.startswith("proj_out"):
+        return "head"
+    if not name.startswith("transformer_blocks"):
+        return "embeddings"
+    for key, part in ((".attn1.to_q.", "attn1.q"), (".attn1.to_k.", "attn1.k"),
+                      (".attn1.to_v.", "attn1.v"),
+                      (".attn1.to_out.", "attn1.out"), (".attn2.", "cross"),
+                      (".ff.", "ff")):
+        if key in name:
+            return part
+    return "norms"
+
+
+def _rarm_grad_rel(model, got: torch.Tensor, want: torch.Tensor):
+    """Relative L2 of flat gradients (in named_parameters' order) over all
+    of them and over each `_rarm_part`."""
+    parts, at = {}, 0
+    for n, p in model.named_parameters():
+        parts.setdefault(_rarm_part(n), []).append(slice(at, at + p.numel()))
+        at += p.numel()
+    by_part = {}
+    for part, sl in parts.items():
+        g_, w_ = (torch.cat([t[x] for x in sl]) for t in (got, want))
+        by_part[part] = ((g_ - w_).norm() / w_.norm()).item()
+    return ((got - want).norm() / want.norm()).item(), by_part
+
+
+def phase_rarm_train(rarm_sd: dict, vq_sd: dict, emb: torch.Tensor) -> dict:
+    """Phase 19: RARMTrainer at the ImageNet-dogs width; returns the flash
+    kernels' launches over the first trainer's steps and the step
+    numbers."""
+    import os
+    import shutil
+    import tempfile
+
+    from rdm_tpu_torch.config import AutoencoderConfig, RARMConfig
+    from rdm_tpu_torch.ops import block_kernel as bk
+    from rdm_tpu_torch.ops import decode_kernel as dk
+    from rdm_tpu_torch.ops import flash_attention as fa
+    from rdm_tpu_torch.training.train_state import (compute_rarm_grads,
+                                                    make_rarm_train_step)
+    from rdm_tpu_torch.training.trainer import RARMTrainer, TrainerConfig
+
+    cfg = RARMConfig.imagenet_dogs()
+    batch = RARM_TRAIN_BATCH
+    per_fwd = cfg.depth  # one causal self-attention a block
+    kernel_bwd = fa._use_kernel_bwd(cfg.head_dim, "cuda")
+    tmp = tempfile.mkdtemp(prefix="rarm_train_smoke_")
+    per_step, step_s = [], []
+
+    def counts():
+        return {**fa.launch_counts(), **bk.launch_counts(),
+                **dk.launch_counts()}
+
+    def reset():
+        for mod in (fa, bk, dk):
+            mod.reset_launch_counts()
+
+    def make(max_steps: int):
+        tcfg = TrainerConfig(
+            logdir=os.path.join(tmp, "run"), base_lr=5e-6,
+            accumulate_grad_batches=2, max_steps=max_steps, log_every=1,
+            ckpt_every=4, image_log_every=0, max_ckpts=1, val_batches=1,
+            monitor="val/loss_ema")
+        tr = RARMTrainer(cfg, tcfg, AutoencoderConfig.vq_f16(), vq_sd,
+                         batch_size=batch, device="cuda",
+                         init_state_dict=rarm_sd)
+        inner = tr.step_fn
+
+        def counted(state, z, nns, seed, **kw):
+            reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner(state, z, nns, seed, **kw)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            per_step.append(counts())
+            m = out[1]
+            if not (torch.isfinite(m["loss"]) and torch.isfinite(
+                    m["grad_norm"])):
+                raise RuntimeError(f"RARM train step: non-finite {m}")
+            return out
+
+        tr.step_fn = counted
+        return tr
+
+    def check_counts(steps, bwd, what):
+        for c in steps:
+            want = dict.fromkeys(c, 0)
+            want.update(flash_fwd=per_fwd, flash_bwd=bwd)
+            if c != want:
+                raise RuntimeError(f"{what}: launches per step {c}, "
+                                   f"expected {want}")
+
+    bwd_default = per_fwd if kernel_bwd else 0
+    try:
+        batches = _train_batches(emb, batch, SEED + 70)
+        torch.cuda.reset_peak_memory_stats()
+        tr1 = make(RARM_TRAIN_STEPS)
+        saved, save = [], tr1.ckpt.save
+        tr1.ckpt.save = lambda step, *a, **k: (saved.append(step),
+                                               save(step, *a, **k))
+        t0 = time.perf_counter()
+        state1 = tr1.fit(_Take(batches, RARM_TRAIN_STEPS),
+                         val_loader=_Take(batches, 1))
+        fit_s = time.perf_counter() - t0
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        check_counts(per_step, bwd_default, "fit")
+        launches = {n: sum(c[n] for c in per_step) for n in FLASH_INFO}
+        missing = [n for n, p in state1.model.named_parameters()
+                   if p.grad is None]
+        if missing or state1.step != RARM_TRAIN_STEPS:
+            raise RuntimeError(f"step {state1.step}; parameters without a "
+                               f"gradient: {missing[:5]} ({len(missing)})")
+        if saved != [5, RARM_TRAIN_STEPS]:
+            raise RuntimeError(f"checkpoints saved at steps {saved}")
+        with open(os.path.join(tmp, "run", "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        val = [r["val/loss_ema"] for r in rows if "val/loss_ema" in r]
+        loss = [r["loss"] for r in rows if "loss" in r]
+        if len(val) != 1 or not np.isfinite(val + loss).all():
+            raise RuntimeError(f"validation {val}, losses {loss}")
+        n_params = sum(p.numel() for p in state1.model.parameters())
+        # a step's operations: 6 per matmul weight per token (the embedding
+        # and positional tables are lookups), the causal self-attention's
+        # 12 B S^2 C / 2 a block (forward and backward; the k cross rows
+        # are left out), and the time they take at the bf16 peak
+        m = state1.model
+        n_mm = n_params - m.proj_in.weight.numel() \
+            - m.positional_encoding.numel()
+        tokens, s_ = batch * cfg.seq_len, cfg.seq_len
+        step_ops = (6 * n_mm * tokens
+                    + cfg.depth * 6 * batch * s_ * s_ * cfg.inner_dim)
+        peak_ms = bound(ops16=step_ops)[0]
+        med = float(np.median(step_s[1:]))
+        say("rarm_train", f"ImageNet-dogs RARM ({n_params / 1e6:.1f}M "
+            f"parameters, VQ-f16 first stage), batch {batch}, bf16 compute / "
+            f"f32 master weights, lr {tr1.lr:.2e}: {RARM_TRAIN_STEPS} steps "
+            f"in {fit_s:.1f} s (fit, checkpoints and validation included); "
+            f"step {med * 1e3:.1f} ms median after the first "
+            f"({step_s[0]:.2f} s), {batch / med:.2f} samples/s; peak device "
+            f"memory {peak_gib:.2f} GiB; {step_ops / 1e12:.2f} TFLOP a "
+            f"step, {peak_ms:.2f} ms at the bf16 peak; loss {loss[0]:.4f} -> "
+            f"{loss[-1]:.4f}"
+            f", val/loss_ema {val[0]:.4f}; {per_fwd} flash_fwd + "
+            f"{bwd_default} flash_bwd launches per step (the d = 64 "
+            f"backward: {'kernel' if kernel_bwd else 'eager recompute'} by "
+            f"default); every parameter has a gradient; checkpoints saved at "
+            f"steps {saved}")
+
+        # resume: equal to the saved state, then continue
+        tr2 = make(RARM_TRAIN_STEPS + 2)
+        state2 = tr2.resume_or_init()
+        a, b_ = state1.state_dict(), state2.state_dict()
+        same = (a["step"] == b_["step"]
+                and a["ema"]["count"] == b_["ema"]["count"]
+                and a["opt_state"]["count"] == b_["opt_state"]["count"]
+                and all(torch.equal(a["params"][n], b_["params"][n])
+                        for n in a["params"])
+                and all(torch.equal(a["opt_state"][m][n],
+                                    b_["opt_state"][m][n])
+                        for m in ("mu", "nu") for n in a["opt_state"][m])
+                and all(torch.equal(a["ema"]["params"][n],
+                                    b_["ema"]["params"][n])
+                        for n in a["ema"]["params"]))
+        if not same:
+            raise RuntimeError("resumed RARM state differs from the saved "
+                               "one")
+        del a, b_, state1, tr1
+        torch.cuda.empty_cache()
+        per_step.clear()
+        state2 = tr2.fit(_Take(batches, 2), state=state2)
+        check_counts(per_step, bwd_default, "resumed fit")
+
+        # the mask-token augmentation, one step
+        aug = make_rarm_train_step(tr2.tx, ema_decay=tr2.tcfg.ema_decay,
+                                   p_mask_max=RARM_P_MASK_MAX)
+        z, nns = tr2.prepare_batch(next(batches))
+        state2, m = aug(state2, z, nns, 1)
+        if not (torch.isfinite(m["loss"]) and torch.isfinite(
+                m["grad_norm"])):
+            raise RuntimeError(f"p_mask_max {RARM_P_MASK_MAX} step: {m}")
+        say("rarm_train", f"resumed at step {RARM_TRAIN_STEPS}: step "
+            f"counter, parameters, Adam moments and EMA equal the saved "
+            f"ones; continued to step {RARM_TRAIN_STEPS + 2}; one step with "
+            f"p_mask_max {RARM_P_MASK_MAX}: loss {float(m['loss']):.4f}, "
+            f"grad_norm {float(m['grad_norm']):.4f}")
+
+        # the d = 64 backward: the kernel against the eager recompute, in
+        # turns; each step's peak memory from a reset just before it
+        ab = {"pallas": [], "xla": []}
+        peaks = {"pallas": 0.0, "xla": 0.0}
+        for mode in RARM_AB_ROUNDS:
+            os.environ["RDM_TPU_FLASH_BWD"] = mode
+            per_step.clear()
+            step_s.clear()
+            for _ in range(RARM_AB_STEPS):
+                z, nns = tr2.prepare_batch(next(batches))
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                state2, _ = tr2.step_fn(state2, z, nns, 1)
+                peaks[mode] = max(peaks[mode],
+                                  torch.cuda.max_memory_allocated() / 2**30)
+            check_counts(per_step, per_fwd if mode == "pallas" else 0,
+                         f"RDM_TPU_FLASH_BWD={mode}")
+            ab[mode] += [t * 1e3 for t in step_s[1:]]
+        os.environ.pop("RDM_TPU_FLASH_BWD")
+        ab_ms = {k: float(np.median(v)) for k, v in ab.items()}
+        rate = {k: batch / v * 1e3 for k, v in ab_ms.items()}
+        faster = min(ab_ms, key=ab_ms.get)
+        say("rarm_train", "RDM_TPU_FLASH_BWD A/B, rounds " + " ".join(
+            RARM_AB_ROUNDS) + f", {RARM_AB_STEPS} steps a round (the last "
+            f"{RARM_AB_STEPS - 1} timed): kernel backward step "
+            f"{ab_ms['pallas']:.2f} ms median ({rate['pallas']:.2f} "
+            "samples/s; " + ", ".join(f"{t:.2f}" for t in ab["pallas"])
+            + f"), eager recompute {ab_ms['xla']:.2f} ms ("
+            f"{rate['xla']:.2f} samples/s; " + ", ".join(
+                f"{t:.2f}" for t in ab["xla"]) + f"); peak device memory a "
+            f"step {peaks['pallas']:.2f} / {peaks['xla']:.2f} GiB; faster: "
+            f"{'kernel' if faster == 'pallas' else 'eager recompute'}, the "
+            f"default: {'kernel' if kernel_bwd else 'eager recompute'}")
+
+        # one batch-2 step, bf16 kernel path against CUDA f32 plain path
+        model = state2.model
+        z, nns = tr2.prepare_batch(next(_train_batches(emb, 2, SEED + 71)))
+        grads, losses = {}, {}
+        for path in ("bf16", "f32"):
+            if path == "f32":
+                os.environ["RDM_TPU_FLASH"] = "0"
+                model.dtype = torch.float32
+            reset()
+            loss, _, g = compute_rarm_grads(model, z, nns)
+            c = counts()
+            want = dict.fromkeys(c, 0)
+            if path == "bf16":
+                want.update(flash_fwd=per_fwd, flash_bwd=bwd_default)
+            if c != want:
+                raise RuntimeError(f"RARM {path} step: launches {c}")
+            losses[path] = loss.item()
+            grads[path] = torch.cat([
+                (torch.zeros_like(p) if g[n] is None else g[n]).reshape(-1)
+                .float() for n, p in model.named_parameters()])
+        os.environ.pop("RDM_TPU_FLASH")
+        model.dtype = torch.bfloat16
+        gb, gf = grads["bf16"], grads["f32"]
+        loss_rel = abs(losses["bf16"] - losses["f32"]) / abs(losses["f32"])
+        rel, part_rel = _rarm_grad_rel(model, gb, gf)
+        say("rarm_train", f"batch-2 step, bf16 kernel path vs CUDA f32 plain "
+            f"path (RDM_TPU_FLASH=0): loss {losses['bf16']:.6f} vs "
+            f"{losses['f32']:.6f} (rel {loss_rel:.3e}); gradients rel L2 "
+            f"{rel:.3e} (limit {RARM_TRAIN_GRAD_TOL:g}, each part too: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in part_rel.items())
+            + "), cosine "
+            f"{torch.nn.functional.cosine_similarity(gb, gf, dim=0).item():.6f}")
+        worst = max([rel, *part_rel.values()])
+        if not (worst <= RARM_TRAIN_GRAD_TOL and torch.isfinite(gb).all()):
+            raise RuntimeError(f"RARM bf16 gradients rel L2 {rel} (parts "
+                               f"{part_rel}) > {RARM_TRAIN_GRAD_TOL}")
+
+        # the same gate read against planted faults in the backward kernel's
+        # output: each must fail it
+        faults = {}
+        real_bwd = fa.flash_bwd
+        os.environ["RDM_TPU_FLASH_BWD"] = "pallas"
+        try:
+            for fault, cut in RARM_GRAD_FAULTS.items():
+                def faulty(*a, cut=cut, **k):
+                    return cut(*real_bwd(*a, **k))
+                faulty.launches = 0
+                fa.flash_bwd = faulty
+                _, _, g = compute_rarm_grads(model, z, nns)
+                fa.flash_bwd = real_bwd
+                gx = torch.cat([
+                    (torch.zeros_like(p) if g[n] is None else g[n])
+                    .reshape(-1).float() for n, p in model.named_parameters()])
+                f_rel, f_parts = _rarm_grad_rel(model, gx, gf)
+                faults[fault] = {"rel_l2": f_rel, "by_part": f_parts}
+                f_worst = max(f_parts, key=f_parts.get)
+                say("rarm_train", f"planted fault ({fault}): gradients rel "
+                    f"L2 {f_rel:.3e}, worst part {f_worst} "
+                    f"{f_parts[f_worst]:.3e} (limit {RARM_TRAIN_GRAD_TOL:g}; "
+                    + ", ".join(f"{k} {v:.3e}" for k, v in f_parts.items())
+                    + ")")
+                if max(f_rel, *f_parts.values()) <= RARM_TRAIN_GRAD_TOL:
+                    raise RuntimeError(f"RARM gradient gate passes a planted "
+                                       f"fault ({fault}): {faults[fault]}")
+        finally:
+            fa.flash_bwd = real_bwd
+            os.environ.pop("RDM_TPU_FLASH_BWD")
+        return {"launches": launches, "step_ms": med * 1e3,
+                "samples_per_s": batch / med, "peak_gib": peak_gib,
+                "step_tflop": step_ops / 1e12, "step_bound_ms": peak_ms,
+                "kernel_bwd_step_ms": ab_ms["pallas"],
+                "xla_bwd_step_ms": ab_ms["xla"],
+                "kernel_bwd_peak_gib": peaks["pallas"],
+                "xla_bwd_peak_gib": peaks["xla"],
+                "kernel_bwd_default": kernel_bwd, "grad_rel_l2": rel,
+                "grad_rel_l2_by_part": part_rel, "loss_rel": loss_rel,
+                "planted_faults": faults, "batch": batch}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def _timed(phase, *args):
+    """phase(*args), and its wall seconds on a line of their own."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    say(phase.__name__[len("phase_"):], f"phase took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -3200,33 +3626,35 @@ def main() -> int:
     from rdm_tpu_torch.models.rarm import RARM
     from rdm_tpu_torch.models.rdm import RDM
 
-    phase_device()
-    phase_build()
-    kernels = phase_kernels()
-    int8_kernels = phase_int8_kernels()
+    _timed(phase_device)
+    _timed(phase_build)
+    kernels = _timed(phase_kernels)
+    int8_kernels = _timed(phase_int8_kernels)
     with torch.device("meta"):  # shapes only
         rdm, vq = RDM(RDMConfig.imagenet()), VQModel(AutoencoderConfig.vq_f4())
         rarm = RARM(RARMConfig.imagenet_dogs())
         vq16 = VQModel(AutoencoderConfig.vq_f16())
     rdm_sd = seeded_state_dict(rdm, SEED + 10)
     vq_sd = seeded_state_dict(vq, SEED + 11)
-    phase_forward(rdm_sd)
+    _timed(phase_forward, rdm_sd)
     emb = make_table()
-    launches = phase_serve(rdm_sd, vq_sd, emb)
-    decode = phase_rarm_kernels()
+    launches = _timed(phase_serve, rdm_sd, vq_sd, emb)
+    decode = _timed(phase_rarm_kernels)
     rarm_sd = seeded_state_dict(rarm, SEED + 12)
-    phase_rarm_forward(rarm_sd)
+    _timed(phase_rarm_forward, rarm_sd)
     vq16_sd = seeded_state_dict(vq16, SEED + 13)
-    decode_launches = phase_rarm_serve(rarm_sd, vq16_sd, emb)
-    phase_int8_forward(rdm_sd)
-    int8_launches = phase_serve_modes(rdm_sd, vq_sd, emb)
-    int8_decode = phase_rarm_int8_kernels()
-    int8_decode_launches = phase_rarm_serve_modes(rarm_sd, vq16_sd, emb)
-    post_ff = phase_post_ff(rdm_sd, vq_sd, emb)
-    flash = phase_flash_kernels()
-    train = phase_train(rdm_sd, vq_sd, emb)
-    knn = phase_knn(emb)
-    clip = phase_clip_serve(rdm_sd, vq_sd, emb, rarm_sd, vq16_sd)
+    decode_launches = _timed(phase_rarm_serve, rarm_sd, vq16_sd, emb)
+    _timed(phase_int8_forward, rdm_sd)
+    int8_launches = _timed(phase_serve_modes, rdm_sd, vq_sd, emb)
+    int8_decode = _timed(phase_rarm_int8_kernels)
+    int8_decode_launches = _timed(phase_rarm_serve_modes, rarm_sd, vq16_sd,
+                                  emb)
+    post_ff = _timed(phase_post_ff, rdm_sd, vq_sd, emb)
+    flash = _timed(phase_flash_kernels)
+    train = _timed(phase_train, rdm_sd, vq_sd, emb)
+    knn = _timed(phase_knn, emb)
+    clip = _timed(phase_clip_serve, rdm_sd, vq_sd, emb, rarm_sd, vq16_sd)
+    rarm_train = _timed(phase_rarm_train, rarm_sd, vq16_sd, emb)
 
     def row(name, info, launches_, r, **extra):
         # device ms of a call in a CUDA graph: the sum over the sites or
@@ -3251,7 +3679,13 @@ def main() -> int:
     for n in GEMM_LAUNCHES:
         core[n] = {"sources": [KERNEL_INFO[n][0]] + GEMM_CORE,
                    "op_point_sites": kernels[n]["op_point_sites"]}
-    rows = [row(n, KERNEL_INFO[n], launches, r, sites=r["sites"],
+    # the block kernels' launches: phase 5's two requests and phase 16's
+    # fused-block training steps
+    fused = train["fused_launches"]
+    block_launches = {n: launches[n] + fused[n] for n in kernels}
+    rows = [row(n, KERNEL_INFO[n], block_launches, r, sites=r["sites"],
+                launches_by_phase={"serve": launches[n],
+                                   "train_fused_blocks": fused[n]},
                 **core.get(n, {}))
             for n, r in kernels.items()]
     for n in INT8_GEMM_LAUNCHES:
@@ -3283,8 +3717,15 @@ def main() -> int:
                     sites=post_ff["sites"],
                     request_s=post_ff["request_s"],
                     forward_rel_l2=post_ff["forward_rel_l2"]))
-    rows += [row(n, FLASH_INFO[n], train["launches"], r, cases=r["cases"],
+    # the flash kernels' launches: phase 16's and phase 19's first trainers
+    flash_launches = {n: train["launches"][n] + rarm_train["launches"][n]
+                      for n in flash}
+    rows += [row(n, FLASH_INFO[n], flash_launches, r, cases=r["cases"],
+                 launches_by_phase={"train_rdm": train["launches"][n],
+                                    "train_rarm": rarm_train["launches"][n]},
                  train={k: v for k, v in train.items() if k != "launches"},
+                 rarm_train={k: v for k, v in rarm_train.items()
+                             if k != "launches"},
                  **core.get(n, {}))
              for n, r in flash.items()]
     rows.append(row("knn", KNN_INFO, {"knn": clip["launches"]}, knn,

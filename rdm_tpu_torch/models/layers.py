@@ -13,11 +13,14 @@ SpatialTransformer routes its blocks through the fused block kernels
 (`ops/block_kernel.fused_transformer_block`) in eval mode whenever a
 context is given, as the JAX package routes them: except while calibrating
 for int8 (`ops/quant.py`), under RDM_TPU_FUSED_BLOCK=0 and for heads whose
-width does not divide 128. A fused block whose shapes the kernels do not
-take raises on the card before its first launch (`block_refusal`). Every
-other block, and every block in train mode, runs
-`TransformerBlock.forward`, the unfused differentiable math the kernels
-are held against, whose self-attention takes the flash kernels
+width does not divide 128. In train mode it routes them so only with
+RDM_TPU_FUSED_BLOCK_TRAIN=1 (default off, as in JAX) and dropout 0,
+through `fused_transformer_block_ad` (the kernels forward, the unfused
+block's gradient backward) on weights packed from the live parameters at
+every call. A fused block whose shapes the kernels do not take raises on
+the card before its first launch (`block_refusal`). Every other block
+runs `TransformerBlock.forward`, the unfused differentiable math the
+kernels are held against, whose self-attention takes the flash kernels
 (`ops/attention.py`) where their gate admits it.
 `Conv2d`, `CrossAttention` and `GEGLUFeedForward` record activation
 absmax for that calibration, and `Conv2d` and `TransformerBlock` carry the
@@ -37,8 +40,9 @@ from torch import nn
 
 from rdm_tpu_torch.ops import quant
 from rdm_tpu_torch.ops.attention import dot_product_attention
-from rdm_tpu_torch.ops.block_kernel import (QSCALE_NAMES,
+from rdm_tpu_torch.ops.block_kernel import (QSCALE_NAMES, context_kv,
                                             fused_transformer_block,
+                                            fused_transformer_block_ad,
                                             layer_norm, pack_block_weights,
                                             quantize_block_weights,
                                             quantize_cols)
@@ -395,6 +399,19 @@ class TransformerBlock(nn.Module):
             heads=self.heads, head_dim=self.head_dim,
             qscales=self.qscales())
 
+    def forward_fused_ad(self, x, context):
+        """The training route: the block kernels forward, the unfused
+        block's gradient backward (`fused_transformer_block_ad`), on
+        weights packed differentiably from the live parameters at this
+        call, never from the `pack()` snapshot, which an optimizer step
+        makes stale. bf16 (f32 on the CPU); no int8."""
+        if self.qabsmax is not None:
+            raise ValueError("the int8 fused block is inference-only")
+        w = pack_block_weights(self, x.dtype, differentiable=True)
+        ck, cv = context_kv(context.to(x.dtype), w)
+        return fused_transformer_block_ad(x, ck, cv, w, heads=self.heads,
+                                          head_dim=self.head_dim)
+
 
 def use_fused_block() -> bool:
     """RDM_TPU_FUSED_BLOCK=0 turns the fused blocks off: the JAX
@@ -404,9 +421,10 @@ def use_fused_block() -> bool:
 
 
 def fused_block_train() -> bool:
-    """RDM_TPU_FUSED_BLOCK_TRAIN=1 asks for the fused blocks in training,
-    as in the JAX package; the port refuses it until their backward is
-    ported."""
+    """RDM_TPU_FUSED_BLOCK_TRAIN=1 runs the fused blocks in training
+    (`TransformerBlock.forward_fused_ad`), as in the JAX package; default
+    off (a measured no-go as a default on the TPU, not yet decided on the
+    card)."""
     return os.environ.get("RDM_TPU_FUSED_BLOCK_TRAIN", "0") == "1"
 
 
@@ -420,6 +438,7 @@ class SpatialTransformer(nn.Module):
         super().__init__()
         inner = heads * head_dim
         self.head_dim = head_dim
+        self.dropout = dropout
         self.norm = GroupNorm32(channels, eps=1e-6)
         self.proj_in = Conv2d(channels, inner, 1)
         self.transformer_blocks = nn.ModuleList([
@@ -433,19 +452,21 @@ class SpatialTransformer(nn.Module):
         x = self.proj_in(self.norm(x))
         inner = x.shape[1]
         x = x.permute(0, 2, 3, 1).reshape(b, h * w, inner)
-        # Training (the JAX package's deterministic=False) runs the unfused,
-        # differentiable blocks; so does calibration, which records the
-        # absmax the int8 kernels quantize with.
-        if self.training and fused_block_train():
-            raise NotImplementedError(
-                "RDM_TPU_FUSED_BLOCK_TRAIN=1: the fused block's backward "
-                "(fused_transformer_block_ad) is not ported")
         # The JAX package's gate (rdm_tpu/models/layers.py
-        # SpatialTransformer): heads whose width divides 128.
-        fused = (context is not None and not self.training
-                 and not quant.CALIBRATE and use_fused_block()
-                 and 128 % self.head_dim == 0)
+        # SpatialTransformer): heads whose width divides 128, never while
+        # calibrating (which records the absmax the int8 kernels quantize
+        # with); in training (JAX's deterministic=False) only with
+        # RDM_TPU_FUSED_BLOCK_TRAIN=1 and dropout 0.
+        fused = (context is not None and not quant.CALIBRATE
+                 and use_fused_block() and 128 % self.head_dim == 0
+                 and (not self.training
+                      or (self.dropout == 0.0 and fused_block_train())))
         for blk in self.transformer_blocks:
-            x = blk.forward_fused(x, context) if fused else blk(x, context)
+            if not fused:
+                x = blk(x, context)
+            elif self.training:
+                x = blk.forward_fused_ad(x, context)
+            else:
+                x = blk.forward_fused(x, context)
         x = x.reshape(b, h, w, inner).permute(0, 3, 1, 2)
         return self.proj_out(x) + x_in

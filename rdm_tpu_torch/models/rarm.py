@@ -27,7 +27,13 @@ The JAX package's growing-window stages (`window_chunk`) are a TPU
 static-shape device: a scan over a fixed cache window per stage. Here each
 step attends to exactly the rows it needs (the eager loop slices the cache
 to pos + 1, the attention kernel bounds its read by pos), so they are not
-carried over. Not ported yet: `training_loss` (training slice).
+carried over.
+
+`training_loss` is the teacher-forced cross-entropy the RARM trainer
+(`training/trainer.RARMTrainer`) differentiates: in bf16 on the card the
+causal self-attention of every block takes the flash kernels
+(`ops/attention._pick_impl`: S = 256, d = 64), the cross-attention over the
+k neighbours the plain path.
 """
 
 from __future__ import annotations
@@ -166,6 +172,35 @@ class RARM(nn.Module):
             x = x + a2.to_out[0](o2.reshape(b, 1, h * d))
             x = x + blk.ff(blk.norm3(x))
         return self.head(x[:, 0]), cache
+
+    # ---------- training ----------
+
+    def training_loss(self, z_indices: torch.Tensor, neighbors: torch.Tensor,
+                      generator: Optional[torch.Generator] = None,
+                      p_mask=None, *, mask: Optional[torch.Tensor] = None):
+        """z_indices [B, S] ground-truth codes, neighbors [B, S_ctx, D] ->
+        (loss, {"loss", "ppl"}): the mean NLL of the codes under the
+        teacher-forced input [SOS, z_0 .. z_{S-2}], log-softmax in f32
+        (`RARM.training_loss` of the JAX package).
+
+        With p_mask (a float or a scalar tensor) each neighbour element is
+        replaced by the scalar `mask_token` with probability p_mask, the
+        draw from `generator` (on the neighbours' device); `mask` (bool,
+        the neighbours' shape) replaces that draw: a seam for the tests,
+        which feed the JAX package's draw."""
+        cfg = self.config
+        r = neighbors
+        if mask is None and p_mask is not None:
+            mask = torch.rand(r.shape, generator=generator,
+                              device=r.device) < p_mask
+        if mask is not None:
+            r = r.masked_fill(mask, float(cfg.mask_token))
+        sos = torch.full((z_indices.shape[0], 1), cfg.sos_token,
+                         dtype=z_indices.dtype, device=z_indices.device)
+        inp = torch.cat([sos, z_indices[:, :-1]], dim=1)
+        logits = self(inp, r)
+        loss = F.cross_entropy(logits.flatten(0, 1), z_indices.flatten())
+        return loss, {"loss": loss, "ppl": torch.exp(loss)}
 
 
 # ---------------------------------------------------------------- sampling

@@ -70,6 +70,15 @@ dtype; norm scales and biases f32 [C] or [F]. `pack_block_weights` builds
 that dict once from a reference-layout TransformerBlock;
 `quantize_block_weights` adds the int8 weights once, [out, in] with f32
 per-output scales.
+
+Training (RDM_TPU_FUSED_BLOCK_TRAIN=1, models/layers.py):
+`fused_transformer_block_ad` is an autograd.Function whose forward runs
+kernels 1-4 (9 under RDM_TPU_SPLIT_K3=0) and whose backward is the
+gradient of `block_reference`, the unfused block over the same weights,
+recomputed from the saved inputs (the JAX package's custom_vjp over
+`_xla_block_reference`). Its weights come from `pack_block_weights(...,
+differentiable=True)` on every call and its context k / v from
+`context_kv`, both inside the autograd graph.
 """
 
 from __future__ import annotations
@@ -1188,20 +1197,28 @@ def use_int8_attn_core() -> bool:
 
 # ------------------------------------------------------------ the block
 
-def pack_block_weights(block, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+def pack_block_weights(block, dtype: torch.dtype, *,
+                       differentiable: bool = False
+                       ) -> Dict[str, torch.Tensor]:
     """Kernel-layout weights of a reference-layout TransformerBlock
     (models.layers): projections transposed to [in, out] and cast to
     `dtype`, q/k/v fused into one [C, 3C] matrix, the GEGLU projection
-    split into its value and gate halves; norms and biases f32."""
+    split into its value and gate halves; norms and biases f32.
+
+    The inference snapshot is detached. `differentiable=True` keeps the
+    autograd graph from the live parameters through the transposes,
+    concatenation, split and casts (the training path,
+    `fused_transformer_block_ad`, packs that way on every call)."""
     a1, a2, ff = block.attn1, block.attn2, block.ff.net
     ffd = ff[2].weight.shape[1]
     w1 = ff[0].proj.weight
+    live = (lambda p: p) if differentiable else (lambda p: p.detach())
 
     def t(w):
-        return w.detach().t().to(dtype).contiguous()
+        return live(w).t().to(dtype).contiguous()
 
     def f32(p):
-        return p.detach().float().contiguous()
+        return live(p).float().contiguous()
 
     return dict(
         n1s=f32(block.norm1.weight), n1b=f32(block.norm1.bias),
@@ -1233,17 +1250,51 @@ def quantize_block_weights(w: Dict[str, torch.Tensor]
     return out
 
 
+def context_kv(context: torch.Tensor, w: Dict[str, torch.Tensor]):
+    """The cross-attention's k / v [B, T, C] of a context [B, T, Dc] (in
+    the compute dtype): torch matmuls, as XLA kept them in JAX
+    (models/layers.py FusedTransformerBlock), differentiable where the
+    weights are."""
+    b, t, dc = context.shape
+    ctx2 = context.reshape(b * t, dc)
+    return (_linear(ctx2, w["wk2"]).reshape(b, t, -1),
+            _linear(ctx2, w["wv2"]).reshape(b, t, -1))
+
+
+def _block_kernels(x: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                   w: Dict[str, torch.Tensor], heads: int, head_dim: int,
+                   split_k3: bool) -> torch.Tensor:
+    """The bf16 block's kernel sequence over pre-projected context k / v:
+    ln_qkv, packed_attn, then post_cross + geglu_ff (split_k3) or
+    post_ff."""
+    b, s, c = x.shape
+    q, k, v = ln_qkv(x.reshape(b * s, c), w["n1s"], w["n1b"], w["wqkv"])
+    attn = packed_attn(q.reshape(b, s, c), k.reshape(b, s, c),
+                       v.reshape(b, s, c), heads=heads, head_dim=head_dim)
+    if not split_k3:
+        return post_ff(x, attn, ck, cv, w["wo"], w["bo"], w["n2s"],
+                       w["n2b"], w["wq2"], w["wo2"], w["bo2"], w["n3s"],
+                       w["n3b"], w["wa"], w["wg"], w["ba"], w["bg"],
+                       w["w2"], w["b2"], heads=heads, head_dim=head_dim)
+    xmid = post_cross(x, attn, ck, cv, w["wo"], w["bo"], w["n2s"],
+                      w["n2b"], w["wq2"], w["wo2"], w["bo2"],
+                      heads=heads, head_dim=head_dim)
+    y = geglu_ff(xmid.reshape(b * s, c), w["n3s"], w["n3b"], w["wa"],
+                 w["wg"], w["ba"], w["bg"], w["w2"], w["b2"])
+    return y.reshape(b, s, c)
+
+
 def fused_transformer_block(x: torch.Tensor, context: torch.Tensor,
                             w: Dict[str, torch.Tensor], *, heads: int,
                             head_dim: int, qscales=None,
                             split_k3: Optional[bool] = None) -> torch.Tensor:
     """One pre-LN transformer block through the four kernels (three with
     split_k3 off: `post_ff` for `post_cross` + `geglu_ff`; None reads
-    `use_split_k3()`).
+    `use_split_k3()`), for inference.
 
     x [B, S, C], context [B, T, Dc] (both in the compute dtype), w from
-    `pack_block_weights`. The context k/v projections stay torch matmuls,
-    as XLA kept them in JAX (models/layers.py FusedTransformerBlock).
+    `pack_block_weights`. The context k/v projections stay torch matmuls
+    (`context_kv`).
 
     qscales (int8 serving): the calibrated activation absmax keyed by
     `QSCALE_NAMES`; the block then runs the four int8 kernels on the
@@ -1260,28 +1311,11 @@ def fused_transformer_block(x: torch.Tensor, context: torch.Tensor,
         _refuse(block_refusal(c, context.shape[1], heads, head_dim,
                               w["w2"].shape[0], int8=qscales is not None,
                               split_k3=split_k3))
-    ck = _linear(context.reshape(-1, context.shape[-1]), w["wk2"])
-    cv = _linear(context.reshape(-1, context.shape[-1]), w["wv2"])
-    ck = ck.reshape(b, -1, c)
-    cv = cv.reshape(b, -1, c)
+    ck, cv = context_kv(context, w)
     x = x.contiguous()
-    x2 = x.reshape(b * s, c)
     if qscales is None:
-        q, k, v = ln_qkv(x2, w["n1s"], w["n1b"], w["wqkv"])
-        attn = packed_attn(q.reshape(b, s, c), k.reshape(b, s, c),
-                           v.reshape(b, s, c), heads=heads,
-                           head_dim=head_dim)
-        if not split_k3:
-            return post_ff(x, attn, ck, cv, w["wo"], w["bo"], w["n2s"],
-                           w["n2b"], w["wq2"], w["wo2"], w["bo2"], w["n3s"],
-                           w["n3b"], w["wa"], w["wg"], w["ba"], w["bg"],
-                           w["w2"], w["b2"], heads=heads, head_dim=head_dim)
-        xmid = post_cross(x, attn, ck, cv, w["wo"], w["bo"], w["n2s"],
-                          w["n2b"], w["wq2"], w["wo2"], w["bo2"],
-                          heads=heads, head_dim=head_dim)
-        y = geglu_ff(xmid.reshape(b * s, c), w["n3s"], w["n3b"], w["wa"],
-                     w["wg"], w["ba"], w["bg"], w["w2"], w["b2"])
-        return y.reshape(b, s, c)
+        return _block_kernels(x, ck, cv, w, heads, head_dim, split_k3)
+    x2 = x.reshape(b * s, c)
     a = {k: act_scale(qscales[k]) for k in QSCALE_NAMES}
     q, k, v = ln_qkv_q(x2, w["n1s"], w["n1b"], w["wqkv_q"], w["wqkv_s"],
                        a["a_qkv"])
@@ -1297,3 +1331,102 @@ def fused_transformer_block(x: torch.Tensor, context: torch.Tensor,
                    w["wa_s"], w["wg_q"], w["wg_s"], w["ba"], w["bg"],
                    w["w2_q"], w["w2_s"], w["b2"], a["a_ff"], a["h_ff"])
     return y.reshape(b, s, c)
+
+
+# ------------------------------------------------- the block in training
+#
+# The JAX package's `fused_transformer_block_ad` (a jax.custom_vjp): the
+# forward is the block kernels, the backward the gradient of an unfused
+# block over the same packed weights (`block_reference`), recomputed from
+# the saved inputs alone. bf16 only on the card; no int8, no dropout.
+
+# the packed weights the block reads (the context's wk2 / wv2 are applied
+# before it, by `context_kv`)
+_BLOCK_KEYS = ("n1s", "n1b", "wqkv", "wo", "bo", "n2s", "n2b", "wq2",
+               "wo2", "bo2", "n3s", "n3b", "wa", "wg", "ba", "bg", "w2", "b2")
+
+
+def block_reference(x: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                    w: Dict[str, torch.Tensor], *, heads: int,
+                    head_dim: int) -> torch.Tensor:
+    """The unfused block over `pack_block_weights`' dict, differentiable
+    in x, ck, cv and every weight: the port's `_xla_block_reference`.
+    Flattened [B S, C] products in x's dtype (f32 sums), biases added in
+    f32 before the cast back, f32 LayerNorm statistics, attention with
+    f32 scores and softmax (the plain path: no flash kernel), the GEGLU's
+    pre-activations and exact-erf gelu in f32."""
+    b, s, c = x.shape
+    t = ck.shape[1]
+    dt = x.dtype
+
+    def mm(a, wt, bias=None):
+        y = a @ wt.to(dt)
+        return y if bias is None else (y.float() + bias).to(dt)
+
+    def attend(q, k, v, n):
+        o = dot_product_attention(
+            q.reshape(b, s, heads, head_dim), k.reshape(b, n, heads, head_dim),
+            v.reshape(b, n, heads, head_dim), impl="xla")
+        return o.reshape(b * s, c)
+
+    x2 = x.reshape(b * s, c)
+    qkv = mm(layer_norm(x2, w["n1s"], w["n1b"]), w["wqkv"])
+    a1 = attend(qkv[:, :c], qkv[:, c:2 * c], qkv[:, 2 * c:], s)
+    x1 = x2 + mm(a1, w["wo"], w["bo"])
+    q2 = mm(layer_norm(x1, w["n2s"], w["n2b"]), w["wq2"])
+    x1 = x1 + mm(attend(q2, ck, cv, t), w["wo2"], w["bo2"])
+    h3 = layer_norm(x1, w["n3s"], w["n3b"])
+    a = (h3 @ w["wa"].to(dt)).float() + w["ba"]
+    g = (h3 @ w["wg"].to(dt)).float() + w["bg"]
+    f = (a * F.gelu(g)).to(dt)
+    return (x1 + mm(f, w["w2"], w["b2"])).reshape(b, s, c)
+
+
+class _FusedBlockAD(torch.autograd.Function):
+    """Forward: the block kernels (their plain versions on the CPU).
+    Backward: torch.autograd.grad of `block_reference` from the saved
+    (x, ck, cv, weights) alone, as the JAX custom_vjp recomputes."""
+
+    @staticmethod
+    def forward(ctx, x, ck, cv, heads: int, head_dim: int, split_k3: bool,
+                *ws):
+        ctx.save_for_backward(x, ck, cv, *ws)
+        ctx.heads, ctx.head_dim = heads, head_dim
+        return _block_kernels(x, ck, cv, dict(zip(_BLOCK_KEYS, ws)), heads,
+                              head_dim, split_k3)
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad
+        flags = need[:3] + need[6:]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(f)
+                   for t, f in zip(ctx.saved_tensors, flags)]
+            y = block_reference(ins[0], ins[1], ins[2],
+                                dict(zip(_BLOCK_KEYS, ins[3:])),
+                                heads=ctx.heads, head_dim=ctx.head_dim)
+            grads = iter(torch.autograd.grad(
+                y, [t for t in ins if t.requires_grad], g))
+        out = [next(grads) if f else None for f in flags]
+        return (*out[:3], None, None, None, *out[3:])
+
+
+def fused_transformer_block_ad(x: torch.Tensor, ck: torch.Tensor,
+                               cv: torch.Tensor, w: Dict[str, torch.Tensor],
+                               *, heads: int, head_dim: int
+                               ) -> torch.Tensor:
+    """Differentiable fused block (the training path): x [B, S, C], ck / cv
+    [B, T, C] from `context_kv`, w from `pack_block_weights(...,
+    differentiable=True)`. The forward is `fused_transformer_block`'s
+    kernel sequence (`post_ff` under RDM_TPU_SPLIT_K3=0), the backward
+    `block_reference`'s gradient. On the card `block_refusal` raises
+    before the first launch."""
+    b, s, c = x.shape
+    split_k3 = use_split_k3()
+    if x.is_cuda:
+        _refuse(block_refusal(c, ck.shape[1], heads, head_dim,
+                              w["w2"].shape[0], int8=False,
+                              split_k3=split_k3))
+    return _FusedBlockAD.apply(x.contiguous(), ck.contiguous(),
+                               cv.contiguous(), heads, head_dim, split_k3,
+                               *(w[k] for k in _BLOCK_KEYS))

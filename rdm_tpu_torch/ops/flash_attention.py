@@ -208,14 +208,20 @@ def launch_counts() -> Dict[str, int]:
 
 def _use_kernel_bwd(head_dim: int, device) -> bool:
     """The backward kernel, or the eager recompute? RDM_TPU_FLASH_BWD
-    "pallas" takes the kernel, "xla" the recompute, as in the JAX package;
-    by default the kernel on CUDA at head_dim <= 32 (JAX's gate, where the
-    kernel won on the TPU: the RDM's d = 32; the RARM's d = 64 took the
-    recompute)."""
+    "pallas" takes the kernel, "xla" the recompute, as in the JAX package.
+    By default the kernel on CUDA at head_dim <= 64: the RDM's d = 32 and
+    the RARM's d = 64, each decided on the card by its train step. JAX's
+    gate stops at 32, where the recompute won the RARM's step on the TPU;
+    on an NVIDIA H100 80GB HBM3 at 700 W the full-width RARM step at batch
+    16 took 224.42 ms with the kernel and 271.25 ms with the recompute
+    (medians of 6 steps each in one P X X P round, chip_smoke.py phase
+    19; with two rounds, 12 steps each, on another host: 139.55 against
+    159.17).
+    Wider heads, which no model here has, keep the recompute."""
     mode = os.environ.get("RDM_TPU_FLASH_BWD", "")
     if mode in ("pallas", "xla"):
         return mode == "pallas"
-    return torch.device(device).type == "cuda" and head_dim <= 32
+    return torch.device(device).type == "cuda" and head_dim <= 64
 
 
 class _Flash(torch.autograd.Function):

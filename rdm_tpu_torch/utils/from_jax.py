@@ -8,8 +8,8 @@ undoes `convert_unet`, `vq_state_dict_from_jax` undoes `convert_autoencoder`
 `clip_state_dict_from_jax` undoes `convert_clip` (and, for the RN50 tower,
 `convert_clip_resnet_visual`, batch statistics into the running buffers), and
 `train_state_from_jax` carries a whole JAX train state (params, Adam
-moments, counts, EMA). With them both implementations run on the same
-weights. Inputs are nested dicts of array
+moments, counts, EMA) of the RDM or the RARM. With them both
+implementations run on the same weights. Inputs are nested dicts of array
 likes (numpy or jax arrays), with or without the top-level "params" key.
 
 Layout rules (inverse of the converter's):
@@ -26,7 +26,7 @@ Layout rules (inverse of the converter's):
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -391,17 +391,22 @@ def _find_states(node, name: str) -> List[Any]:
     return []
 
 
-def train_state_from_jax(state: Any, cfg: RDMConfig) -> Dict[str, Any]:
+def train_state_from_jax(state: Any, cfg: Union[RDMConfig, RARMConfig]
+                         ) -> Dict[str, Any]:
     """A JAX `TrainState` of `rdm_tpu.training` (optimizer from its
     `make_optimizer`: AdamW, optionally under clip_by_global_norm and
-    MultiSteps) -> the port's `TrainState.load_state_dict` input: step,
-    params, the Adam moments mu / nu (each leaf in its own dtype), the
-    counts, the MultiSteps accumulator and the EMA shadow and count. Every
-    parameter-shaped tree goes through `rdm_state_dict_from_jax`, so the
-    moments take the same key mapping and transposes as the params."""
+    MultiSteps; or the RARM trainer's plain `optax.adamw`) -> the port's
+    `TrainState.load_state_dict` input: step, params, the Adam moments mu /
+    nu (each leaf in its own dtype), the counts, the MultiSteps accumulator
+    and the EMA shadow and count. Every parameter-shaped tree goes through
+    `rdm_state_dict_from_jax`, or `rarm_state_dict_from_jax` for a
+    `RARMConfig`, so the moments take the same key mapping and transposes
+    as the params."""
+    convert = (rarm_state_dict_from_jax if isinstance(cfg, RARMConfig)
+               else rdm_state_dict_from_jax)
 
     def sd(tree, dtype=None):
-        out = rdm_state_dict_from_jax(tree, cfg)
+        out = convert(tree, cfg)
         return out if dtype is None else {k: v.to(dtype)
                                           for k, v in out.items()}
 

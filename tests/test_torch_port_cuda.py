@@ -1,7 +1,9 @@
 """rdm_tpu_torch's CUDA kernels (the SpatialTransformer block kernels, their
 int8 variants, the RARM decode kernels, the flash-attention forward and
 backward and the kNN pair) against their plain PyTorch versions, on the card, with the grad
-guard and the training route through the flash kernels.
+guard, the training route through the flash kernels, the fused block's
+training path (`fused_transformer_block_ad` at the C = 384 site against
+`block_reference` in f32) and a RARM train step at full width.
 
 This file imports no JAX, so it also runs on a GPU machine without JAX:
 
@@ -1313,6 +1315,119 @@ def test_spatial_transformer_trains_through_flash_kernels(cuda):
     assert not any(bk.launch_counts().values())
     assert all(p.grad is not None and torch.isfinite(p.grad).all()
                for p in st.parameters())
+
+
+def _rel_l2(got, want) -> float:
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+@pytest.mark.cuda
+def test_fused_block_ad_backward_at_the_c384_site(cuda, monkeypatch):
+    """fused_transformer_block_ad at the U-Net's C = 384 site (S = 1024, 12
+    heads of 32, k = 4 context rows, 2 images), bf16 on the card: one
+    launch of each block kernel and no flash launch; its value and the
+    gradients of x, ck, cv and every packed weight against autograd through
+    `block_reference` in f32 on the card (relative L2 within 2e-2, as
+    chip_smoke.py's TRAIN_GRAD_TOL)."""
+    monkeypatch.delenv("RDM_TPU_SPLIT_K3", raising=False)
+    heads, s, t, c = 12, 1024, 4, 384
+    blk = _block(heads, 512, seed=7)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.randn(2, s, c, generator=g, device="cuda")
+    ctx = torch.randn(2, t, 512, generator=g, device="cuda")
+    dy = torch.randn(2, s, c, generator=g, device="cuda")
+    grads = {}
+    for dt in (torch.bfloat16, torch.float32):
+        w = bk.pack_block_weights(blk, dt, differentiable=True)
+        ins = [x.to(dt).requires_grad_(), ctx.to(dt).requires_grad_()]
+        ck, cv = bk.context_kv(ins[1], w)
+        ck.retain_grad()
+        cv.retain_grad()
+        blk.zero_grad(set_to_none=True)
+        bk.reset_launch_counts()
+        fa.reset_launch_counts()
+        if dt == torch.bfloat16:
+            y = bk.fused_transformer_block_ad(ins[0], ck, cv, w, heads=heads,
+                                              head_dim=HD)
+            counts = {**bk.launch_counts(), **fa.launch_counts()}
+            want = dict.fromkeys(counts, 0)
+            want.update(ln_qkv=1, packed_attn=1, post_cross=1, geglu_ff=1)
+            assert counts == want
+        else:
+            y = bk.block_reference(ins[0], ck, cv, w, heads=heads,
+                                   head_dim=HD)
+        y.backward(dy.to(dt))
+        assert not any(fa.launch_counts().values())
+        grads[dt] = {"y": y.detach(), "x": ins[0].grad,
+                     "context": ins[1].grad, "ck": ck.grad, "cv": cv.grad,
+                     **{n: p.grad.clone()
+                        for n, p in blk.named_parameters()}}
+    for n, want in grads[torch.float32].items():
+        got = grads[torch.bfloat16][n]
+        assert torch.isfinite(got).all(), n
+        assert _rel_l2(got, want) <= 2e-2, n
+
+
+@pytest.mark.cuda
+def test_rarm_train_step_on_card(cuda):
+    """One make_rarm_train_step step of a depth-2 RARM at full width (C =
+    768, 12 heads of 64, S = 256, the full vocabulary) at batch 2 on the
+    card: 2 flash_fwd launches (one a block) and 2 flash_bwd where the
+    d = 64 backward is the kernel by default, no other kernel; every
+    parameter updated; its gradients against the CUDA f32 plain path
+    (RDM_TPU_FLASH=0) within relative L2 2e-2."""
+    import dataclasses
+    import os
+
+    from rdm_tpu_torch.training.optim import AdamW, lambda_linear_schedule
+    from rdm_tpu_torch.training.train_state import (compute_rarm_grads,
+                                                    init_train_state,
+                                                    make_rarm_train_step)
+
+    cfg = dataclasses.replace(RARMConfig.imagenet_dogs(), depth=2)
+    torch.manual_seed(0)
+    model = rarm.RARM(cfg, dtype=torch.bfloat16).cuda()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    z = torch.randint(0, cfg.out_vocab, (2, cfg.seq_len), generator=g,
+                      device="cuda")
+    nns = torch.randn(2, 4, cfg.context_dim, generator=g, device="cuda")
+    per_block = int(fa._use_kernel_bwd(cfg.head_dim, "cuda"))
+    grads = {}
+    for path in ("bf16", "f32"):
+        if path == "f32":
+            os.environ["RDM_TPU_FLASH"] = "0"
+            model.dtype = torch.float32
+        fa.reset_launch_counts()
+        bk.reset_launch_counts()
+        dk.reset_launch_counts()
+        try:
+            _, _, gr = compute_rarm_grads(model, z, nns)
+        finally:
+            os.environ.pop("RDM_TPU_FLASH", None)
+            model.dtype = torch.bfloat16
+        counts = {**fa.launch_counts(), **bk.launch_counts(),
+                  **dk.launch_counts()}
+        want = dict.fromkeys(counts, 0)
+        if path == "bf16":
+            want.update(flash_fwd=2, flash_bwd=2 * per_block)
+        assert counts == want, path
+        grads[path] = torch.cat([gr[n].float().reshape(-1)
+                                 for n, _ in model.named_parameters()])
+    assert torch.isfinite(grads["bf16"]).all()
+    rel = _rel_l2(grads["bf16"], grads["f32"])
+    assert rel <= 2e-2, rel
+    tx = AdamW(lambda_linear_schedule(1e-4, warm_up_steps=0), b2=0.95)
+    state = init_train_state(model, tx)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    fa.reset_launch_counts()
+    state, met = make_rarm_train_step(tx, p_mask_max=0.25)(state, z, nns, 0)
+    assert fa.launch_counts() == {"flash_fwd": 2,
+                                  "flash_bwd": 2 * per_block}
+    assert state.step == 1 and torch.isfinite(met["loss"])
+    assert torch.isfinite(met["grad_norm"])
+    unmoved = [n for n, p in model.named_parameters()
+             if torch.equal(p, before[n])]
+    assert not unmoved, unmoved
 
 
 @pytest.mark.cuda

@@ -129,7 +129,7 @@ def test_pick_impl(sq, sk, d, dtype, device, mask, want, monkeypatch):
 
 
 @pytest.mark.parametrize("env,d,device,want", [
-    ("", 32, "cuda", True), ("", 64, "cuda", False),
+    ("", 32, "cuda", True), ("", 64, "cuda", True), ("", 96, "cuda", False),
     ("", 32, "cpu", False), ("pallas", 64, "cuda", True),
     ("pallas", 32, "cpu", True), ("xla", 32, "cuda", False),
 ])

@@ -9,8 +9,9 @@
   keys of the JAX trainer, a checkpoint mid-way and at the end, the
   monitored validation metric in best_steps.json, a second trainer that
   resumes equal to the first one's final state and continues.
-- SpatialTransformer's routes: the fused kernels only in eval mode, the
-  unfused blocks in train mode, RDM_TPU_FUSED_BLOCK_TRAIN=1 refused.
+- SpatialTransformer's routes: the fused kernels in eval mode, the
+  unfused blocks in train mode, the fused training path
+  (`forward_fused_ad`) in train mode with RDM_TPU_FUSED_BLOCK_TRAIN=1.
 """
 
 import json
@@ -182,9 +183,11 @@ def test_spatial_transformer_routes(monkeypatch):
     st.train()
     y = st(x, ctx)  # unfused, differentiable
     assert calls == ["fused"] and y.requires_grad
+    monkeypatch.setattr(layers.TransformerBlock, "forward_fused_ad",
+                        lambda self, x, c: calls.append("fused_ad") or x)
     monkeypatch.setenv("RDM_TPU_FUSED_BLOCK_TRAIN", "1")
-    with pytest.raises(NotImplementedError, match="fused_transformer_block_ad"):
-        st(x, ctx)
+    st(x, ctx)  # the fused training path
+    assert calls == ["fused", "fused_ad"]
     st.eval()
     st(x, ctx)  # the variable only concerns training
-    assert calls == ["fused", "fused"]
+    assert calls == ["fused", "fused_ad", "fused"]
