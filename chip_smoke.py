@@ -203,6 +203,32 @@ exits non-zero):
                projections, the cross-attention, the FF, the norms, the
                head, the embeddings), and the same gate refusing each of
                RARM_GRAD_FAULTS planted in flash_bwd's output.
+ 20. parallel  training at scale and data-parallel serving, every number
+               beside the card's name and power limit. (a) remat: the
+               ImageNet RDM through RDMTrainer's state, batches and
+               optimizer at batch 40, one step without remat and one under
+               each of JAX's four policies (dots, nothing, dots_no_batch,
+               save_lowres) from one state and seed: the loss equal,
+               grad_norm within PARALLEL_GRAD_TOL, step ms and peak GiB;
+               the forward-and-backward peaks at batch 20 and 40 for the
+               memory slopes, then two steps under nothing and
+               save_lowres at the first even batch whose extrapolated
+               no-remat peak passes the card (a policy runs there only
+               where its own extrapolated peak fits). (b)
+               world 1 over NCCL (a file:// store in a temporary
+               directory): two DDP and two FSDP steps of the RDM at batch
+               40 and the RARM at batch 16 against the plain steps from the
+               same state (cuDNN deterministic): losses equal, params
+               within PARALLEL_PARAM_TOL relative L2, the flash launches
+               equal; an FSDP RARMTrainer's checkpoint resumed in a plain
+               RARMTrainer gives the same next loss. (c) the table split
+               into 2 and 4 row shards at (B, k) = (16, 4) and (256, 20):
+               a kernel search a shard, ids offset, the merge the
+               db-sharded search runs after its all-gather; ids as the
+               unsharded kernel's but at near ties (phase 17's rule),
+               device ms beside the unsharded search's; the db-sharded
+               search itself over NCCL. (d) one RDM and one RARM request
+               through `mesh=` pipelines, bit-equal to the plain ones.
 
 Each phase's wall seconds follow it on a line of their own.
 
@@ -228,10 +254,13 @@ torch._foreach_copy_ over the row-pos views); post_ff
 the sum over the sites, `launches` over phase 14's post_ff requests;
 flash_fwd / flash_bwd the sum over phase 15's three shapes (`library_ms`:
 SDPA forward, and forward + backward), `launches` over the first
-trainers' 8 steps of phases 16 and 19 (`launches_by_phase` splits it); knn the op point B = 16, k = 4 of phase 17
+trainers' 8 steps of phases 16 and 19 and phase 20's steps
+(`launches_by_phase` splits it; `parallel` holds phase 20's remat and
+world-1 numbers); knn the op point B = 16, k = 4 of phase 17
 (every case under `cases`; `library_ms` torch.topk(q @ db.T), two calls
 with no promise on tie order), `launches` over phase 18's requests and
-nn-memory build. The rows of packed_attn and flash_fwd, one core, name its
+nn-memory build and phase 20's searches (`launches_by_phase`; `parallel`
+the sharded cases). The rows of packed_attn and flash_fwd, one core, name its
 header beside their launchers under `sources`, as the rows of the core's
 launchers and packed_attn_q8's do theirs (packed_attn_q8's also its
 `exp2_floor_ms` over the sites).
@@ -421,6 +450,26 @@ RARM_GRAD_FAULTS = {
 # room for other draws and weights, and well below what a lost or wrong
 # gradient path (a whole block's share of the norm) would give.
 TRAIN_GRAD_TOL = 2e-2
+# Phase 20: remat under each of JAX's four policies at batch 40 (the same
+# state and seed: the loss is computed before any recompute, so it must be
+# equal; grad_norm within PARALLEL_GRAD_TOL relative, the backward's sums
+# in another order), then a batch past what no remat holds: the smallest
+# even batch whose forward-and-backward peak, extrapolated from batches 20
+# and 40, passes PARALLEL_OVER of the card, run under a policy only where
+# its own extrapolated peak stays under PARALLEL_FIT of the card (no OOM is
+# provoked). World-1 DDP / FSDP steps over NCCL against the plain step
+# from the same state: equal losses, params within PARALLEL_PARAM_TOL
+# relative L2 after two steps. The db-sharded kNN at 2 and 4 shards.
+PARALLEL_SEED = 7
+PARALLEL_POLICIES = ("dots", "nothing", "dots_no_batch", "save_lowres")
+PARALLEL_GRAD_TOL = 1e-3
+PARALLEL_OVER = 1.0
+PARALLEL_FIT = 0.9
+PARALLEL_BIG_STEPS = 2
+PARALLEL_PARAM_TOL = 1e-5
+PARALLEL_KNN_CASES = ((16, 4), (256, 20))
+PARALLEL_SHARDS = (2, 4)
+PARALLEL_DDIM_STEPS = 10
 RARM_BATCHES = (16, 32)           # B = 16, and 32 under CFG
 RARM_POSITIONS = (0, 63, 200, 255)
 RARM_SWEEP_SEEDS = 24             # more inputs for decode_attn's attention
@@ -3604,6 +3653,462 @@ def phase_rarm_train(rarm_sd: dict, vq_sd: dict, emb: torch.Tensor) -> dict:
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------ phase 20: parallel
+
+def _cpu_tree(tree):
+    """A deep copy of a state dict tree in host memory."""
+    if isinstance(tree, dict):
+        return {k: _cpu_tree(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    return tree
+
+
+def _whole_params(state) -> dict:
+    """A step's parameters, whole, in host f32 (gathered under FSDP)."""
+    return {k: v.float() for k, v in
+            _cpu_tree(state.full(state.params)).items()}
+
+
+def _rel_l2(got: dict, want: dict) -> float:
+    num = sum(float((got[k] - want[k]).double().pow(2).sum()) for k in want)
+    den = sum(float(want[k].double().pow(2).sum()) for k in want)
+    return math.sqrt(num / den)
+
+
+def _gib() -> float:
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def _remat_step(step_fn, state, snap, z, nns) -> dict:
+    """One step of `step_fn` from the snapshot: loss, grad_norm, wall ms,
+    peak GiB (from the state alone) and the flash launches."""
+    from rdm_tpu_torch.ops import flash_attention as fa
+
+    state.load_state_dict(snap)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, m = step_fn(state, z, nns, PARALLEL_SEED)
+    torch.cuda.synchronize()
+    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "ms": (time.perf_counter() - t0) * 1e3, "peak_gib": _gib(),
+           **fa.launch_counts()}
+    if not (math.isfinite(out["loss"]) and math.isfinite(out["grad_norm"])):
+        raise RuntimeError(f"remat step: non-finite metrics {out}")
+    return out
+
+
+def _fb_peak(tr, state, z, nns, policy) -> float:
+    """Peak GiB of one forward and backward under `policy` (None: no
+    remat), without the optimizer, whose foreach temporaries set the
+    step's peak at small batches: the part that grows with the batch."""
+    from rdm_tpu_torch.training.train_state import (compute_grads, fold_in,
+                                                    remat_region,
+                                                    remat_scope)
+
+    region = remat_region(policy) if policy else None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with remat_scope(state.model, region):
+        compute_grads(state.model, z, nns,
+                      fold_in(PARALLEL_SEED, 0, z.device), tr.schedule)
+    torch.cuda.synchronize()
+    for p in state.model.parameters():
+        p.grad = None
+    return _gib()
+
+
+def _parallel_remat(rdm_sd, vq_sd, emb, tmp, card) -> dict:
+    """(a): the ImageNet RDM through RDMTrainer's state, batches and
+    optimizer: one step without remat and one under each policy from one
+    state and seed at batch 40, each twice; the forward-and-backward peaks
+    at batches 20 and 40 give each policy's slope, and from them a batch
+    past no remat's memory, where `nothing` and `save_lowres` take two
+    steps each if their predicted peak fits."""
+    import dataclasses
+    import os
+
+    from rdm_tpu_torch.config import AutoencoderConfig, RDMConfig
+    from rdm_tpu_torch.training.train_state import make_train_step
+    from rdm_tpu_torch.training.trainer import RDMTrainer, TrainerConfig
+
+    cfg = dataclasses.replace(RDMConfig.imagenet(), p_uncond=0.1)
+    tcfg = TrainerConfig(logdir=os.path.join(tmp, "remat"), base_lr=1e-4,
+                         image_log_every=0, adam_mu_dtype="bfloat16")
+    resident = torch.cuda.memory_allocated() / 2**30
+    say("parallel", f"{resident:.2f} GiB resident from earlier phases "
+        f"(in every peak below) ({card})")
+    tr = RDMTrainer(cfg, tcfg, AutoencoderConfig.vq_f4(), vq_sd,
+                    batch_size=TRAIN_BATCH, device="cuda",
+                    init_state_dict=rdm_sd)
+    state = tr.init_state()
+    snap = _cpu_tree(state.state_dict())
+
+    def step_fn(policy):
+        if policy is None:
+            return tr.step_fn
+        return make_train_step(tr.tx, tr.schedule, ema_decay=tcfg.ema_decay,
+                               remat=True, remat_policy=policy)
+
+    def batch_of(b, seed):
+        return tr.prepare_batch(next(_train_batches(emb, b, seed)))
+
+    names = (None,) + PARALLEL_POLICIES
+    probed = ("nothing", "save_lowres")
+    z, nns = batch_of(TRAIN_BATCH, SEED + 80)
+    _remat_step(tr.step_fn, state, snap, z, nns)  # warm-up (cuDNN picks)
+    fb = {TRAIN_BATCH: {p: _fb_peak(tr, state, z, nns, p)
+                        for p in (None,) + probed}}
+    at40 = {}
+    for p in names:
+        runs = [_remat_step(step_fn(p), state, snap, z, nns)
+                for _ in range(2)]
+        r = dict(runs[0], ms_2=runs[1]["ms"])
+        at40[p] = r
+        if runs[1]["loss"] != r["loss"]:
+            raise RuntimeError(f"remat {p}: two runs of one step differ")
+    base = at40[None]
+    for p in PARALLEL_POLICIES:
+        r = at40[p]
+        rel = abs(r["grad_norm"] - base["grad_norm"]) / base["grad_norm"]
+        r["grad_norm_rel"] = rel
+        if r["loss"] != base["loss"] or rel > PARALLEL_GRAD_TOL:
+            raise RuntimeError(f"remat {p}: loss {r['loss']!r} vs "
+                               f"{base['loss']!r}, grad_norm {rel:.2e} "
+                               f"relative (limit {PARALLEL_GRAD_TOL:g})")
+        if (r["flash_fwd"], r["flash_bwd"]) == (0, 0):
+            raise RuntimeError(f"remat {p}: no flash launches")
+    for p in names:
+        r = at40[p]
+        say("parallel", f"remat {p or 'none'} at batch {TRAIN_BATCH}: step "
+            f"{r['ms']:.1f} / {r['ms_2']:.1f} ms (two runs), peak "
+            f"{r['peak_gib']:.2f} GiB, loss {r['loss']:.6f}, grad_norm "
+            f"{r['grad_norm']:.6f}, flash {r['flash_fwd']} fwd / "
+            f"{r['flash_bwd']} bwd ({card})")
+    del z, nns
+    half = TRAIN_BATCH // 2
+    z, nns = batch_of(half, SEED + 81)
+    fb[half] = {p: _fb_peak(tr, state, z, nns, p) for p in (None,) + probed}
+    del z, nns
+    total = torch.cuda.get_device_properties(0).total_memory / 2**30
+
+    def predict(p, b):
+        slope = (fb[TRAIN_BATCH][p] - fb[half][p]) / (TRAIN_BATCH - half)
+        return fb[TRAIN_BATCH][p] + slope * (b - TRAIN_BATCH)
+
+    big = TRAIN_BATCH
+    while predict(None, big) < total * PARALLEL_OVER:
+        big += 2
+    fits = {p: predict(p, big) for p in probed}
+    say("parallel", "forward + backward peaks at batch 20 / 40: " + ", ".join(
+        f"{p or 'none'} {fb[half][p]:.2f} / {fb[TRAIN_BATCH][p]:.2f} GiB"
+        for p in (None,) + probed) + f"; no remat predicted "
+        f"{predict(None, big):.1f} GiB at batch {big} (card {total:.1f} "
+        f"GiB); nothing {fits['nothing']:.1f}, save_lowres "
+        f"{fits['save_lowres']:.1f} GiB predicted there ({card})")
+    runs = [p for p, g in fits.items() if g < total * PARALLEL_FIT]
+    if "nothing" not in runs:
+        raise RuntimeError(f"remat nothing predicted {fits['nothing']:.1f} "
+                           f"GiB at batch {big}: past the card")
+    z, nns = batch_of(big, SEED + 82)
+    at_big = {}
+    for p in runs:
+        r = _remat_step(step_fn(p), state, snap, z, nns)
+        torch.cuda.reset_peak_memory_stats()
+        _, m = step_fn(p)(state, z, nns, PARALLEL_SEED)
+        torch.cuda.synchronize()
+        r["loss_2"] = float(m["loss"])
+        r["peak_gib"] = max(r["peak_gib"], _gib())
+        if not math.isfinite(r["loss_2"]):
+            raise RuntimeError(f"{p}: non-finite second loss")
+        at_big[p] = r
+    del z, nns
+    for p in probed:
+        if p in at_big:
+            r = at_big[p]
+            say("parallel", f"remat {p} at batch {big}: two steps, losses "
+                f"{r['loss']:.6f}, {r['loss_2']:.6f}, first step "
+                f"{r['ms']:.1f} ms, peak {r['peak_gib']:.2f} GiB "
+                f"(predicted {fits[p]:.1f}) ({card})")
+        else:
+            say("parallel", f"remat {p} at batch {big}: not run, predicted "
+                f"{fits[p]:.1f} GiB past {PARALLEL_FIT:.0%} of the card "
+                f"({card})")
+    launches = {n: sum(r[n] for r in at40.values()) for n in FLASH_INFO}
+    del state
+    torch.cuda.empty_cache()
+    return {"resident_gib": resident,
+            "batch_40": {str(k): v for k, v in at40.items()},
+            "fb_peak_gib": {b: {str(k): v for k, v in d.items()}
+                            for b, d in fb.items()},
+            "big_batch": big, "big": at_big, "predicted_gib": fits,
+            "launches": launches}
+
+
+def _dp_run(make, batches, steps=2) -> dict:
+    """Steps of a trainer made by `make()` on prepared batches: losses,
+    whole params, flash launches, peak GiB."""
+    from rdm_tpu_torch.ops import flash_attention as fa
+
+    tr = make()
+    state = tr.init_state()
+    fa.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for z, nns in batches[:steps]:
+        t0 = time.perf_counter()
+        state, m = tr.step_fn(state, z, nns, PARALLEL_SEED)
+        losses.append(float(m["loss"]))  # waits for the step
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out = {"losses": losses, "step_ms": ms, "launches": fa.launch_counts(),
+           "peak_gib": _gib(), "params": _whole_params(state)}
+    return out, tr, state
+
+
+def _parallel_steps(rdm_sd, vq_sd, rarm_sd, vq16_sd, emb, mesh, tmp,
+                    card) -> dict:
+    """(b): two DDP and two FSDP steps at world 1 over NCCL against the
+    plain steps from the same state, the RDM at batch 40 and the RARM at
+    batch 16; an FSDP RARMTrainer's checkpoint resumed in a plain one."""
+    import dataclasses
+
+    from rdm_tpu_torch.config import AutoencoderConfig, RARMConfig, RDMConfig
+    from rdm_tpu_torch.training.trainer import RARMTrainer, RDMTrainer
+
+    res = {}
+    models = {
+        "rdm": (RDMTrainer, dataclasses.replace(RDMConfig.imagenet(),
+                                                p_uncond=0.1),
+                AutoencoderConfig.vq_f4(), vq_sd, rdm_sd, TRAIN_BATCH,
+                "val/loss_simple_ema"),
+        "rarm": (RARMTrainer, dataclasses.replace(
+            RARMConfig.imagenet_dogs(), p_mask_max=RARM_P_MASK_MAX),
+            AutoencoderConfig.vq_f16(), vq16_sd, rarm_sd, RARM_TRAIN_BATCH,
+            "val/loss_ema")}
+    launches = dict.fromkeys(FLASH_INFO, 0)
+    # cuDNN's deterministic algorithms, so that two runs of one step sum
+    # their gradients in one order and the losses can be held equal
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, item in models.items():
+            _parallel_model(name, *item, emb, mesh, tmp, card, res,
+                            launches)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    res["launches"] = launches
+    return res
+
+
+def _parallel_model(name, cls, cfg, fs_cfg, fs_sd, init_sd, batch, mon,
+                    emb, mesh, tmp, card, res, launches) -> None:
+    """(b) for one model: see `_parallel_steps`."""
+    import os
+
+    from rdm_tpu_torch.training.trainer import TrainerConfig
+
+    def make(mode, logdir=name):
+        tcfg = TrainerConfig(
+            logdir=os.path.join(tmp, logdir), base_lr=1e-4,
+            image_log_every=0, log_every=10**9, ckpt_every=10**9,
+            max_ckpts=1, monitor=mon, param_sharding=mode or
+            "replicated")
+        return cls(cfg, tcfg, fs_cfg, fs_sd, mesh=mesh if mode else None,
+                   batch_size=batch, device="cuda",
+                   init_state_dict=init_sd)
+
+    prep = make(None)
+    it = _train_batches(emb, batch, SEED + 90)
+    batches = [prep.prepare_batch(next(it)) for _ in range(3)]
+    del prep
+    runs = {}
+    for mode in (None, "replicated", "fsdp"):
+        runs[mode], tr, state = _dp_run(lambda: make(mode), batches)
+        if name == "rarm" and mode == "fsdp":
+            tr._save(state, {})  # step 2, whole tensors
+            state, m = tr.step_fn(state, *batches[2], PARALLEL_SEED)
+            runs[mode]["next_loss"] = float(m["loss"])
+        del tr, state
+        torch.cuda.empty_cache()
+    plain = runs[None]
+    for mode in ("replicated", "fsdp"):
+        r = runs[mode]
+        rel = _rel_l2(r["params"], plain["params"])
+        r["params_rel_l2"] = rel
+        if r["losses"] != plain["losses"] or rel > PARALLEL_PARAM_TOL \
+                or r["launches"] != plain["launches"]:
+            raise RuntimeError(
+                f"{name} {mode}: losses {r['losses']} vs "
+                f"{plain['losses']}, params {rel:.2e} relative L2 "
+                f"(limit {PARALLEL_PARAM_TOL:g}), flash launches "
+                f"{r['launches']} vs {plain['launches']}")
+        say("parallel", f"{name} {mode} at world 1 (NCCL), batch "
+            f"{batch}: losses {r['losses']} equal to the plain step's; "
+            f"params {rel:.2e} relative L2 after 2 steps; flash "
+            f"{r['launches']}; step ms {r['step_ms'][0]:.1f}, "
+            f"{r['step_ms'][1]:.1f} (plain {plain['step_ms'][0]:.1f}, "
+            f"{plain['step_ms'][1]:.1f}); peak {r['peak_gib']:.2f} GiB "
+            f"(plain {plain['peak_gib']:.2f}) ({card})")
+        for n in FLASH_INFO:
+            launches[n] += r["launches"][n]
+    for r in runs.values():
+        del r["params"]
+    res[name] = {str(k): v for k, v in runs.items()}
+    if name == "rarm":
+        tr = make(None, logdir="rarm")  # the FSDP trainer's directory
+        state = tr.resume_or_init()
+        if state.step != 2:
+            raise RuntimeError(f"resumed at step {state.step}, want 2")
+        _, m = tr.step_fn(state, *batches[2], PARALLEL_SEED)
+        want = runs["fsdp"]["next_loss"]
+        if float(m["loss"]) != want:
+            raise RuntimeError(f"FSDP checkpoint resumed plain: next "
+                               f"loss {float(m['loss'])!r} vs {want!r}")
+        say("parallel", f"rarm: an FSDP RARMTrainer's checkpoint "
+            f"resumed in a plain one, next loss {want:.6f} equal ({card})")
+        res["resume_next_loss"] = want
+        del tr, state
+        torch.cuda.empty_cache()
+
+
+def _parallel_knn(emb, mesh, card) -> dict:
+    """(c): the table's rows split into 2 and 4 shards, a kernel search a
+    shard with its ids offset, and the merge the db-sharded search makes
+    after its all-gather, against the unsharded kernel; then the
+    db-sharded search itself over NCCL at world 1."""
+    from rdm_tpu_torch.ops import knn_kernel as kk
+    from rdm_tpu_torch.retrieval.engine import (knn_search,
+                                                knn_search_shard,
+                                                l2_normalize,
+                                                merge_candidates)
+
+    db = emb.to(torch.bfloat16)
+    n, d = db.shape
+    g = torch.Generator(device="cuda").manual_seed(SEED + 91)
+    cases, launches = [], 0
+
+    def counted(fn):  # the launches of one sharded search
+        nonlocal launches
+        kk.reset_launch_counts()
+        out = fn()
+        launches += sum(kk.launch_counts().values())
+        return out
+
+    for b, k in PARALLEL_KNN_CASES:
+        q = l2_normalize(torch.randn(b, d, generator=g, device="cuda"))
+        whole = knn_search(db, q, k)
+        plain = knn_search(db, q, k + 1, impl="reference")
+        for s in PARALLEL_SHARDS:
+            rows = n // s
+
+            def sharded():
+                parts = [kk.knn_topk(db[r * rows:(r + 1) * rows], q, k)
+                         for r in range(s)]
+                return merge_candidates(
+                    torch.cat([p[0] for p in parts], 1),
+                    torch.cat([p[1] + r * rows
+                               for r, p in enumerate(parts)], 1), k)
+
+            got = counted(sharded)
+            near = _knn_hold(f"{s} shards B={b} k={k}", got, plain, n)
+            differ = int((got[1] != whole[1]).sum().item())
+            _knn_hold(f"{s} shards vs the unsharded kernel", got,
+                      (whole[0], whole[1]), n)
+            ms, whole_ms = median_ms(sharded), median_ms(
+                lambda: kk.knn_topk(db, q, k))
+            cases.append({"shards": s, "b": b, "k": k, "ms": ms,
+                          "unsharded_ms": whole_ms, "near_tie_ranks": near,
+                          "ids_differ_from_unsharded": differ})
+            say("parallel", f"knn {s} shards B={b} k={k}: {ms:.3f} ms "
+                f"(unsharded kernel {whole_ms:.3f} ms); ids differ from "
+                f"the unsharded kernel at {differ} near-tie ranks ({card})")
+    q = l2_normalize(torch.randn(16, d, generator=g, device="cuda"))
+    got = counted(lambda: knn_search_shard(db, 0, q, 4, mesh))
+    if not torch.equal(got[1], knn_search(db, q, 4)[1]):
+        raise RuntimeError("knn_search_shard at world 1 differs from the "
+                           "unsharded search")
+    return {"cases": cases, "launches": launches}
+
+
+def _parallel_sampling(rdm_sd, vq_sd, rarm_sd, vq16_sd, emb, mesh) -> dict:
+    """(d): one RDM and one RARM request through `mesh=` pipelines at
+    world 1, bit-equal to the plain pipelines' on the same seeds."""
+    from rdm_tpu_torch.config import AutoencoderConfig, RARMConfig, RDMConfig
+    from rdm_tpu_torch.ops import knn_kernel as kk
+    from rdm_tpu_torch.pipeline import RARMPipeline, RDMPipeline
+    from rdm_tpu_torch.retrieval.database import DataPool
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 92)
+    q = torch.randn(4, 512, generator=g, device="cuda")
+    pool = DataPool(embeddings=emb)
+    kk.reset_launch_counts()
+    out = {}
+    for name, cls, cfg, fs, fs_sd, sd, kw in (
+            ("rdm", RDMPipeline, RDMConfig.imagenet(),
+             AutoencoderConfig.vq_f4(), vq_sd, rdm_sd,
+             dict(steps=PARALLEL_DDIM_STEPS, guidance_scale=2.0, seed=4)),
+            ("rarm", RARMPipeline, RARMConfig.imagenet_dogs(),
+             AutoencoderConfig.vq_f16(), vq16_sd, rarm_sd,
+             dict(top_k=64, temperature=1.0, seed=4,
+                  return_tokens=True))):
+        imgs = []
+        for m in (None, mesh):
+            pipe = cls(cfg, sd, fs, fs_sd, pool=pool, device="cuda", mesh=m)
+            r = pipe.sample_with_query(q, **kw)
+            imgs.append(r)
+            del pipe
+            torch.cuda.empty_cache()
+        a, b = imgs
+        same = np.array_equal(a["query_samples"], b["query_samples"]) and (
+            name == "rdm" or np.array_equal(a["tokens"], b["tokens"]))
+        if not same:
+            raise RuntimeError(f"{name}: the mesh pipeline's request differs "
+                               "from the plain one's")
+        out[name] = "bit-equal"
+        say("parallel", f"{name} request through mesh= at world 1: "
+            f"bit-equal to the plain pipeline's")
+    out["knn_launches"] = sum(kk.launch_counts().values())
+    return out
+
+
+def phase_parallel(rdm_sd: dict, vq_sd: dict, rarm_sd: dict, vq16_sd: dict,
+                   emb: torch.Tensor, card: str) -> dict:
+    """Phase 20: remat, world-1 DDP / FSDP over NCCL, the db-sharded kNN
+    and data-parallel sampling; returns each part's numbers and the
+    flash and knn launches."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from rdm_tpu_torch.parallel import distributed as pdist
+    from rdm_tpu_torch.parallel.mesh import make_mesh
+
+    tmp = tempfile.mkdtemp(prefix="parallel_smoke_")
+    try:
+        remat = _parallel_remat(rdm_sd, vq_sd, emb, tmp, card)
+        pdist.initialize(f"file://{tmp}/store", 1, 0, device="cuda")
+        if dist.get_backend() != "nccl":
+            raise RuntimeError(f"process group on {dist.get_backend()}")
+        mesh = make_mesh(data=1)
+        steps = _parallel_steps(rdm_sd, vq_sd, rarm_sd, vq16_sd, emb, mesh,
+                                tmp, card)
+        knn = _parallel_knn(emb, mesh, card)
+        sampling = _parallel_sampling(rdm_sd, vq_sd, rarm_sd, vq16_sd, emb,
+                                      mesh)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {n: remat["launches"][n] + steps["launches"][n]
+                for n in FLASH_INFO}
+    launches["knn"] = knn["launches"] + sampling["knn_launches"]
+    return {"remat": remat, "steps": steps, "knn": knn,
+            "sampling": sampling, "launches": launches}
+
+
 def _timed(phase, *args):
     """phase(*args), and its wall seconds on a line of their own."""
     t0 = time.perf_counter()
@@ -3626,7 +4131,7 @@ def main() -> int:
     from rdm_tpu_torch.models.rarm import RARM
     from rdm_tpu_torch.models.rdm import RDM
 
-    _timed(phase_device)
+    card = _timed(phase_device)
     _timed(phase_build)
     kernels = _timed(phase_kernels)
     int8_kernels = _timed(phase_int8_kernels)
@@ -3655,6 +4160,7 @@ def main() -> int:
     knn = _timed(phase_knn, emb)
     clip = _timed(phase_clip_serve, rdm_sd, vq_sd, emb, rarm_sd, vq16_sd)
     rarm_train = _timed(phase_rarm_train, rarm_sd, vq16_sd, emb)
+    par = _timed(phase_parallel, rdm_sd, vq_sd, rarm_sd, vq16_sd, emb, card)
 
     def row(name, info, launches_, r, **extra):
         # device ms of a call in a CUDA graph: the sum over the sites or
@@ -3717,20 +4223,28 @@ def main() -> int:
                     sites=post_ff["sites"],
                     request_s=post_ff["request_s"],
                     forward_rel_l2=post_ff["forward_rel_l2"]))
-    # the flash kernels' launches: phase 16's and phase 19's first trainers
+    # the flash kernels' launches: phase 16's and phase 19's first
+    # trainers and phase 20's steps
     flash_launches = {n: train["launches"][n] + rarm_train["launches"][n]
-                      for n in flash}
+                      + par["launches"][n] for n in flash}
+    parallel = {k: par[k] for k in ("remat", "steps")}
     rows += [row(n, FLASH_INFO[n], flash_launches, r, cases=r["cases"],
                  launches_by_phase={"train_rdm": train["launches"][n],
-                                    "train_rarm": rarm_train["launches"][n]},
+                                    "train_rarm": rarm_train["launches"][n],
+                                    "parallel": par["launches"][n]},
+                 parallel=parallel,
                  train={k: v for k, v in train.items() if k != "launches"},
                  rarm_train={k: v for k, v in rarm_train.items()
                              if k != "launches"},
                  **core.get(n, {}))
              for n, r in flash.items()]
-    rows.append(row("knn", KNN_INFO, {"knn": clip["launches"]}, knn,
+    rows.append(row("knn", KNN_INFO,
+                    {"knn": clip["launches"] + par["launches"]["knn"]}, knn,
                     cases=knn["cases"], near_tie_ranks=knn["near_tie_ranks"],
-                    serve=clip))
+                    serve=clip,
+                    launches_by_phase={"clip_serve": clip["launches"],
+                                       "parallel": par["launches"]["knn"]},
+                    parallel=par["knn"]))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,7 +38,7 @@ k neighbours the plain path.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -177,7 +177,8 @@ class RARM(nn.Module):
 
     def training_loss(self, z_indices: torch.Tensor, neighbors: torch.Tensor,
                       generator: Optional[torch.Generator] = None,
-                      p_mask=None, *, mask: Optional[torch.Tensor] = None):
+                      p_mask=None, *, mask: Optional[torch.Tensor] = None,
+                      rows: Optional[Tuple[int, int]] = None):
         """z_indices [B, S] ground-truth codes, neighbors [B, S_ctx, D] ->
         (loss, {"loss", "ppl"}): the mean NLL of the codes under the
         teacher-forced input [SOS, z_0 .. z_{S-2}], log-softmax in f32
@@ -187,13 +188,19 @@ class RARM(nn.Module):
         replaced by the scalar `mask_token` with probability p_mask, the
         draw from `generator` (on the neighbours' device); `mask` (bool,
         the neighbours' shape) replaces that draw: a seam for the tests,
-        which feed the JAX package's draw."""
+        which feed the JAX package's draw. `rows` = (start, global batch)
+        under data parallelism: the draw (or the given mask) is at the
+        global batch's shape, cut to these rows (`RDM.training_loss`)."""
         cfg = self.config
         r = neighbors
+        b = r.shape[0]
+        start, gb = rows if rows is not None else (0, b)
         if mask is None and p_mask is not None:
-            mask = torch.rand(r.shape, generator=generator,
+            mask = torch.rand((gb, *r.shape[1:]), generator=generator,
                               device=r.device) < p_mask
         if mask is not None:
+            if gb != b:
+                mask = mask[start:start + b]
             r = r.masked_fill(mask, float(cfg.mask_token))
         sos = torch.full((z_indices.shape[0], 1), cfg.sos_token,
                          dtype=z_indices.dtype, device=z_indices.device)
@@ -222,17 +229,30 @@ def top_k_filter(logits: torch.Tensor, k: int,
 
 def _sample_next(logits: torch.Tensor, generator: torch.Generator, *,
                  use_cfg: bool, guidance_scale: float, temperature: float,
-                 top_k: int, approx_top_k: bool = False) -> torch.Tensor:
+                 top_k: int, approx_top_k: bool = False,
+                 rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """CFG combine -> temperature -> top-k -> categorical draw; shared by
-    both decoding paths. logits [B or 2B, V] f32 -> tokens [B] int64."""
+    both decoding paths. logits [B or 2B, V] f32 -> tokens [B] int64.
+
+    The draw inverts each row's CDF at one uniform: the first token whose
+    cumulative probability exceeds u times the row's total. Under data
+    parallelism `rows` = (start, global batch): the uniforms are drawn for
+    the global batch and cut to these rows, so every rank samples what
+    one process would for its rows."""
     if use_cfg:
         lc, lu = logits.chunk(2, dim=0)
         logits = lu + guidance_scale * (lc - lu)
     logits = logits / temperature
     if top_k:
         logits = top_k_filter(logits, top_k, approx=approx_top_k)
-    probs = torch.softmax(logits, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    probs = torch.softmax(logits.float(), dim=-1)
+    b = probs.shape[0]
+    start, gb = rows if rows is not None else (0, b)
+    u = torch.rand(gb, generator=generator,
+                   device=probs.device)[start:start + b]
+    cdf = probs.cumsum(dim=-1)
+    token = torch.searchsorted(cdf, (u * cdf[:, -1])[:, None], right=True)
+    return token[:, 0].clamp_max(probs.shape[-1] - 1)
 
 
 def _guided_context(neighbors: torch.Tensor, guidance_scale: float):
@@ -247,9 +267,11 @@ def _sample_loop(step: Callable[[torch.Tensor, int], torch.Tensor],
                  cfg: RARMConfig, batch: int, device: torch.device,
                  generator: torch.Generator, steps: Optional[int],
                  temperature: float, top_k: int, guidance_scale: float,
-                 approx_top_k: bool) -> torch.Tensor:
+                 approx_top_k: bool,
+                 rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """The decode loop both samplers share: `step(tokens, pos)` gives the
-    logits of one position ([B or 2B] under CFG); returns [B, steps]."""
+    logits of one position ([B or 2B] under CFG); returns [B, steps].
+    `rows`: see `_sample_next`."""
     steps = steps or cfg.seq_len
     top_k = min(top_k, cfg.out_vocab) if top_k else top_k
     use_cfg = guidance_scale != 1.0
@@ -261,7 +283,7 @@ def _sample_loop(step: Callable[[torch.Tensor, int], torch.Tensor],
         token = _sample_next(step(tok_in, pos), generator, use_cfg=use_cfg,
                              guidance_scale=guidance_scale,
                              temperature=temperature, top_k=top_k,
-                             approx_top_k=approx_top_k)
+                             approx_top_k=approx_top_k, rows=rows)
         out.append(token)
     return torch.stack(out, dim=1)
 
@@ -393,7 +415,9 @@ def sample_tokens_fused(model: RARM, neighbors: torch.Tensor,
                         int8_weights: bool = False, int8_kv: bool = False,
                         batched_commit: bool = False,
                         weights: Optional[List[Dict[str, torch.Tensor]]]
-                        = None) -> torch.Tensor:
+                        = None,
+                        rows: Optional[Tuple[int, int]] = None
+                        ) -> torch.Tensor:
     """`sample_tokens` through the decode kernels: two kernel calls per
     layer per step (`decode_attn`, `decode_post_ff`), plus one
     `commit_rows` per step with batched_commit.
@@ -402,7 +426,10 @@ def sample_tokens_fused(model: RARM, neighbors: torch.Tensor,
     `extract_decode_weights`, int8 ones with int8_weights) skips the
     per-call packing. Same sampling semantics as `sample_tokens`; numerics
     differ by rounding order, and by the quantization in the int8 modes.
-    int8_kv refuses batched_commit (see `FusedDecoder`)."""
+    int8_kv refuses batched_commit (see `FusedDecoder`). `rows`: the
+    rank's rows of a data-parallel request (`_sample_next`); the kernels
+    see only those rows, so no partitioning of theirs is needed (JAX's
+    `partition=True`)."""
     if weights is None:
         weights = extract_decode_weights(model, model.dtype,
                                          int8_weights=int8_weights)
@@ -415,4 +442,4 @@ def sample_tokens_fused(model: RARM, neighbors: torch.Tensor,
                        int8_kv=int8_kv)
     return _sample_loop(dec.step, model.config, neighbors.shape[0],
                         neighbors.device, generator, steps, temperature,
-                        top_k, guidance_scale, approx_top_k)
+                        top_k, guidance_scale, approx_top_k, rows)

@@ -104,7 +104,8 @@ class RDM(nn.Module):
                       t: Optional[torch.Tensor] = None,
                       noise: Optional[torch.Tensor] = None,
                       drop: Optional[torch.Tensor] = None,
-                      ctx_noise: Optional[torch.Tensor] = None
+                      ctx_noise: Optional[torch.Tensor] = None,
+                      rows: Optional[Tuple[int, int]] = None
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """One evaluation of the diffusion training objective
         (`RDM.training_loss` of the JAX package): eps-prediction L2 with the
@@ -116,30 +117,43 @@ class RDM(nn.Module):
         retro_noise, the context noise - come from `generator` (on z's
         device), in that order. The keyword-only t / noise / drop /
         ctx_noise replace a draw; they are a seam for the tests, which feed
-        the JAX package's draws. Returns (loss, {loss_simple, loss_vlb (with
-        original_elbo_weight > 0), loss})."""
+        the JAX package's draws. Under data parallelism `rows` = (start,
+        global batch) says which rows of the global batch z holds: every
+        draw is made at the global batch's shape and cut to those rows, so
+        ranks draw what one process would for the whole batch (given draws
+        are global then, and cut the same way). Returns (loss,
+        {loss_simple, loss_vlb (with original_elbo_weight > 0), loss})."""
         cfg = self.config
         b, dev = z.shape[0], z.device
+        start, gb = rows if rows is not None else (0, b)
+
+        def mine(a):  # this rank's rows of a global draw
+            return a if gb == b else a[start:start + b]
+
         context = (self.encode_neighbors(neighbors).float()
                    if neighbors is not None else None)
         if t is None:
-            t = torch.randint(0, cfg.timesteps, (b,), generator=generator,
+            t = torch.randint(0, cfg.timesteps, (gb,), generator=generator,
                               device=dev)
+        t = mine(t)
         if noise is None:
-            noise = torch.randn(z.shape, generator=generator, device=dev)
+            noise = torch.randn((gb, *z.shape[1:]), generator=generator,
+                                device=dev)
+        noise = mine(noise)
         if context is not None and cfg.p_uncond > 0.0:
             if drop is None:
-                drop = torch.rand(b, generator=generator,
+                drop = torch.rand(gb, generator=generator,
                                   device=dev) < cfg.p_uncond
+            drop = mine(drop)
             uncond = self.uncond_context(b, context.shape[1])
             context = torch.where(drop.to(dev)[:, None, None], uncond,
                                   context)
         x_noisy = q_sample(schedule, z, t, noise)
         if cfg.retro_noise and context is not None:
             if ctx_noise is None:
-                ctx_noise = torch.randn(context.shape, generator=generator,
-                                        device=dev)
-            context = q_sample(schedule, context, t, ctx_noise)
+                ctx_noise = torch.randn((gb, *context.shape[1:]),
+                                        generator=generator, device=dev)
+            context = q_sample(schedule, context, t, mine(ctx_noise))
 
         pred = self(x_noisy, t, context)
         target = noise if cfg.parameterization == "eps" else z
@@ -182,11 +196,13 @@ def sample_with_neighbors(model: RDM, neighbors: torch.Tensor,
                           schedule: DiffusionSchedule,
                           sampler: DDIMSamplerConfig,
                           generator: torch.Generator, *,
-                          guidance_label: Optional[float] = None
+                          guidance_label: Optional[float] = None,
+                          rows: Optional[Tuple[int, int]] = None
                           ) -> torch.Tensor:
     """DDIM-sample latents conditioned on neighbors [B, k, D] (or
     [B, n, k, D]); returns NHWC f32 latents divided by scale_factor, the
-    JAX layout. Decode with the first stage."""
+    JAX layout. Decode with the first stage. `rows`: the rank's rows of a
+    data-parallel request (`sampling.ddim_sample`)."""
     cfg = model.config
     neighbors = model.encode_neighbors(neighbors)
     b, s, _ = neighbors.shape
@@ -199,5 +215,5 @@ def sample_with_neighbors(model: RDM, neighbors: torch.Tensor,
                 else None)
     x, _ = ddim_sample(make_denoise_fn(model), schedule, sampler, shape,
                        neighbors, generator, uncond_context=uncond,
-                       denoise_feats_fn=feats_fn)
+                       denoise_feats_fn=feats_fn, rows=rows)
     return x.permute(0, 2, 3, 1) / cfg.scale_factor

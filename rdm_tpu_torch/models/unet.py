@@ -103,6 +103,9 @@ class UNet(nn.Module):
                 self.output_blocks.append(nn.ModuleList(layers))
         self.out = nn.Sequential(GroupNorm32(ch), nn.SiLU(),
                                  Conv2d(ch, cfg.out_channels, 3, padding=1))
+        # (tag, fn, *args) -> fn(*args) under a remat policy; set by the
+        # train step for the duration of its forward and backward
+        self.remat = None
 
     def forward(self, x, t, context=None, y=None, *,
                 shared_cfg: Optional[bool] = None, encoder_cache=None,
@@ -144,35 +147,57 @@ class UNet(nn.Module):
         else:
             h = x.to(dt)
             hs = []
+            ds = 1
             for blocks in self.input_blocks:
-                for layer in blocks:
-                    if isinstance(layer, ResBlock):
-                        h = layer(h, emb)
-                    elif isinstance(layer, SpatialTransformer):
-                        if not tiled:
-                            h, emb, tiled = tile2(h), tile2(emb), True
-                        h = layer(h, context)
-                    else:
-                        h = layer(h)
+                if isinstance(blocks[0], Downsample):
+                    ds *= 2
+                tile = not tiled and any(isinstance(layer, SpatialTransformer)
+                                         for layer in blocks)
+                h = self._region(ds, self._block, blocks, h, emb, context,
+                                 None, tile)
+                if tile:
+                    emb, tiled = tile2(emb), True
                 hs.append(h)
-
-            res1, mid_attn, res2 = self.middle_block
-            h = res1(h, emb)
+            h = self._region(ds, self._block, self.middle_block, h, emb,
+                             context, None, not tiled)
             if not tiled:  # no attention in the down path at all
-                h, emb, tiled = tile2(h), tile2(emb), True
-            h = res2(mid_attn(h, context), emb)
+                emb, tiled = tile2(emb), True
         feats = (tuple(hs), h)
 
+        ds = 2 ** (len(cfg.channel_mult) - 1)
         for blocks in self.output_blocks:
             skip = hs.pop()
             if skip.shape[0] != h.shape[0]:  # pre-divergence skip
                 skip = tile2(skip)
-            for layer in blocks:
-                if isinstance(layer, ResBlock):
-                    h = layer(h, emb, skip=skip)
-                elif isinstance(layer, SpatialTransformer):
-                    h = layer(h, context)
-                else:
-                    h = layer(h)
-        out = self.out(h).float()
+            h = self._region(ds, self._block, blocks, h, emb, context, skip,
+                             False)
+            if isinstance(blocks[-1], Upsample):
+                ds //= 2
+        out = self._region(1, self.out, h).float()
         return (out, feats) if return_cache else out
+
+    @staticmethod
+    def _block(blocks, h, emb, context, skip, tile: bool):
+        """One U-Net block: its layers over h; `skip` goes to the up
+        path's ResBlock; `tile` doubles h and emb (shared-prefix CFG)
+        before the block's SpatialTransformer."""
+        for layer in blocks:
+            if isinstance(layer, ResBlock):
+                h = layer(h, emb, skip=skip)
+            elif isinstance(layer, SpatialTransformer):
+                if tile:
+                    h, emb = torch.cat([h, h]), torch.cat([emb, emb])
+                h = layer(h, context)
+            else:
+                h = layer(h)
+        return h
+
+    def _region(self, ds: int, fn, *args):
+        """fn(*args), or, while a train step's remat policy is set
+        (`self.remat`), what that policy makes of the region whose output
+        is tagged blk_ds{ds}: the block outputs the JAX U-Net names with
+        `checkpoint_name` (rdm_tpu/models/unet.py:173-179). Outside remat
+        the call is direct and costs nothing."""
+        if self.remat is None:
+            return fn(*args)
+        return self.remat(f"blk_ds{ds}", fn, *args)

@@ -6,10 +6,19 @@ one device, with the RDM serving modes (`int8_weights`, `encoder_reuse`)
 and the RARM ones (`int8_weights`, `int8_kv`, `approx_top_k`), and, given
 CLIP weights, captions (`embed_caption`, `sample_with_caption`),
 inpainting (`sample_inpaint`) and adaptive re-retrieval
-(`sample_retro_adaptive`); no mesh and no `from_model_dir` yet. Public
+(`sample_retro_adaptive`); no `from_model_dir` yet. Public
 inputs and outputs keep the JAX layouts: query embeddings [B, D],
 neighbors [B, k, D], images NHWC (in: float [-1, 1]; out: uint8 numpy).
 Inside, images and latents are NCHW.
+
+Data-parallel sampling (`mesh=`, the counterpart of JAX's
+`_maybe_data_parallel`): every rank of the mesh makes the same request;
+the batch is split over the `data` axis (it must divide), each rank
+samples its rows through the kernels with every draw made at the global
+batch's shape and cut to its rows, and the images are gathered in rank
+order, so each rank returns what one process would. The table is split
+over the `db` axis (`RetrievalEngine`). Inpainting and adaptive
+re-retrieval are not split: under a data axis above 1 they raise.
 
 Semantics kept (reference ddpm.py:688-984): unconditional sampling draws
 query ids from the nn-memory (or uniformly from the pool), retrieves k
@@ -21,7 +30,7 @@ vector scaled to norm 0.0, as both reference CLIs pass.
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,10 +48,10 @@ from rdm_tpu_torch.models.rdm import (RDM, make_denoise_fn,
 from rdm_tpu_torch.models.retrievers import bind_clip, embed_images
 from rdm_tpu_torch.ops import quant
 from rdm_tpu_torch.ops.schedules import DiffusionSchedule
+from rdm_tpu_torch.parallel import mesh as pmesh
+from rdm_tpu_torch.parallel.distributed import gather_from_ranks
 from rdm_tpu_torch.retrieval.database import DataPool, NNMemory
-from rdm_tpu_torch.retrieval.engine import (RetrievalEngine,
-                                            gather_unnormalized, knn_search,
-                                            l2_normalize)
+from rdm_tpu_torch.retrieval.engine import RetrievalEngine, l2_normalize
 from rdm_tpu_torch.sampling import ddim_retro_sample, ddim_sample
 
 
@@ -96,6 +105,40 @@ def _query_embeddings(retrieval: Optional[RetrievalEngine],
     return pool[torch.as_tensor(np.asarray(qids), device=pool.device)]
 
 
+def _data_rows(mesh, batch: int) -> Optional[Tuple[int, int]]:
+    """(first row, global batch) of this rank's rows of a request under a
+    data axis above 1, else None."""
+    n = pmesh.axis_size(mesh, pmesh.DATA_AXIS)
+    if n <= 1:
+        return None
+    if batch % n:
+        raise ValueError(
+            f"batch {batch} not divisible by the data axis ({n})")
+    return pmesh.axis_rank(mesh, pmesh.DATA_AXIS) * (batch // n), batch
+
+
+def _split(x: torch.Tensor, rows: Optional[Tuple[int, int]], mesh
+           ) -> torch.Tensor:
+    """This rank's rows of a global batch."""
+    if rows is None:
+        return x
+    per = rows[1] // pmesh.axis_size(mesh, pmesh.DATA_AXIS)
+    return x[rows[0]:rows[0] + per]
+
+
+def _join(x: torch.Tensor, rows: Optional[Tuple[int, int]], mesh
+          ) -> torch.Tensor:
+    """Every rank's rows in rank order: the global batch."""
+    if rows is None:
+        return x
+    return gather_from_ranks(x, pmesh.axis_group(mesh, pmesh.DATA_AXIS))
+
+
+def _no_split(mesh, what: str) -> None:
+    if pmesh.axis_size(mesh, pmesh.DATA_AXIS) > 1:
+        raise NotImplementedError(f"{what} is not split over a data axis")
+
+
 class RDMPipeline:
     """Retrieval-augmented diffusion sampling, end to end, on `device`.
 
@@ -108,7 +151,11 @@ class RDMPipeline:
     conv_out and post_quant_conv, and the transformer blocks run weight +
     activation int8. The first request calibrates (`_calibrate_int8`) and
     quantizes the pipeline's modules in place; parameters that already
-    carry int8 state need no calibration. Approximate, opt-in."""
+    carry int8 state need no calibration. Approximate, opt-in; under a
+    data axis every rank calibrates on the whole request's neighbors.
+
+    mesh: data-parallel sampling (module docstring); the pipeline then
+    runs on this rank's device."""
 
     def __init__(self, config: RDMConfig, params: Mapping[str, Any],
                  first_stage_config: AutoencoderConfig,
@@ -118,12 +165,14 @@ class RDMPipeline:
                  clip_params: Optional[Mapping[str, Any]] = None,
                  clip_config: Optional[ClipConfig] = None,
                  dtype: torch.dtype = torch.bfloat16, device="cuda",
-                 int8_weights: bool = False):
+                 int8_weights: bool = False, mesh=None):
         self.config = config
         self.dtype = dtype
         self.int8_weights = int8_weights
         self.calibration_seconds: Optional[float] = None
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = (pmesh.mesh_device(mesh) if mesh is not None
+                       else torch.device(device))
         # built without initialising (meta), then bound to the given
         # weights: the random init of 400M parameters would be thrown away
         with torch.device("meta"):
@@ -144,7 +193,7 @@ class RDMPipeline:
             config.timesteps, config.beta_schedule, config.linear_start,
             config.linear_end, device=self.device)
         self.memory = memory
-        self.retrieval = (RetrievalEngine(pool, device=self.device)
+        self.retrieval = (RetrievalEngine(pool, device=self.device, mesh=mesh)
                           if pool is not None else None)
         self._int8_ready = quant.num_quantized(self.model) > 0
 
@@ -233,6 +282,7 @@ class RDMPipeline:
         broadcastable to the NHWC latent) at latent resolution, 1 = keep.
         neighbors [B, k, D] default to a search by the images' own CLIP
         embedding, which needs CLIP weights and a database."""
+        _no_split(self.mesh, "inpainting")
         cfg = self.config
         x = torch.as_tensor(images, dtype=torch.float32, device=self.device)
         with torch.inference_mode():
@@ -275,6 +325,7 @@ class RDMPipeline:
         every `retro_every` DDIM steps the current pred_x0 is decoded,
         CLIP-embedded and searched, and its neighbours become the context,
         all on the pipeline's device. Needs CLIP weights and a database."""
+        _no_split(self.mesh, "adaptive re-retrieval")
         if self.retrieval is None:
             raise ValueError("retro sampling requires a database")
         if self.clip is None:
@@ -290,8 +341,7 @@ class RDMPipeline:
             def reembed(pred_x0):
                 img = self.first_stage.decode(pred_x0 / cfg.scale_factor)
                 emb = embed_images(self.clip, img.permute(0, 2, 3, 1))
-                _, nns = knn_search(eng.db_norm, l2_normalize(emb), k_nn)
-                return gather_unnormalized(eng.db_norm, eng.row_norms, nns)
+                return eng.neighbors(l2_normalize(emb), k_nn)[2]
 
             uncond = (self.model.uncond_context(batch_size, k_nn, 0.0)
                       .to(self.device) if guidance_scale != 1.0 else None)
@@ -377,15 +427,16 @@ class RDMPipeline:
         return self.first_stage
 
     def _sample(self, model: RDM, neighbors: torch.Tensor, steps: int,
-                guidance_scale: float, seed: int,
-                encoder_reuse: int) -> torch.Tensor:
+                guidance_scale: float, seed: int, encoder_reuse: int,
+                rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         sampler = DDIMSamplerConfig(num_steps=steps,
                                     guidance_scale=guidance_scale,
                                     cfg_mode="shared",
                                     encoder_reuse=encoder_reuse)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return sample_with_neighbors(model, neighbors, self.schedule,
-                                     sampler, gen, guidance_label=0.0)
+                                     sampler, gen, guidance_label=0.0,
+                                     rows=rows)
 
     def _run_ddim(self, neighbors: torch.Tensor, steps: int,
                   guidance_scale: float, seed: int,
@@ -393,11 +444,15 @@ class RDMPipeline:
         neighbors = neighbors.to(self.device)
         model = self.serving_params(neighbors, steps=steps,
                                     guidance_scale=guidance_scale, seed=seed)
+        rows = _data_rows(self.mesh, neighbors.shape[0])
         with torch.inference_mode():
-            z = self._sample(model, neighbors, steps, guidance_scale, seed,
-                             encoder_reuse)
+            z = self._sample(model, _split(neighbors, rows, self.mesh),
+                             steps, guidance_scale, seed, encoder_reuse,
+                             rows)
             images = self.serving_fs_params().decode(z.permute(0, 3, 1, 2))
-            return to_uint8(images.permute(0, 2, 3, 1))
+            images = _join(images.permute(0, 2, 3, 1).contiguous(), rows,
+                           self.mesh)
+            return to_uint8(images)
 
 
 class RARMPipeline:
@@ -418,7 +473,8 @@ class RARMPipeline:
     sampling puts the query embedding in as neighbor #0 followed by k - 1
     retrieved ones, or alone (`only_query`), or a zero context
     (`unconditional`); the CFG null context is zeros_like(neighbors);
-    token grids go through `decode_code` to NHWC uint8."""
+    token grids go through `decode_code` to NHWC uint8. mesh:
+    data-parallel sampling (module docstring)."""
 
     def __init__(self, config: RARMConfig, params: Mapping[str, Any],
                  first_stage_config: AutoencoderConfig,
@@ -427,9 +483,12 @@ class RARMPipeline:
                  memory: Optional[NNMemory] = None,
                  clip_params: Optional[Mapping[str, Any]] = None,
                  clip_config: Optional[ClipConfig] = None,
-                 dtype: torch.dtype = torch.bfloat16, device="cuda"):
+                 dtype: torch.dtype = torch.bfloat16, device="cuda",
+                 mesh=None):
         self.config = config
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = (pmesh.mesh_device(mesh) if mesh is not None
+                       else torch.device(device))
         with torch.device("meta"):  # bound to the given weights below
             model = RARM(config, dtype=dtype)
             first_stage = VQModel(first_stage_config, dtype=dtype,
@@ -441,7 +500,7 @@ class RARMPipeline:
         self.decode_weights = extract_decode_weights(self.model, dtype)
         self._decode_weights_int8 = None
         self.memory = memory
-        self.retrieval = (RetrievalEngine(pool, device=self.device)
+        self.retrieval = (RetrievalEngine(pool, device=self.device, mesh=mesh)
                           if pool is not None else None)
         self.clip = (bind_clip(clip_params, clip_config, self.device, dtype)
                      if clip_params is not None else None)
@@ -492,23 +551,33 @@ class RARMPipeline:
 
     def _generate(self, neighbors: torch.Tensor, key: str, top_k: int,
                   temperature: float, guidance_scale: float, seed: int, *,
-                  return_tokens: bool = False, **options) -> Dict[str, Any]:
+                  return_tokens: bool = False, partition: bool = False,
+                  **options) -> Dict[str, Any]:
         """{key: images [B, H, W, 3] uint8} (+ 'tokens' [B, seq_len]).
         `options` (batched_commit, approx_top_k, int8_weights, int8_kv) go
-        to `sample_tokens_fused`."""
+        to `sample_tokens_fused`. `partition` is accepted for the JAX
+        pipeline's callers and changes nothing: under a data axis each
+        rank's decode kernels already see only its rows."""
+        del partition
         gen = torch.Generator(device=self.device).manual_seed(seed)
         side = self.config.code_side
+        rows = _data_rows(self.mesh, neighbors.shape[0])
+        neighbors = _split(neighbors.to(self.device, torch.float32), rows,
+                           self.mesh)
         with torch.inference_mode():
             tokens = sample_tokens_fused(
-                self.model, neighbors.to(self.device, torch.float32), gen,
+                self.model, neighbors, gen,
                 temperature=temperature, top_k=top_k,
                 guidance_scale=guidance_scale,
                 weights=self.serving_decode_weights(
                     options.get("int8_weights", False)),
-                **options)
+                rows=rows, **options)
             images = self.first_stage.decode_code(
                 tokens.reshape(-1, side, side))
-            out = {key: to_uint8(images.permute(0, 2, 3, 1))}
+            images = _join(images.permute(0, 2, 3, 1).contiguous(), rows,
+                           self.mesh)
+            tokens = _join(tokens, rows, self.mesh)
+            out = {key: to_uint8(images)}
         if return_tokens:
             out["tokens"] = tokens.cpu().numpy()
         return out

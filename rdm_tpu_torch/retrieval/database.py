@@ -90,20 +90,25 @@ class DataPool:
             written.append(fname)
         return written
 
-    def device_table(self, device=None, dtype: torch.dtype = torch.bfloat16
+    def device_table(self, device=None, dtype: torch.dtype = torch.bfloat16,
+                     start: int = 0, stop: Optional[int] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(L2-normalised table [N, D] in `dtype`, f32 row norms [N]) on
-        `device`, normalised in f32 chunk by chunk."""
+        `device`, normalised in f32 chunk by chunk; rows [start, stop)
+        only, for a row shard."""
         device = self.embeddings.device if device is None else device
-        table = torch.empty((self.size, self.dim), dtype=dtype,
+        stop = self.size if stop is None else stop
+        table = torch.empty((stop - start, self.dim), dtype=dtype,
                             device=device)
-        norms = torch.empty((self.size,), dtype=torch.float32, device=device)
-        for s in range(0, self.size, _CHUNK):
-            rows = self.embeddings[s:s + _CHUNK].to(device, torch.float32)
+        norms = torch.empty((stop - start,), dtype=torch.float32,
+                            device=device)
+        for s in range(start, stop, _CHUNK):
+            e = min(s + _CHUNK, stop)
+            rows = self.embeddings[s:e].to(device, torch.float32)
             n = torch.linalg.vector_norm(rows, dim=1)
-            norms[s:s + _CHUNK] = n
-            table[s:s + _CHUNK] = (rows / n.clamp_min(1e-12)[:, None]
-                                   ).to(dtype)
+            norms[s - start:e - start] = n
+            table[s - start:e - start] = (rows / n.clamp_min(1e-12)[:, None]
+                                          ).to(dtype)
         return table, norms
 
 

@@ -44,6 +44,7 @@ def ddim_sample(
     denoise_feats_fn: Optional[DenoiseFeatsFn] = None,
     mask: Optional[torch.Tensor] = None,
     x0: Optional[torch.Tensor] = None,
+    rows: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Run the DDIM reverse process on the generator's device.
 
@@ -52,7 +53,9 @@ def ddim_sample(
     layout, mask broadcastable) blend in x0 where mask == 1: inpainting.
     Draws from `generator`, in order: x_T (without x_init), the pre-blend
     noise, then per step the DDIM noise (eta != 0) and the blend noise.
-    Returns (x_0, the pred_x0 of every `log_every_t`-th step stacked, or
+    Under data parallelism `rows` = (start, global batch) says which rows
+    of the global batch `shape` holds: every draw is made at the global
+    batch's shape and cut to those rows (`randn_rows`). Returns (x_0, the pred_x0 of every `log_every_t`-th step stacked, or
     None)."""
     reuse = max(int(config.encoder_reuse), 1)
     if reuse > 1 and denoise_feats_fn is None:
@@ -69,7 +72,7 @@ def ddim_sample(
                                method=config.method)
     dev = generator.device
     x = (x_init.to(dev, torch.float32) if x_init is not None
-         else torch.randn(shape, generator=generator, device=dev))
+         else randn_rows(shape, generator, rows))
     ctx2 = (torch.cat([context, uncond_context], dim=0)
             if use_cfg and context is not None else None)
     if mask is not None:
@@ -77,7 +80,7 @@ def ddim_sample(
         # before every step (ddim.py:187-190): pre-blend x_T at the first
         # (largest) DDIM timestep, then re-noise after each step below
         x = _blend(schedule, x, mask, x0, int(ddim.timesteps[-1]),
-                   generator)
+                   generator, rows)
 
     def dn(x_, t_, c_, cache):
         # every CFG mode makes exactly one denoiser call per step, so the
@@ -99,15 +102,14 @@ def ddim_sample(
         t = torch.full((shape[0],), int(ddim.timesteps[index]),
                        dtype=torch.long, device=dev)
         eps, cache = eps_model(x, t, None if step % reuse == 0 else cache)
-        noise = (torch.randn(shape, generator=generator, device=dev)
-                 if noisy else None)
+        noise = randn_rows(shape, generator, rows) if noisy else None
         x, pred_x0 = ddim_step(ddim, x, eps, index, noise,
                                temperature=config.temperature)
         if mask is not None and index > 0:
             # the next step runs at DDIM index - 1: re-noise x0 to that
             # timestep (not t - 1); no blend after the final step
             x = _blend(schedule, x, mask, x0, int(ddim.timesteps[index - 1]),
-                       generator)
+                       generator, rows)
         if config.log_every_t and step % config.log_every_t == 0:
             logged.append(pred_x0)
     return x, (torch.stack(logged) if logged else None)
@@ -129,11 +131,26 @@ def _guided(dn, x, t, ctx2, config: DDIMSamplerConfig, cache=None):
     return eps_u + config.guidance_scale * (eps_c - eps_u), cache
 
 
+def randn_rows(shape: Tuple[int, ...], generator: torch.Generator,
+               rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """N(0, 1) of `shape` on the generator's device; with rows = (start,
+    global batch), drawn at the global batch's shape and cut to
+    shape[0] rows from start."""
+    if rows is None:
+        return torch.randn(shape, generator=generator,
+                           device=generator.device)
+    start, gb = rows
+    full = torch.randn((gb, *shape[1:]), generator=generator,
+                       device=generator.device)
+    return full[start:start + shape[0]]
+
+
 def _blend(schedule: DiffusionSchedule, x: torch.Tensor, mask: torch.Tensor,
-           x0: torch.Tensor, t: int, generator: torch.Generator
+           x0: torch.Tensor, t: int, generator: torch.Generator,
+           rows: Optional[Tuple[int, int]] = None
            ) -> torch.Tensor:
     """mask * q_sample(x0, t, fresh noise) + (1 - mask) * x."""
-    noise = torch.randn(x.shape, generator=generator, device=x.device)
+    noise = randn_rows(x.shape, generator, rows)
     tt = torch.full((x.shape[0],), t, dtype=torch.long, device=x.device)
     noised = q_sample(schedule, x0.float(), tt, noise)
     return mask * noised + (1.0 - mask) * x

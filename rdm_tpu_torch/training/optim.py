@@ -32,6 +32,7 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 Schedule = Callable[[int], float]
 
@@ -116,10 +117,22 @@ class AdamWState:
                 t.copy_(sd[key][name])
 
 
-def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares over all tensors (f32 scalar)."""
+def global_norm(tensors: List[torch.Tensor], *, group=None,
+                sharded: Optional[List[bool]] = None) -> torch.Tensor:
+    """sqrt of the sum of squares over all tensors (f32 scalar). Over an
+    FSDP state's leaves, `sharded[i]` says tensor i is this rank's shard
+    of a leaf cut across `group`: those squares are summed over the group,
+    the whole leaves counted once, so every rank gets the whole
+    gradient's norm."""
     norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    if group is None:
+        return torch.linalg.vector_norm(torch.stack(norms))
+    sq = torch.stack(norms) ** 2
+    cut = torch.tensor(sharded, device=sq.device)
+    parts = torch.stack([sq[cut].sum(), sq[~cut].sum()])
+    part = parts[:1].clone()
+    dist.all_reduce(part, group=group)
+    return torch.sqrt(part[0] + parts[1])
 
 
 class AdamW:
@@ -149,8 +162,11 @@ class AdamW:
 
     @torch.no_grad()
     def step(self, params: Dict[str, torch.Tensor],
-             grads: Dict[str, torch.Tensor], state: AdamWState) -> None:
-        """One optimizer call: updates `params` and `state` in place."""
+             grads: Dict[str, torch.Tensor], state: AdamWState, *,
+             group=None, sharded: Optional[List[bool]] = None) -> None:
+        """One optimizer call: updates `params` and `state` in place.
+        Over an FSDP state's shards, `group` / `sharded` give the clip the
+        whole gradient's norm (`global_norm`)."""
         names = list(params)
         g = [grads[n].float() for n in names]
         k = self.accumulate_steps
@@ -168,14 +184,16 @@ class AdamW:
             torch._foreach_zero_(acc)
         self._adamw([params[n] for n in names], g,
                     [state.mu[n] for n in names],
-                    [state.nu[n] for n in names], state)
+                    [state.nu[n] for n in names], state,
+                    group=group, sharded=sharded)
 
     def _adamw(self, p: List[torch.Tensor], g: List[torch.Tensor],
                mu: List[torch.Tensor], nu: List[torch.Tensor],
-               state: AdamWState) -> None:
+               state: AdamWState, group=None,
+               sharded: Optional[List[bool]] = None) -> None:
         b1, b2 = self.b1, self.b2
         if self.grad_clip:
-            gn = global_norm(g)
+            gn = global_norm(g, group=group, sharded=sharded)
             if not gn.item() < self.grad_clip:
                 g = torch._foreach_mul(torch._foreach_div(g, gn),
                                        self.grad_clip)

@@ -30,7 +30,8 @@ the int8 gate one step past C = 1,536; for post_ff R = 80 rows, 16
 context tokens and C = 992 and 1,024 (past the first version's 960: its
 FF launch over clusters of 16 CTAs, non-portable); for the kNN N not a multiple of the 64-row chunk,
 B = 17 and 40 over two and three 16-query tiles, k = 1 and 128,
-duplicate rows in different slices).
+duplicate rows in different slices, and the db-sharded search's per-shard
+searches on row views plus the merge at 2-4 shards).
 Tolerance: max|err| <= 2e-2 x max|ref| in bf16, as chip_smoke.py sets it
 (kernel and plain version round to bf16 at different points); the int8
 cache commit as chip_smoke.py phase 12 holds it; the kNN as phase 17
@@ -1469,6 +1470,44 @@ def test_knn_kernel_matches_plain(cuda, b, n, d, k):
     near[:, 1:] |= pair
     assert not ((i != pi[:, :k]) & ~near[:, :k]).any()
     assert i[0, :min(k, 4)].tolist() == dup[:min(k, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards,b,k", [(2, 16, 4), (4, 16, 4),
+                                        (3, 40, 20), (4, 256, 20)])
+def test_knn_shard_search_and_merge_match_unsharded(cuda, shards, b, k):
+    """The db-sharded search's arithmetic in one process: the kernel pair
+    on each row shard (a view at its first row), ids offset, then
+    `merge_candidates` as the ranks run it after their all-gather; the
+    ids equal the unsharded kernel's but at near ties (duplicate rows
+    in different shards tie exactly and go to the lower id)."""
+    from rdm_tpu_torch.retrieval.engine import merge_candidates
+
+    n, d = 60000, 512
+    g = torch.Generator(device="cuda").manual_seed(shards)
+    db = torch.nn.functional.normalize(
+        torch.randn(n, d, generator=g, device="cuda"), dim=1).bfloat16()
+    rows = n // shards
+    dup = [5, rows + 7, n - 3]  # one row in the first, second, last shard
+    db[dup] = db[5].clone()
+    q = torch.nn.functional.normalize(
+        torch.randn(b, d, generator=g, device="cuda"), dim=1)
+    q[0] = db[5].float()
+    kk.reset_launch_counts()
+    parts = [kk.knn_topk(db[r * rows:(r + 1) * rows], q, k)
+             for r in range(shards)]
+    assert kk.launch_counts() == {"knn": 2 * shards}
+    s, i = merge_candidates(torch.cat([p[0] for p in parts], 1),
+                            torch.cat([p[1] + r * rows
+                                       for r, p in enumerate(parts)], 1), k)
+    ws, wi = kk.knn_topk(db, q, k)
+    assert (s - ws).abs().max().item() <= 1e-5
+    near = torch.zeros_like(ws, dtype=torch.bool)
+    pair = (ws[:, :-1] - ws[:, 1:]).abs() <= 2e-6
+    near[:, :-1] |= pair
+    near[:, 1:] |= pair
+    assert not ((i != wi) & ~near).any()
+    assert i[0, :3].tolist() == dup
 
 
 @pytest.mark.cuda

@@ -191,7 +191,7 @@ def test_rarm_step_draws_p_mask_only_when_asked():
     make_rarm_train_step(tx, ema_decay=0.99, p_mask_max=P_MASK_MAX)(
         state, z, nns, 0)
     assert seen[0] is None and 0.0 <= float(seen[1]) < P_MASK_MAX
-    with pytest.raises(NotImplementedError, match="FSDP"):
+    with pytest.raises(ValueError, match="'fsdp' needs a mesh"):
         make_rarm_train_step(tx, param_sharding="fsdp")
 
 
@@ -285,7 +285,7 @@ def test_rarm_trainer_salvages_a_checkpoint_on_error(tmp_path):
 def test_rarm_trainer_unported_options_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="diagnostics"):
         _trainer(tmp_path, 1, image_log_every=5)
-    with pytest.raises(NotImplementedError, match="FSDP"):
+    with pytest.raises(ValueError, match="'fsdp' needs a mesh"):
         _trainer(tmp_path, 1, param_sharding="fsdp")
 
 
