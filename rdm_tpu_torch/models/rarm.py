@@ -45,6 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from rdm_tpu_torch.config import RARMConfig
+from rdm_tpu_torch.models.init import normal
 from rdm_tpu_torch.models.layers import (CrossAttention, GEGLUFeedForward,
                                          LayerNormF32)
 from rdm_tpu_torch.ops.attention import dot_product_attention
@@ -107,6 +108,14 @@ class RARM(nn.Module):
             _Block(inner, config.context_dim, config.heads, config.head_dim)
             for _ in range(config.depth)])
         self.proj_out = nn.Conv1d(inner, config.out_vocab, 1)
+
+    def jax_init_own(self, generator: torch.Generator):
+        """The JAX draw of the positional table (`models/init.py`,
+        `rdm_tpu/models/rarm.py:192-195`): normal(inner^-0.5)."""
+        pe = self.positional_encoding
+        pe.copy_(normal(pe.shape, pe.shape[0] ** -0.5,
+                        generator).to(pe.device))
+        return [pe]
 
     def _embed(self, tokens: torch.Tensor, pos_offset: int = 0):
         x = F.embedding(tokens, self.proj_in.weight).to(self.dtype)

@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from rdm_tpu_torch.config import DDIMSamplerConfig, RDMConfig
+from rdm_tpu_torch.models.init import normal
 from rdm_tpu_torch.models.unet import UNet
 from rdm_tpu_torch.ops.schedules import DiffusionSchedule, q_sample
 from rdm_tpu_torch.sampling import ddim_sample
@@ -55,6 +56,16 @@ class RDM(nn.Module):
         if config.learn_logvar:  # else a constant, see logvar_table
             self.logvar = nn.Parameter(torch.full((config.timesteps,),
                                                   config.logvar_init))
+
+    def jax_init_own(self, generator: torch.Generator):
+        """The JAX draws of the RDM's own leaves (`models/init.py`): the
+        guidance vector normal(1), logvar at logvar_init."""
+        vex = self.unconditional_guidance_vex
+        vex.copy_(normal(vex.shape, 1.0, generator).to(vex.device))
+        if self.config.learn_logvar:
+            self.logvar.fill_(self.config.logvar_init)
+            return [vex, self.logvar]
+        return [vex]
 
     @property
     def unet(self) -> UNet:
@@ -197,12 +208,15 @@ def sample_with_neighbors(model: RDM, neighbors: torch.Tensor,
                           sampler: DDIMSamplerConfig,
                           generator: torch.Generator, *,
                           guidance_label: Optional[float] = None,
-                          rows: Optional[Tuple[int, int]] = None
-                          ) -> torch.Tensor:
+                          rows: Optional[Tuple[int, int]] = None,
+                          return_intermediates: bool = False):
     """DDIM-sample latents conditioned on neighbors [B, k, D] (or
     [B, n, k, D]); returns NHWC f32 latents divided by scale_factor, the
     JAX layout. Decode with the first stage. `rows`: the rank's rows of a
-    data-parallel request (`sampling.ddim_sample`)."""
+    data-parallel request (`sampling.ddim_sample`).
+    return_intermediates=True returns (latents, the pred_x0 trajectory
+    [steps / log_every_t, B, H, W, C] in model scale), as the JAX function
+    does for the fidelity harness (needs sampler.log_every_t != 0)."""
     cfg = model.config
     neighbors = model.encode_neighbors(neighbors)
     b, s, _ = neighbors.shape
@@ -213,7 +227,14 @@ def sample_with_neighbors(model: RDM, neighbors: torch.Tensor,
     shape = (b, cfg.channels, cfg.image_size, cfg.image_size)
     feats_fn = (make_denoise_feats_fn(model) if sampler.encoder_reuse > 1
                 else None)
-    x, _ = ddim_sample(make_denoise_fn(model), schedule, sampler, shape,
-                       neighbors, generator, uncond_context=uncond,
-                       denoise_feats_fn=feats_fn, rows=rows)
-    return x.permute(0, 2, 3, 1) / cfg.scale_factor
+    x, interm = ddim_sample(make_denoise_fn(model), schedule, sampler,
+                            shape, neighbors, generator,
+                            uncond_context=uncond, denoise_feats_fn=feats_fn,
+                            rows=rows)
+    x = x.permute(0, 2, 3, 1) / cfg.scale_factor
+    if return_intermediates:
+        if interm is None:
+            raise ValueError("return_intermediates needs "
+                             "sampler.log_every_t != 0")
+        return x, interm.permute(0, 1, 3, 4, 2)
+    return x

@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from rdm_tpu_torch.config import UNetConfig
+from rdm_tpu_torch.models.init import zero_init
 from rdm_tpu_torch.models.layers import (Conv2d, Downsample, GroupNorm32,
                                          Linear, ResBlock,
                                          SpatialTransformer, Upsample)
@@ -101,8 +102,8 @@ class UNet(nn.Module):
                     layers.append(Upsample(ch))
                     ds //= 2
                 self.output_blocks.append(nn.ModuleList(layers))
-        self.out = nn.Sequential(GroupNorm32(ch), nn.SiLU(),
-                                 Conv2d(ch, cfg.out_channels, 3, padding=1))
+        self.out = nn.Sequential(GroupNorm32(ch), nn.SiLU(), zero_init(
+            Conv2d(ch, cfg.out_channels, 3, padding=1)))
         # (tag, fn, *args) -> fn(*args) under a remat policy; set by the
         # train step for the duration of its forward and backward
         self.remat = None

@@ -6,7 +6,10 @@ one device, with the RDM serving modes (`int8_weights`, `encoder_reuse`)
 and the RARM ones (`int8_weights`, `int8_kv`, `approx_top_k`), and, given
 CLIP weights, captions (`embed_caption`, `sample_with_caption`),
 inpainting (`sample_inpaint`) and adaptive re-retrieval
-(`sample_retro_adaptive`); no `from_model_dir` yet. Public
+(`sample_retro_adaptive`). `from_model_dir` builds either pipeline from
+a model directory (config.yaml, and params.npz + first_stage_params.npz
+or model.ckpt, or a seeded init); `RDMPipeline.fidelity_run` is the
+sampling run the fidelity harness (`eval/fidelity.py`) compares. Public
 inputs and outputs keep the JAX layouts: query embeddings [B, D],
 neighbors [B, k, D], images NHWC (in: float [-1, 1]; out: uint8 numpy).
 Inside, images and latents are NCHW.
@@ -29,6 +32,7 @@ vector scaled to norm 0.0, as both reference CLIs pass.
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Any, Dict, Mapping, Optional, Tuple
 
@@ -37,9 +41,13 @@ import torch
 from torch import nn
 
 from rdm_tpu_torch.config import (AutoencoderConfig, ClipConfig,
-                                  DDIMSamplerConfig, RARMConfig, RDMConfig)
+                                  DDIMSamplerConfig, RARMConfig, RDMConfig,
+                                  first_stage_config_from_yaml, load_config,
+                                  model_config_from_yaml)
 from rdm_tpu_torch.models.autoencoder import VQModel
-from rdm_tpu_torch.models.clip import encode_captions
+from rdm_tpu_torch.models.clip import (clip_config_from_state_dict,
+                                       encode_captions, load_clip_state_dict)
+from rdm_tpu_torch.models.init import jax_init_
 from rdm_tpu_torch.models.layers import TransformerBlock
 from rdm_tpu_torch.models.rarm import (RARM, extract_decode_weights,
                                        sample_tokens_fused)
@@ -53,6 +61,11 @@ from rdm_tpu_torch.parallel.distributed import gather_from_ranks
 from rdm_tpu_torch.retrieval.database import DataPool, NNMemory
 from rdm_tpu_torch.retrieval.engine import RetrievalEngine, l2_normalize
 from rdm_tpu_torch.sampling import ddim_retro_sample, ddim_sample
+from rdm_tpu_torch.utils import params_io
+from rdm_tpu_torch.utils.from_jax import (clip_state_dict_from_jax,
+                                          rarm_state_dict_from_jax,
+                                          rdm_state_dict_from_jax,
+                                          vq_state_dict_from_jax)
 
 
 def to_uint8(images: torch.Tensor) -> np.ndarray:
@@ -84,6 +97,56 @@ def _bind(module: nn.Module, params: Mapping[str, Any], device: torch.device,
     `device` and cast for inference."""
     module.load_state_dict(params, assign=True)
     return cast_params_for_inference(module.to(device).eval(), dtype)
+
+
+def _load_clip_weights(clip_ckpt: Optional[str]):
+    """(CLIP state dict, ClipConfig) from a converted JAX tree (.npz, the
+    ViT-B/32 config) or an OpenAI torch checkpoint loaded as it is; (None,
+    None) without a file."""
+    if not clip_ckpt or not os.path.isfile(clip_ckpt):
+        return None, None
+    if clip_ckpt.endswith(".npz"):
+        cfg = ClipConfig.vit_b32()
+        return clip_state_dict_from_jax(
+            params_io.load_params_npz(clip_ckpt), cfg), cfg
+    sd = load_clip_state_dict(clip_ckpt)
+    return sd, clip_config_from_state_dict(sd)
+
+
+def _scratch_state_dict(module: nn.Module, seed: int) -> Dict[str, Any]:
+    """The state dict of `module` under the JAX package's initialisers,
+    drawn from `seed` (a trainer's step 0)."""
+    return jax_init_(module, torch.Generator().manual_seed(seed)).state_dict()
+
+
+def _model_dir(model_dir: str, random_init: bool, from_jax, from_ckpt,
+               scratch, database: Optional[str], nn_memory: Optional[str],
+               clip_ckpt: Optional[str]) -> Dict[str, Any]:
+    """What `from_model_dir` hands the pipeline: config.yaml's configs,
+    the weights (params.npz through `from_jax` + first_stage_params.npz,
+    else model.ckpt through `from_ckpt`, else, or with random_init,
+    `scratch`), CLIP and the database files."""
+    cfg_yaml = load_config([os.path.join(model_dir, "config.yaml")])
+    config = model_config_from_yaml(cfg_yaml)
+    fs_config = first_stage_config_from_yaml(cfg_yaml)
+    npz = os.path.join(model_dir, "params.npz")
+    fs_npz = os.path.join(model_dir, "first_stage_params.npz")
+    ckpt = os.path.join(model_dir, "model.ckpt")
+    if os.path.isfile(npz) and os.path.isfile(fs_npz) and not random_init:
+        params = from_jax(params_io.load_params_npz(npz), config)
+        fs_params = vq_state_dict_from_jax(
+            params_io.load_params_npz(fs_npz), fs_config)
+    elif os.path.isfile(ckpt) and not random_init:
+        params, fs_params = from_ckpt(
+            params_io.load_torch_state_dict(ckpt), config, fs_config)
+    else:
+        params, fs_params = scratch(config, fs_config)
+    clip_params, clip_config = _load_clip_weights(clip_ckpt)
+    return dict(config=config, params=params, first_stage_config=fs_config,
+                first_stage_params=fs_params,
+                pool=DataPool.load(database) if database else None,
+                memory=NNMemory.load(nn_memory) if nn_memory else None,
+                clip_params=clip_params, clip_config=clip_config)
 
 
 def _query_embeddings(retrieval: Optional[RetrievalEngine],
@@ -196,6 +259,36 @@ class RDMPipeline:
         self.retrieval = (RetrievalEngine(pool, device=self.device, mesh=mesh)
                           if pool is not None else None)
         self._int8_ready = quant.num_quantized(self.model) > 0
+        self._twin: Optional[Tuple[RDM, VQModel]] = None
+
+    # ---------- loading ----------
+
+    @classmethod
+    def from_model_dir(cls, model_dir: str, *,
+                       database: Optional[str] = None,
+                       nn_memory: Optional[str] = None,
+                       clip_ckpt: Optional[str] = None,
+                       random_init: bool = False, seed: int = 0,
+                       **kw) -> "RDMPipeline":
+        """model_dir holds config.yaml and params.npz +
+        first_stage_params.npz (converted JAX trees) or model.ckpt (a
+        released checkpoint, its EMA weights); without them, or with
+        random_init, the model and first stage take the JAX package's
+        initialisers from `seed` and `seed + 1`. database / nn_memory:
+        `DataPool` / `NNMemory` files; clip_ckpt: CLIP weights (.npz or an
+        OpenAI checkpoint). `kw` go to the constructor (device, dtype,
+        int8_weights, mesh)."""
+        def from_ckpt(sd, config, fs_config):
+            return params_io.rdm_state_dicts(sd, config, fs_config,
+                                             use_ema=True)
+
+        def scratch(config, fs_config):
+            return (_scratch_state_dict(RDM(config), seed),
+                    _scratch_state_dict(VQModel(fs_config), seed + 1))
+
+        return cls(**_model_dir(model_dir, random_init,
+                                rdm_state_dict_from_jax, from_ckpt, scratch,
+                                database, nn_memory, clip_ckpt), **kw)
 
     # ---------- conditioning assembly ----------
 
@@ -385,7 +478,8 @@ class RDMPipeline:
         if not self._int8_ready:
             t0 = time.perf_counter()
             self._calibrate_int8(neighbors.to(self.device), steps,
-                                 guidance_scale, seed)
+                                 guidance_scale, seed, self.model,
+                                 self.first_stage)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self.calibration_seconds = time.perf_counter() - t0
@@ -393,13 +487,13 @@ class RDMPipeline:
         return self.model
 
     def _calibrate_int8(self, neighbors: torch.Tensor, steps: int,
-                        guidance_scale: float, seed: int) -> None:
-        """Quantize the U-Net and the VQ decoder in place (ops/quant.py):
-        one compute-dtype sampling run gives the final latents; the
-        decoder is calibrated on decoding them, the U-Net on n_points
-        forwards at q_sample(latents, t) over the DDIM ladder, in the exact
-        serving form (shared-prefix CFG context)."""
-        model, fs = self.model, self.first_stage
+                        guidance_scale: float, seed: int, model: RDM,
+                        fs: VQModel) -> None:
+        """Quantize the U-Net `model` and the VQ decoder `fs` in place
+        (ops/quant.py): one compute-dtype sampling run gives the final
+        latents; the decoder is calibrated on decoding them, the U-Net on
+        n_points forwards at q_sample(latents, t) over the DDIM ladder, in
+        the exact serving form (shared-prefix CFG context)."""
         with torch.inference_mode():
             z_raw = self._sample(model, neighbors, steps, guidance_scale,
                                  seed, 1).permute(0, 3, 1, 2)
@@ -420,6 +514,76 @@ class RDMPipeline:
         for m in model.modules():  # the int8 kernel-layout weights, once
             if isinstance(m, TransformerBlock):
                 m.pack(self.dtype)
+
+    # ---------- fidelity ----------
+
+    def fidelity_run(self, neighbors, *, steps: int = 50,
+                     guidance_scale: float = 2.0, seed: int = 0,
+                     encoder_reuse: int = 1,
+                     int8: bool = False) -> Dict[str, np.ndarray]:
+        """One sampling run instrumented for the fidelity harness
+        (`eval/fidelity.py`): {"z": final latents [B, h, w, C] f32, "images":
+        uint8 pixels, "traj": pred_x0 of every step [steps, B, h, w, C] in
+        model scale}. Shared-prefix CFG, the null context scaled to norm
+        0.0 as in serving; every mode draws the same noise, so runs with
+        one seed differ only by the serving approximation under test.
+
+        int8 runs the int8 U-Net and VQ decoder: the pipeline's own where
+        it serves int8 (`int8_weights`, or int8 weights given), else a twin
+        bound to the same weights and calibrated, as `quantized_params`
+        calibrates, on this call's request (kept for later calls), which
+        leaves the exact modules exact. An exact run needs modules that are
+        not int8."""
+        _no_split(self.mesh, "fidelity_run")
+        nbrs = torch.as_tensor(neighbors, dtype=torch.float32,
+                               device=self.device)
+        if int8:
+            model, fs = self._int8_modules(nbrs, steps, guidance_scale,
+                                           seed)
+        elif self._int8_ready:
+            raise ValueError("the pipeline's modules run int8: an exact "
+                             "fidelity run needs a pipeline built without "
+                             "int8 weights")
+        else:
+            model, fs = self.model, self.first_stage
+        sampler = DDIMSamplerConfig(num_steps=steps,
+                                    guidance_scale=guidance_scale,
+                                    cfg_mode="shared", log_every_t=1,
+                                    encoder_reuse=encoder_reuse)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        with torch.inference_mode():
+            z, traj = sample_with_neighbors(
+                model, nbrs, self.schedule, sampler, gen,
+                guidance_label=0.0, return_intermediates=True)
+            images = fs.decode(z.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+            return {"z": z.float().cpu().numpy(), "images": to_uint8(images),
+                    "traj": traj.float().cpu().numpy()}
+
+    def _int8_modules(self, neighbors: torch.Tensor, steps: int,
+                      guidance_scale: float, seed: int
+                      ) -> Tuple[RDM, VQModel]:
+        """(int8 U-Net, VQ decoder) for an int8 fidelity run: the
+        pipeline's own where they serve int8 (the decoder int8 where
+        calibration made it so), else the calibrated twin."""
+        if self.int8_weights or self._int8_ready:
+            return (self.serving_params(neighbors, steps=steps,
+                                        guidance_scale=guidance_scale,
+                                        seed=seed), self.first_stage)
+        if self._twin is None:
+            with torch.device("meta"):
+                model = RDM(self.config, dtype=self.dtype)
+                fs = VQModel(self.first_stage.config, dtype=self.dtype,
+                             encoder=False)
+            # bound to the exact modules' tensors: quantizing adds int8
+            # state to the twin's modules and changes none of the weights
+            model = _bind(model, self.model.state_dict(), self.device,
+                          self.dtype)
+            fs = _bind(fs, self.first_stage.state_dict(), self.device,
+                       self.dtype)
+            self._calibrate_int8(neighbors, steps, guidance_scale, seed,
+                                 model, fs)
+            self._twin = (model, fs)
+        return self._twin
 
     def serving_fs_params(self) -> VQModel:
         """The first stage the decode runs with (int8 after the int8
@@ -504,6 +668,28 @@ class RARMPipeline:
                           if pool is not None else None)
         self.clip = (bind_clip(clip_params, clip_config, self.device, dtype)
                      if clip_params is not None else None)
+
+    @classmethod
+    def from_model_dir(cls, model_dir: str, *,
+                       database: Optional[str] = None,
+                       nn_memory: Optional[str] = None,
+                       clip_ckpt: Optional[str] = None,
+                       random_init: bool = False, seed: int = 0,
+                       **kw) -> "RARMPipeline":
+        """As `RDMPipeline.from_model_dir`: params.npz +
+        first_stage_params.npz, else model.ckpt (the transformer under
+        `transformer.`, no EMA swap, as the JAX pipeline reads it), else,
+        or with random_init, the JAX package's initialisers from `seed`
+        (the first stage's decode side from `seed + 1`)."""
+        def scratch(config, fs_config):
+            return (_scratch_state_dict(RARM(config), seed),
+                    _scratch_state_dict(VQModel(fs_config, encoder=False),
+                                        seed + 1))
+
+        return cls(**_model_dir(model_dir, random_init,
+                                rarm_state_dict_from_jax,
+                                params_io.rarm_state_dicts, scratch,
+                                database, nn_memory, clip_ckpt), **kw)
 
     def embed_caption(self, caption: str, batch_size: int) -> torch.Tensor:
         """The caption's CLIP text embedding [batch_size, D] f32 on the

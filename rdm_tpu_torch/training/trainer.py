@@ -51,6 +51,7 @@ import torch
 
 from rdm_tpu_torch.config import AutoencoderConfig, RARMConfig, RDMConfig
 from rdm_tpu_torch.models.autoencoder import VQModel
+from rdm_tpu_torch.models.init import jax_init_
 from rdm_tpu_torch.models.rarm import RARM
 from rdm_tpu_torch.models.rdm import RDM
 from rdm_tpu_torch.ops.schedules import DiffusionSchedule
@@ -149,11 +150,15 @@ class _Trainer:
     # ---------- state ----------
 
     def _new_state(self, model: torch.nn.Module) -> TrainState:
-        """The initial state of `model` (built in host memory): on the
-        device whole, or, under FSDP, only this rank's shards on it. Under
-        a replicated mesh the parameters are broadcast from data rank 0."""
+        """The initial state of `model` (built in host memory): the given
+        init_state_dict, else the JAX package's initialisers drawn from the
+        trainer's seed (`models/init.jax_init_`); on the device whole, or,
+        under FSDP, only this rank's shards on it. Under a replicated mesh
+        the parameters are broadcast from data rank 0."""
         if self._init_sd is not None:
             model.load_state_dict(self._init_sd)
+        else:
+            jax_init_(model, torch.Generator().manual_seed(self.tcfg.seed))
         if self.fsdp:
             state = init_train_state(model, self.tx)
             return state.shard(self.mesh, self.fsdp_min_size,
@@ -285,7 +290,7 @@ class _Trainer:
 class RDMTrainer(_Trainer):
     """`first_stage_state_dict`: the frozen VQ model's weights (port
     names). `init_state_dict`: optional RDM weights for `init_state`
-    (otherwise the module's own initialisation under `seed`)."""
+    (otherwise the JAX package's initialisers drawn from `seed`)."""
 
     def __init__(self, config: RDMConfig, trainer: TrainerConfig,
                  first_stage_config: AutoencoderConfig,

@@ -31,7 +31,10 @@ context tokens and C = 992 and 1,024 (past the first version's 960: its
 FF launch over clusters of 16 CTAs, non-portable); for the kNN N not a multiple of the 64-row chunk,
 B = 17 and 40 over two and three 16-query tiles, k = 1 and 128,
 duplicate rows in different slices, and the db-sharded search's per-shard
-searches on row views plus the merge at 2-4 shards).
+searches on row views plus the merge at 2-4 shards; the micro quality
+gates' widths: the block kernels at C = 64 as 2 heads of 32 over 4 x 4
+tokens, T = 3, 64 images, the decode kernels at C = 64 as 1 head of 64,
+B = 64, and the kNN over the 256 x 48 pixel-embedding pool at k = 3).
 Tolerance: max|err| <= 2e-2 x max|ref| in bf16, as chip_smoke.py sets it
 (kernel and plain version round to bf16 at different points); the int8
 cache commit as chip_smoke.py phase 12 holds it; the kNN as phase 17
@@ -1522,3 +1525,57 @@ def test_knn_wrapper_raises_instead_of_falling_back(cuda):
         kk.knn_topk(db.bfloat16(), q, 301)
     with pytest.raises(ValueError, match="multiple of 16"):
         kk.knn_topk(db[:, :40].contiguous().bfloat16(), q[:, :40], 4)
+
+
+# ----------------------------------------------- the micro gates' widths
+# (rdm_tpu_torch/eval/micro_gate.py as the card runs it: C = 64 at the
+# RDM's ds-2 site as 2 heads of 32, the RARM's as 1 head of 64; the
+# sampling batch 64 at guidance 1.0; T = 3 neighbours of the 48-wide pixel
+# embedding; the 256-image pool)
+
+@pytest.mark.cuda
+def test_block_kernels_at_the_micro_gate_width(cuda):
+    blk = _block(2, 48, seed=64)
+    g = torch.Generator(device="cuda").manual_seed(64)
+    x = torch.randn((64, 16, 64), generator=g, device="cuda").bfloat16()
+    ctx = torch.randn((64, 3, 48), generator=g, device="cuda").bfloat16()
+    w = bk.pack_block_weights(blk, torch.bfloat16)
+    bk.reset_launch_counts()
+    got = bk.fused_transformer_block(x, ctx, w, heads=2, head_dim=HD)
+    torch.cuda.synchronize()
+    counts = bk.launch_counts()
+    assert [counts[k] for k in ("ln_qkv", "packed_attn", "post_cross",
+                                "geglu_ff")] == [1, 1, 1, 1]
+    with torch.no_grad():
+        want = blk(x, ctx)  # the unfused block, plain bf16 PyTorch
+    assert torch.isfinite(got).all() and _rel_err(got, want) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos", [0, 31, 63])
+def test_decode_kernels_at_the_micro_gate_width(cuda, pos):
+    test_decode_kernels_match_plain(cuda, 64, 1, 64, pos, 3, True)
+
+
+@pytest.mark.cuda
+def test_knn_over_the_micro_gate_pool(cuda):
+    from rdm_tpu_torch.eval.micro_gate import make_shapes, pixel_embed
+
+    pool = torch.as_tensor(pixel_embed(make_shapes(256, size=16, seed=0)),
+                           device="cuda")
+    db = torch.nn.functional.normalize(pool, dim=1).bfloat16()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.nn.functional.normalize(
+        pool[torch.randint(0, 256, (64,), generator=g, device="cuda")], dim=1)
+    kk.reset_launch_counts()
+    s, i = kk.knn_topk(db, q, 3)
+    torch.cuda.synchronize()
+    assert kk.launch_counts() == {"knn": 2}
+    ps, pi = torch.sort((q.bfloat16().double() @ db.double().t()).float(),
+                        dim=1, descending=True, stable=True)
+    assert (s - ps[:, :3]).abs().max().item() <= 1e-5
+    near = torch.zeros_like(ps, dtype=torch.bool)
+    pair = (ps[:, :-1] - ps[:, 1:]).abs() <= 2e-6
+    near[:, :-1] |= pair
+    near[:, 1:] |= pair
+    assert not ((i != pi[:, :3]) & ~near[:, :3]).any()
